@@ -1,0 +1,353 @@
+"""Native (C++/OpenMP) host engines: k-mer index and prefilter, tantan
+masking, composition bias, banded traceback, clusterhits.
+
+The sources are the JAX package's, copied; `banded_sw.cpp` here writes
+its compressed CIGARs without the one-byte overrun of the original.  The
+shared library is compiled with g++ at first use into the package's
+`_build/` directory (content-hashed, git-ignored).  Only the symbols the
+clustersearch path calls are bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+_DIR = Path(__file__).resolve().parent
+BUILD_DIR = _DIR.parent / "_build"
+_SOURCES = ["banded_sw.cpp", "tantan.cpp", "simd_helpers.cpp",
+            "prefilter_engine.cpp", "clusterhits_engine.cpp"]
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def build() -> Path:
+    srcs = [_DIR / s for s in _SOURCES]
+    tag = hashlib.sha1(b"".join(s.read_bytes() for s in srcs)).hexdigest()[:12]
+    out = BUILD_DIR / f"_native_{tag}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run(
+            ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+             *[str(s) for s in srcs], "-o", str(tmp)],
+            check=True, capture_output=True)
+        tmp.rename(out)
+    return out
+
+
+def get_lib() -> ctypes.CDLL:
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _bind(ctypes.CDLL(str(build())))
+    return _LIB
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P = ctypes.POINTER
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    lib.comp_bias_batch.restype = None
+    lib.comp_bias_batch.argtypes = [
+        P(ctypes.c_uint8), P(i64), P(i32), ctypes.c_int,
+        P(i32), ctypes.c_int, P(ctypes.c_double), P(ctypes.c_int8)]
+    lib.prefilter_match_batch.restype = ctypes.c_int
+    lib.prefilter_match_batch.argtypes = [
+        P(ctypes.c_uint8),   # qdata
+        P(i64),              # qoffs
+        P(i32),              # qlens
+        ctypes.c_int,        # nq
+        P(i32),              # seed_sub
+        P(ctypes.c_double),  # p_back
+        ctypes.c_int, ctypes.c_int,       # nsym, do_bias
+        P(ctypes.c_int16),   # sc3
+        P(ctypes.c_int16),   # id3
+        P(ctypes.c_int16),   # sc2 (nullable for k%3==0)
+        P(ctypes.c_int16),   # id2
+        ctypes.c_int,        # kmer_size
+        P(i32),              # spaced pattern
+        P(i32),              # hash keys
+        P(i32),              # hash range starts
+        P(i32),              # hash range counts
+        i64,                 # hash capacity
+        P(ctypes.c_uint64),  # occupied bitmap
+        P(i32),              # post_seq
+        P(i32),              # post_pos
+        P(ctypes.c_uint8),   # tdata
+        P(i64),              # toffs
+        P(i32),              # tlens
+        ctypes.c_int,        # nt
+        P(i32),              # ungapped_sub
+        ctypes.c_int, ctypes.c_int,       # alpha, x_index
+        ctypes.c_int, ctypes.c_int,       # kmer_thr, max_seqs
+        ctypes.c_int, ctypes.c_int,       # min_diag_score, bin_count
+        ctypes.c_int,                     # same_db
+        ctypes.c_float, ctypes.c_int,     # cov_thr, cov_mode
+        i64,                 # match buffer cap (0=auto)
+        P(i32), P(i32), P(i32), P(i32),   # out_seq/score/diag/cnt
+        P(i64),              # total_raw_out
+    ]
+    lib.tantan_mask.restype = ctypes.c_int
+    lib.tantan_mask.argtypes = [
+        P(ctypes.c_uint8),                # seq (in/out)
+        ctypes.c_int,                     # n
+        P(ctypes.c_double),               # ratio matrix
+        ctypes.c_int,                     # alpha
+        ctypes.c_int,                     # max_offset
+        ctypes.c_double, ctypes.c_double,  # repeat_prob, repeat_end_prob
+        ctypes.c_double, ctypes.c_double,  # decay, min_mask_prob
+        ctypes.c_uint8,                   # mask_to
+        P(ctypes.c_float),                # probs_out (nullable)
+    ]
+    lib.build_kmer_index.restype = ctypes.c_int
+    lib.build_kmer_index.argtypes = [
+        P(ctypes.c_uint8), P(i64), P(i32), ctypes.c_int, P(i32),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, P(i32), P(i32), P(i32),
+        P(i32), P(i64)]
+    lib.build_kmer_hash.restype = ctypes.c_int
+    lib.build_kmer_hash.argtypes = [
+        P(i32), i64, P(i32), P(i32), P(i32), i64, P(ctypes.c_uint64), i64]
+    lib.banded_align_batch.restype = ctypes.c_int
+    lib.banded_align_batch.argtypes = [
+        P(ctypes.c_uint8), P(i64), P(ctypes.c_uint8), P(i64),
+        P(ctypes.c_int8), P(ctypes.c_int8), ctypes.c_int, ctypes.c_int,
+        P(i32), P(i32), P(i32), P(i32), P(i32), P(i32), P(i32),
+        ctypes.c_int, ctypes.c_int, P(i64), ctypes.c_char_p, P(i32), P(i32),
+        ctypes.c_char_p, P(i32)]
+    lib.cluster_hits_engine.restype = ctypes.c_int
+    lib.cluster_hits_engine.argtypes = [
+        P(i64), P(i64), P(ctypes.c_uint8), P(ctypes.c_uint8), ctypes.c_int,
+        P(ctypes.c_double), i64, i64, ctypes.c_double, ctypes.c_double,
+        P(i32), P(i32), P(ctypes.c_double)]
+    lib.spacedust_set_threads.restype = ctypes.c_int
+    lib.spacedust_set_threads.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def tantan_mask(seq: np.ndarray, ratio: np.ndarray, mask_to: int,
+                max_offset: int = 50, repeat_prob: float = 0.005,
+                repeat_end_prob: float = 0.05, decay: float = 0.9,
+                min_mask_prob: float = 0.9) -> np.ndarray:
+    """Masked copy of `seq` with low-complexity/tandem repeats set to
+    `mask_to`."""
+    lib = get_lib()
+    out = np.ascontiguousarray(seq, dtype=np.uint8).copy()
+    ratio = np.ascontiguousarray(ratio, dtype=np.float64)
+    lib.tantan_mask(_ptr(out, ctypes.c_uint8), len(out),
+                    _ptr(ratio, ctypes.c_double), ratio.shape[0],
+                    max_offset, repeat_prob, repeat_end_prob, decay,
+                    min_mask_prob, mask_to, ctypes.POINTER(ctypes.c_float)())
+    return out
+
+
+def comp_bias_batch(qdata, qoffs, qlens, sub_int, p_back):
+    """int8 SW-profile composition bias for every query, concatenated in
+    the same layout as qdata."""
+    lib = get_lib()
+    out = np.zeros(len(qdata), dtype=np.int8)
+    lib.comp_bias_batch(
+        _ptr(qdata, ctypes.c_uint8), _ptr(qoffs, ctypes.c_int64),
+        _ptr(qlens, ctypes.c_int32), len(qlens),
+        _ptr(sub_int, ctypes.c_int32), sub_int.shape[0],
+        _ptr(p_back, ctypes.c_double), _ptr(out, ctypes.c_int8))
+    return out
+
+
+def build_kmer_index(tdata: np.ndarray, toffs: np.ndarray,
+                     tlens: np.ndarray, diag_scores: np.ndarray,
+                     x_index: int, kmer_thr: int, kmer_size: int,
+                     pattern: np.ndarray):
+    """Parallel k-mer index build (IndexBuilder::fillDatabase analog).
+    Returns (kmers, seq_ids, positions) in (kmer, seq, pos) posting
+    order."""
+    lib = get_lib()
+    pattern = np.ascontiguousarray(pattern, dtype=np.int32)
+    span = int(pattern[-1]) + 1
+    tdata = np.ascontiguousarray(tdata, dtype=np.uint8)
+    toffs = np.ascontiguousarray(toffs, dtype=np.int64)
+    tlens = np.ascontiguousarray(tlens, dtype=np.int32)
+    diag_scores = np.ascontiguousarray(diag_scores, dtype=np.int32)
+    cap = int(np.maximum(tlens.astype(np.int64) - (span - 1), 0).sum())
+    out_kmer = np.empty(max(cap, 1), dtype=np.int32)
+    out_seq = np.empty(max(cap, 1), dtype=np.int32)
+    out_pos = np.empty(max(cap, 1), dtype=np.int32)
+    n_out = ctypes.c_int64(0)
+    rc = lib.build_kmer_index(
+        _ptr(tdata, ctypes.c_uint8), _ptr(toffs, ctypes.c_int64),
+        _ptr(tlens, ctypes.c_int32), len(tlens),
+        _ptr(diag_scores, ctypes.c_int32), int(x_index), int(kmer_thr),
+        int(kmer_size), _ptr(pattern, ctypes.c_int32),
+        _ptr(out_kmer, ctypes.c_int32), _ptr(out_seq, ctypes.c_int32),
+        _ptr(out_pos, ctypes.c_int32), ctypes.byref(n_out))
+    if rc != 0:
+        raise RuntimeError(f"build_kmer_index failed: {rc}")
+    n = int(n_out.value)
+    return out_kmer[:n], out_seq[:n], out_pos[:n]
+
+
+def build_kmer_hash(post_kmer: np.ndarray, n_bits: int):
+    """Compact posting-range hash + occupancy bitmap from the sorted
+    posting k-mer column."""
+    lib = get_lib()
+    post_kmer = np.ascontiguousarray(post_kmer, dtype=np.int32)
+    n_unique = int(len(np.unique(post_kmer))) if len(post_kmer) else 0
+    cap = 1
+    while cap < max(2 * n_unique, 2):
+        cap *= 2
+    hkeys = np.empty(cap, dtype=np.int32)
+    hoff = np.empty(cap, dtype=np.int32)
+    hcnt = np.empty(cap, dtype=np.int32)
+    bitmap = np.empty((n_bits + 63) // 64, dtype=np.uint64)
+    rc = lib.build_kmer_hash(
+        _ptr(post_kmer, ctypes.c_int32), ctypes.c_int64(len(post_kmer)),
+        _ptr(hkeys, ctypes.c_int32), _ptr(hoff, ctypes.c_int32),
+        _ptr(hcnt, ctypes.c_int32), ctypes.c_int64(cap),
+        _ptr(bitmap, ctypes.c_uint64), ctypes.c_int64(n_bits))
+    if rc != 0:
+        raise RuntimeError(f"build_kmer_hash failed: {rc}")
+    return hkeys, hoff, hcnt, bitmap
+
+
+def prefilter_match_batch(qdata, qoffs, qlens, seed_sub, p_back, do_bias,
+                          sc3, id3, hkeys, hoff, hcnt, occupied,
+                          post_seq, post_pos,
+                          tdata, toffs, tlens, ungapped_sub, x_index,
+                          kmer_thr, max_seqs, min_diag_score, bin_count,
+                          identity_base, cov_thr, cov_mode,
+                          kmer_size: int, pattern, sc2=None, id2=None):
+    """OpenMP k-mer prefilter over a query batch (see prefilter_engine.cpp).
+
+    identity_base >= 0: same-DB search, batch row qi is target key
+    identity_base + qi (streaming chunks pass their range start); -1 for
+    different query/target DBs.
+
+    Returns (out_seq, out_score, out_diag, out_cnt, total_raw): per query
+    qi the hits are rows [qi*max_seqs : qi*max_seqs+out_cnt[qi]].
+    """
+    lib = get_lib()
+    nq = len(qlens)
+    nt = len(tlens)
+    pattern = np.ascontiguousarray(pattern, dtype=np.int32)
+    out_seq = np.empty(nq * max_seqs, dtype=np.int32)
+    out_score = np.empty(nq * max_seqs, dtype=np.int32)
+    out_diag = np.empty(nq * max_seqs, dtype=np.int32)
+    out_cnt = np.zeros(nq, dtype=np.int32)
+    total_raw = ctypes.c_int64(0)
+    null16 = ctypes.POINTER(ctypes.c_int16)()
+    rc = lib.prefilter_match_batch(
+        _ptr(qdata, ctypes.c_uint8), _ptr(qoffs, ctypes.c_int64),
+        _ptr(qlens, ctypes.c_int32), nq,
+        _ptr(seed_sub, ctypes.c_int32), _ptr(p_back, ctypes.c_double),
+        seed_sub.shape[0], int(do_bias),
+        _ptr(sc3, ctypes.c_int16), _ptr(id3, ctypes.c_int16),
+        _ptr(sc2, ctypes.c_int16) if sc2 is not None else null16,
+        _ptr(id2, ctypes.c_int16) if id2 is not None else null16,
+        int(kmer_size), _ptr(pattern, ctypes.c_int32),
+        _ptr(hkeys, ctypes.c_int32), _ptr(hoff, ctypes.c_int32),
+        _ptr(hcnt, ctypes.c_int32), ctypes.c_int64(len(hkeys)),
+        _ptr(occupied, ctypes.c_uint64),
+        _ptr(post_seq, ctypes.c_int32), _ptr(post_pos, ctypes.c_int32),
+        _ptr(tdata, ctypes.c_uint8), _ptr(toffs, ctypes.c_int64),
+        _ptr(tlens, ctypes.c_int32), nt,
+        _ptr(ungapped_sub, ctypes.c_int32), ungapped_sub.shape[0],
+        int(x_index), int(kmer_thr), int(max_seqs), int(min_diag_score),
+        int(bin_count), int(identity_base), float(cov_thr), int(cov_mode),
+        ctypes.c_int64(0),
+        _ptr(out_seq, ctypes.c_int32), _ptr(out_score, ctypes.c_int32),
+        _ptr(out_diag, ctypes.c_int32), _ptr(out_cnt, ctypes.c_int32),
+        ctypes.byref(total_raw))
+    if rc != 0:
+        raise RuntimeError(f"prefilter_match_batch failed: {rc}")
+    return out_seq, out_score, out_diag, out_cnt, int(total_raw.value)
+
+
+def cluster_hits_native(qpos, tpos, qstrand, tstrand, lookup,
+                        max_gene_gaps: int, s_min: float, q0: float = 0.001):
+    """Native agglomeration (clusterhits_engine.cpp). Returns
+    (node_member_lists, node_scores) in nodes-index order."""
+    lib = get_lib()
+    K = len(qpos)
+    qpos = np.ascontiguousarray(qpos, dtype=np.int64)
+    tpos = np.ascontiguousarray(tpos, dtype=np.int64)
+    qstrand = np.ascontiguousarray(qstrand, dtype=np.uint8)
+    tstrand = np.ascontiguousarray(tstrand, dtype=np.uint8)
+    lookup = np.ascontiguousarray(lookup, dtype=np.float64)
+    members = np.empty(K, dtype=np.int32)
+    sizes = np.empty(K, dtype=np.int32)
+    scores = np.empty(K, dtype=np.float64)
+    lib.cluster_hits_engine(
+        _ptr(qpos, ctypes.c_int64), _ptr(tpos, ctypes.c_int64),
+        _ptr(qstrand, ctypes.c_uint8), _ptr(tstrand, ctypes.c_uint8),
+        K, _ptr(lookup, ctypes.c_double), ctypes.c_int64(len(lookup)),
+        ctypes.c_int64(max_gene_gaps), ctypes.c_double(s_min),
+        ctypes.c_double(q0),
+        _ptr(members, ctypes.c_int32), _ptr(sizes, ctypes.c_int32),
+        _ptr(scores, ctypes.c_double))
+    out, off = [], 0
+    for n in range(K):
+        sz = int(sizes[n])
+        out.append([int(x) for x in members[off:off + sz]])
+        off += sz
+    return out, scores
+
+
+def banded_align_batch(qdata, qoffs, tdata, toffs, bias_data, mat_int8,
+                       qk, tk, qstart, qend, tstart, tend, score,
+                       gap_open: int, gap_extend: int):
+    """Batched banded tracebacks (OpenMP over pairs).  Returns
+    (ops_list, n_ident array, cigar_list); raises on any failed
+    traceback."""
+    lib = get_lib()
+    n = len(qk)
+    qk = np.ascontiguousarray(qk, dtype=np.int32)
+    tk = np.ascontiguousarray(tk, dtype=np.int32)
+    qstart = np.ascontiguousarray(qstart, dtype=np.int32)
+    qend = np.ascontiguousarray(qend, dtype=np.int32)
+    tstart = np.ascontiguousarray(tstart, dtype=np.int32)
+    tend = np.ascontiguousarray(tend, dtype=np.int32)
+    score = np.ascontiguousarray(score, dtype=np.int32)
+    caps = ((qend - qstart + 1).astype(np.int64)
+            + (tend - tstart + 1).astype(np.int64) + 8)
+    out_offs = np.concatenate(([0], np.cumsum(caps)))
+    out_ops = ctypes.create_string_buffer(int(out_offs[-1]))
+    out_len = np.empty(n, dtype=np.int32)
+    out_ident = np.empty(n, dtype=np.int32)
+    # worst case (alternating ops) doubles the length
+    out_cigar = ctypes.create_string_buffer(2 * int(out_offs[-1]))
+    out_clen = np.empty(n, dtype=np.int32)
+    bad = lib.banded_align_batch(
+        _ptr(qdata, ctypes.c_uint8), _ptr(qoffs, ctypes.c_int64),
+        _ptr(tdata, ctypes.c_uint8), _ptr(toffs, ctypes.c_int64),
+        _ptr(bias_data, ctypes.c_int8),
+        _ptr(mat_int8, ctypes.c_int8), mat_int8.shape[0],
+        n, _ptr(qk, ctypes.c_int32), _ptr(tk, ctypes.c_int32),
+        _ptr(qstart, ctypes.c_int32), _ptr(qend, ctypes.c_int32),
+        _ptr(tstart, ctypes.c_int32), _ptr(tend, ctypes.c_int32),
+        _ptr(score, ctypes.c_int32), gap_open, gap_extend,
+        _ptr(out_offs, ctypes.c_int64), out_ops,
+        _ptr(out_len, ctypes.c_int32), _ptr(out_ident, ctypes.c_int32),
+        out_cigar, _ptr(out_clen, ctypes.c_int32))
+    if bad:
+        raise RuntimeError(f"banded_align_batch: {bad} failed tracebacks")
+    raw = out_ops.raw
+    ops = [raw[int(out_offs[i]):int(out_offs[i]) + int(out_len[i])]
+           .decode("ascii") for i in range(n)]
+    craw = out_cigar.raw
+    cigs = [craw[2 * int(out_offs[i]):2 * int(out_offs[i])
+                 + int(out_clen[i])].decode("ascii") for i in range(n)]
+    return ops, out_ident, cigs
+
+
+def set_num_threads(n: int) -> None:
+    """--threads analog: cap the OpenMP team of every native engine."""
+    get_lib().spacedust_set_threads(int(n))

@@ -1,0 +1,169 @@
+"""Plain PyTorch Smith-Waterman: the reference versions of the CUDA kernels.
+
+`gather_panels` is the plain counterpart of the JAX package's
+`ops/sw_engine.py::panel_gather` (and of the flipped gather of the
+reverse pass): it cuts per-pair (B, Lq) query-token / bias panels and
+(B, Lt) target-token panels out of the resident 1-D arrays.
+`make_profile` builds prof[b, a, i] = sub[q_bi, a] + bias_bi, and
+`sw_scan_ref` is a line-for-line twin of the JAX package's
+`ops/sw_tiled.py::sw_scan_core`: a column loop over target positions,
+vectorized over (B, Lq), with the same six outputs
+
+    (score, t_end, q_end, found, fj, fi)
+
+  * score: max H over valid cells, clamped at 0;
+  * (t_end, q_end): the first target column whose column max strictly
+    exceeds the running best, then the first query row reaching it;
+    (-1, 0) when the score is 0;
+  * (found, fj, fi): the first column whose column max equals
+    `terminate`, and the first row reaching it there; (0, -1, 0) when no
+    column does.
+
+Per-cell score: int8(sub[q_i][t_j] + bias_i) — the profile is cast to
+int8 (wrapping), as the JAX scan does.  The DP runs in int32 (Gotoh with
+a local 0 clamp; E carries across target columns, F is the in-column gap
+in the closed form of a running max).
+
+These run wherever their tensors are.  The CPU tests hold them against
+the JAX package; on the card they are the yardstick `chip_smoke.py`
+holds the kernels of `ops/sw_cuda.py` against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG = -(1 << 30)
+# (pairs x query rows) per plain-version batch: bounds the (B, A, Lq)
+# profile and the (B, Lq) DP state
+REF_CELLS = 1 << 20
+
+
+def gather_panels(qdata: torch.Tensor, qbias: torch.Tensor,
+                  tdata: torch.Tensor, qoff: torch.Tensor, qlen: torch.Tensor,
+                  toff: torch.Tensor, tlen: torch.Tensor, Lq: int, Lt: int,
+                  reverse: bool):
+    """(B, Lq) query tokens, (B, Lq) bias and (B, Lt) target tokens, all
+    int32, read from the resident arrays at per-pair element offsets.
+    reverse=True reads the flipped prefixes q[qoff+qlen-1-i],
+    t[toff+tlen-1-j].  Positions past a pair's length are clamped into
+    the pair (the DP's validity masks make them unreachable)."""
+    dev = qdata.device
+    iq = torch.arange(Lq, device=dev, dtype=torch.int64)[None, :]
+    it = torch.arange(Lt, device=dev, dtype=torch.int64)[None, :]
+    ql = qlen.to(torch.int64)[:, None]
+    tl = tlen.to(torch.int64)[:, None]
+    if reverse:
+        qsel = (ql - 1 - iq).clamp(min=0)
+        tsel = (tl - 1 - it).clamp(min=0)
+    else:
+        qsel = torch.minimum(iq, ql - 1).clamp(min=0)
+        tsel = torch.minimum(it, tl - 1).clamp(min=0)
+    q_idx = qoff.to(torch.int64)[:, None] + qsel
+    t_idx = toff.to(torch.int64)[:, None] + tsel
+    return (qdata[q_idx].to(torch.int32), qbias[q_idx].to(torch.int32),
+            tdata[t_idx].to(torch.int32))
+
+
+def make_profile(qtok: torch.Tensor, qb: torch.Tensor,
+                 sub: torch.Tensor) -> torch.Tensor:
+    """prof[b, a, i] = sub[q[b, i], a] + bias[b, i]  -> (B, A, Lq) int32."""
+    prof = sub.to(torch.int32)[qtok.to(torch.int64)]      # (B, Lq, A)
+    prof = prof + qb.to(torch.int32)[:, :, None]
+    return prof.permute(0, 2, 1).contiguous()
+
+
+def sw_scan_ref(prof: torch.Tensor, tseq: torch.Tensor, qlens: torch.Tensor,
+                tlens: torch.Tensor, gap_open: int, gap_extend: int,
+                terminate: torch.Tensor):
+    """prof: (B, A, Lq) int32; tseq: (B, Lt) int tokens; lens and
+    terminate (B,).  Returns the six int32 outputs described above.
+
+    H and E are not frozen past a pair's tlen: those columns feed only
+    later columns of the same pair, which are past tlen too, and every
+    tracker update is gated on the column being valid."""
+    B, A, Lq = prof.shape
+    Lt = tseq.shape[1]
+    dev = prof.device
+    i32 = torch.int32
+    iota_q = torch.arange(Lq, device=dev, dtype=i32)[None, :]
+    qlens = qlens.to(i32)
+    tlens = tlens.to(i32)
+    terminate = terminate.to(i32)
+    valid = (iota_q < qlens[:, None]).to(i32)              # (B, Lq) 0/1
+    go = gap_open
+    ge = gap_extend
+    # int8 wrap, NEG on rows past qlen; rows of the flat (B*A, Lq) view
+    # are picked per column by b*A + t[b, j]
+    prof_i8 = prof.to(torch.int8).to(i32)
+    prof_i8 = torch.where(valid[:, None, :].bool(), prof_i8, NEG)
+    prof_rows = prof_i8.reshape(B * A, Lq)
+    row_base = torch.arange(B, device=dev, dtype=torch.int64) * A
+    tseq = tseq.to(torch.int64)
+    ge_iota = ge * iota_q
+    f_off = go + ge * (iota_q - 1)
+    neg_col = torch.full((B, 1), NEG, device=dev, dtype=i32)
+    zero_col = torch.zeros((B, 1), device=dev, dtype=i32)
+
+    H = torch.zeros((B, Lq), device=dev, dtype=i32)
+    E = torch.full((B, Lq), NEG, device=dev, dtype=i32)
+    gmax = torch.zeros(B, device=dev, dtype=i32)
+    gj = torch.full((B,), -1, device=dev, dtype=i32)
+    gi = torch.zeros(B, device=dev, dtype=i32)
+    found = torch.zeros(B, device=dev, dtype=torch.bool)
+    fj = torch.full((B,), -1, device=dev, dtype=i32)
+    fi = torch.zeros(B, device=dev, dtype=i32)
+    for j in range(Lt):
+        s_col = prof_rows.index_select(0, row_base + tseq[:, j])
+        diag = torch.cat([zero_col, H[:, :-1]], dim=1)
+        E = torch.maximum(E - ge, H - go)
+        Hbase = torch.maximum((diag + s_col).clamp_(min=0), E)
+        shifted = torch.cat([neg_col, (Hbase + ge_iota)[:, :-1]], dim=1)
+        F = torch.cummax(shifted, dim=1).values - f_off
+        H = torch.maximum(Hbase, F) * valid               # 0 past qlen
+
+        # column max over valid rows (-1 past qlen) and its first row
+        cmax, ci = (H + (valid - 1)).max(dim=1)
+        ci = ci.to(i32)
+        col_valid = j < tlens
+        better = col_valid & (cmax > gmax)
+        gmax = torch.where(better, cmax, gmax)
+        gj = torch.where(better, j, gj)
+        gi = torch.where(better, ci, gi)
+        hit = col_valid & ~found & (cmax == terminate)
+        fj = torch.where(hit, j, fj)
+        fi = torch.where(hit, ci, fi)
+        found = found | hit
+    return gmax, gj, gi, found.to(i32), fj, fi
+
+
+def sw_jobs_ref(qdata: torch.Tensor, qbias: torch.Tensor,
+                tdata: torch.Tensor, sub: torch.Tensor, jobs: np.ndarray,
+                gap_open: int, gap_extend: int, reverse: bool) -> torch.Tensor:
+    """Plain version of the `ops/sw_cuda.py` kernels: the same (5, n)
+    int64 job array in (qoff, qlen, toff, tlen, terminate), the same
+    (6, n) int32 result, on the device of `qdata`.  Pairs are scanned in
+    batches of similar length (gather_panels + make_profile + sw_scan_ref)."""
+    dev = qdata.device
+    n = jobs.shape[1]
+    out = torch.empty((6, n), dtype=torch.int32, device=dev)
+    longest = np.maximum(jobs[1], jobs[3])
+    order = np.argsort(longest, kind="stable")
+    s = 0
+    while s < n:
+        # ascending lengths: grow the batch while B * max(qlen) fits
+        ql = np.maximum.accumulate(jobs[1, order[s:]])
+        fits = np.arange(1, n - s + 1) * np.maximum(ql, 1) <= REF_CELLS
+        e = s + max(int(fits.sum()), 1)
+        idx = order[s:e]
+        j = torch.from_numpy(np.ascontiguousarray(jobs[:, idx])).to(dev)
+        Lq = max(int(jobs[1, idx].max()), 1)
+        Lt = max(int(jobs[3, idx].max()), 1)
+        qt, qb, tt = gather_panels(qdata, qbias, tdata, j[0], j[1], j[2],
+                                   j[3], Lq, Lt, reverse)
+        res = sw_scan_ref(make_profile(qt, qb, sub), tt, j[1], j[3],
+                          gap_open, gap_extend, j[4])
+        out[:, torch.from_numpy(idx).to(dev)] = torch.stack(res)
+        s = e
+    return out

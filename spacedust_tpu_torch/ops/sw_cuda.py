@@ -1,0 +1,191 @@
+"""Hand-written Hopper kernels for the SW score passes, and their wrappers.
+
+`csrc/sw.cu` holds two CUDA kernels (see the note at its top):
+`sw_forward` replaces the JAX package's `ops/sw_pallas.py::_kernel_rowmax`,
+`sw_reverse` its `ops/sw_pallas.py::_kernel`, and both take over
+`ops/sw_engine.py::panel_gather` as their own load stage.  The source is
+compiled with nvcc for sm_90a at first use into `_build/` beside the
+package (git-ignored) and bound through a plain C interface with ctypes.
+
+The wrappers take the resident device arrays, the substitution matrix and
+a host (5, n) int64 job array (qoff, qlen, toff, tlen, terminate) and
+return a (6, n) int32 tensor (score, t_end, q_end, found, fj, fi) on the
+device of the resident arrays.  For CUDA tensors they copy the jobs to
+the card once and launch the kernel on the current stream, in as many
+launches as keep each launch's DP scratch under SCRATCH_BYTES; nothing is
+synchronised.  For CPU tensors they run the plain version
+(`ops/sw.py::sw_jobs_ref`).  There is no fallback between the two.
+
+FORWARD_LAUNCHES / REVERSE_LAUNCHES count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .sw import sw_jobs_ref
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "sw.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SCRATCH_BYTES = 1 << 30        # per-launch DP scratch bound
+
+FORWARD_LAUNCHES = 0
+REVERSE_LAUNCHES = 0
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def reset_counts() -> None:
+    global FORWARD_LAUNCHES, REVERSE_LAUNCHES
+    FORWARD_LAUNCHES = 0
+    REVERSE_LAUNCHES = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the SW kernels need the CUDA toolkit")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/sw.cu (content-hashed) and return the library path."""
+    tag = hashlib.sha1(SOURCE.read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"libsw_{tag}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+        res = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stderr}")
+        if verbose:
+            print(res.stderr, end="")
+        tmp.rename(out)
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            p = ctypes.c_void_p
+            for fn in (lib.sw_forward, lib.sw_reverse):
+                fn.restype = ctypes.c_int
+                fn.argtypes = [p, p, p, p, ctypes.c_int, p, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p,
+                               ctypes.c_longlong, p]
+            _LIB = lib
+    return _LIB
+
+
+def scratch_chunks(tlen: np.ndarray, bytes_per_cell: int,
+                   budget: int = SCRATCH_BYTES) -> list[tuple[int, int]]:
+    """Split pairs [0, n) into contiguous launches whose scratch,
+    n_launch * max(tlen) * bytes_per_cell, stays within budget."""
+    chunks, s, n = [], 0, len(tlen)
+    while s < n:
+        mx = np.maximum.accumulate(np.maximum(tlen[s:], 1).astype(np.int64))
+        size = np.arange(1, n - s + 1, dtype=np.int64) * mx * bytes_per_cell
+        over = np.nonzero(size > budget)[0]
+        e = s + max(int(over[0]), 1) if len(over) else n
+        chunks.append((s, e))
+        s = e
+    return chunks
+
+
+def _check(qdata, qbias, tdata, sub, jobs, gap_open, gap_extend):
+    dev = qdata.device
+    for name, t, dt in (("qdata", qdata, torch.uint8),
+                        ("qbias", qbias, torch.int8),
+                        ("tdata", tdata, torch.uint8),
+                        ("sub", sub, torch.int8)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dt} tensor on {dev}")
+    if sub.dim() != 2 or sub.shape[0] != sub.shape[1] or sub.shape[0] > 32:
+        raise ValueError("sub must be a square matrix of at most 32 letters")
+    if jobs.dtype != np.int64 or jobs.ndim != 2 or jobs.shape[0] != 5:
+        raise ValueError("jobs must be a (5, n) int64 array")
+    qoff, qlen, toff, tlen = jobs[:4]
+    if jobs.shape[1] and not (
+            (qlen >= 1).all() and (tlen >= 1).all()
+            and (qlen < 2**31).all() and (tlen < 2**31).all()
+            and (qoff >= 0).all() and (qoff + qlen <= len(qdata)).all()
+            and (toff >= 0).all() and (toff + tlen <= len(tdata)).all()):
+        raise ValueError("SW jobs need 1 <= length < 2**31 and offsets "
+                         "inside the resident arrays")
+    if gap_open < gap_extend:
+        raise ValueError("the SW kernels need gap_open >= gap_extend")
+
+
+def _run(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
+         gap_open: int, gap_extend: int) -> torch.Tensor:
+    global FORWARD_LAUNCHES, REVERSE_LAUNCHES
+    _check(qdata, qbias, tdata, sub, jobs, gap_open, gap_extend)
+    dev = qdata.device
+    if dev.type == "cpu":
+        return sw_jobs_ref(qdata, qbias, tdata, sub, jobs, gap_open,
+                           gap_extend, reverse)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _lib()
+    fn = lib.sw_reverse if reverse else lib.sw_forward
+    n = jobs.shape[1]
+    out = torch.empty((6, n), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    jobs_np = np.ascontiguousarray(jobs)
+    jobs_d = torch.from_numpy(jobs_np).to(dev, non_blocking=False)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cell = 16 if reverse else 8
+    for s, e in scratch_chunks(jobs_np[3], cell):
+        mt = max(int(jobs_np[3, s:e].max()), 1)
+        scratch = torch.empty((e - s) * mt * cell, dtype=torch.uint8,
+                              device=dev)
+        rc = fn(qdata.data_ptr(), qbias.data_ptr(), tdata.data_ptr(),
+                sub.data_ptr(), int(sub.shape[0]),
+                jobs_d.data_ptr() + 8 * s, n, e - s,
+                int(gap_open), int(gap_extend), scratch.data_ptr(),
+                out.data_ptr() + 4 * s, n, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{'sw_reverse' if reverse else 'sw_forward'} launch failed: "
+                f"CUDA error {rc}")
+        if reverse:
+            REVERSE_LAUNCHES += 1
+        else:
+            FORWARD_LAUNCHES += 1
+    return out
+
+
+def sw_forward(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
+               gap_extend: int) -> torch.Tensor:
+    """Forward pass: (score, t_end, q_end) in rows 0-2 of the (6, n)
+    result; rows 3-5 hold the (0, -1, 0) placeholders."""
+    return _run(False, qdata, qbias, tdata, sub, jobs, gap_open, gap_extend)
+
+
+def sw_reverse(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
+               gap_extend: int) -> torch.Tensor:
+    """Reverse pass on the flipped prefixes: all six outputs, with
+    (found, fj, fi) at the terminate score in flipped coordinates."""
+    return _run(True, qdata, qbias, tdata, sub, jobs, gap_open, gap_extend)

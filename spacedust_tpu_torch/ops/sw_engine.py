@@ -1,0 +1,137 @@
+"""Device-resident SW engine: the port of the JAX package's
+`ops/sw_engine.py::DeviceAlignDB`.
+
+The query tokens, their int8 composition bias and the target tokens are
+copied to the device once, unpadded, and addressed by int64 element
+offsets.  Forward and reverse jobs are buffered per direction and
+dispatched as one stage once DISPATCH_PAIRS pairs are waiting (or at
+flush()): the stage's pairs are sorted by cell count, packed into one
+(5, n) int64 job array (qoff, qlen, toff, tlen, terminate) that the
+wrapper copies to the device once, and scored by the `ops/sw_cuda.py`
+kernels on the current stream (the plain version for CPU tensors).
+Results stay on the device until collect(), which fetches every pending
+stage with one device-to-host copy.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from . import sw_cuda
+
+# pairs per dispatched stage: one thread per pair, so a stage should
+# carry enough pairs to fill the card
+DISPATCH_PAIRS = 1 << 16
+
+
+class DeviceAlignDB:
+    """Resident arrays for one (query DB, target DB) pair.
+
+    qdata/qbias/tdata: concatenated uint8 tokens / int8 bias / uint8
+    tokens; sub: (A, A) substitution matrix; device: where the arrays
+    live and the SW runs (a CUDA device runs the kernels, the CPU the
+    plain version)."""
+
+    def __init__(self, qdata: np.ndarray, qbias: np.ndarray,
+                 tdata: np.ndarray, sub: np.ndarray,
+                 device: torch.device | str):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is "
+                               "not available")
+        alpha = sub.shape[0]
+        for name, a in (("query", qdata), ("target", tdata)):
+            if len(a) and int(a.max()) >= alpha:
+                raise ValueError(f"{name} token out of the {alpha}-letter "
+                                 "alphabet")
+        self.device = device
+        # a loaded SetDB maps its arrays read-only: copy those
+        self.qdata, self.qbias, self.tdata, self.sub = (
+            torch.from_numpy(np.require(a, dt, ["C", "W"])).to(device)
+            for a, dt in ((qdata, np.uint8), (qbias, np.int8),
+                          (tdata, np.uint8), (sub, np.int8)))
+        self._buf: dict[tuple, list] = {}
+        self.metrics = {"n_batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
+                        "fwd_launches": 0, "rev_launches": 0,
+                        "fwd_pairs": 0, "rev_pairs": 0,
+                        "fwd_cells": 0, "rev_cells": 0,
+                        "fwd_kernel_ms": 0.0, "rev_kernel_ms": 0.0}
+
+    def enqueue(self, jobs, gap_open: int, gap_extend: int,
+                reverse: bool):
+        """Buffer jobs (an iterable of (qoff, qlen, toff, tlen, term,
+        positions) arrays) and dispatch the buffer as one stage once it
+        holds DISPATCH_PAIRS pairs.  Returns the pending stages
+        dispatched now (for collect())."""
+        key = (gap_open, gap_extend, reverse)
+        buf = self._buf.setdefault(key, [])
+        for job in jobs:
+            buf.append(tuple(np.asarray(c) for c in job))
+        if sum(len(b[0]) for b in buf) >= DISPATCH_PAIRS:
+            return self.flush(gap_open, gap_extend, reverse)
+        return []
+
+    def flush(self, gap_open: int, gap_extend: int, reverse: bool):
+        """Dispatch whatever is buffered for this direction."""
+        buf = self._buf.pop((gap_open, gap_extend, reverse), [])
+        if not buf or sum(len(b[0]) for b in buf) == 0:
+            return []
+        cols = [np.concatenate([b[i] for b in buf]) for i in range(6)]
+        return [self._dispatch(cols, gap_open, gap_extend, reverse)]
+
+    def _dispatch(self, cols, gap_open: int, gap_extend: int,
+                  reverse: bool):
+        t0 = time.perf_counter()
+        jobs = np.stack([c.astype(np.int64) for c in cols[:5]])
+        cells = jobs[1] * jobs[3]
+        # similar work per warp: one thread per pair
+        order = np.argsort(cells, kind="stable")
+        jobs = np.ascontiguousarray(jobs[:, order])
+        timed = self.device.type == "cuda"
+        if timed:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        before = (sw_cuda.FORWARD_LAUNCHES, sw_cuda.REVERSE_LAUNCHES)
+        fn = sw_cuda.sw_reverse if reverse else sw_cuda.sw_forward
+        out = fn(self.qdata, self.qbias, self.tdata, self.sub, jobs,
+                 gap_open, gap_extend)
+        if timed:
+            ev[1].record()
+        d = "rev" if reverse else "fwd"
+        m = self.metrics
+        m["n_batches"] += 1
+        m[f"{d}_launches"] += ((sw_cuda.REVERSE_LAUNCHES - before[1])
+                               if reverse
+                               else (sw_cuda.FORWARD_LAUNCHES - before[0]))
+        m[f"{d}_pairs"] += jobs.shape[1]
+        m[f"{d}_cells"] += int(cells.sum())
+        m["dispatch_s"] += time.perf_counter() - t0
+        return (cols[5][order], out, ev if timed else None, d)
+
+    def collect(self, pending):
+        """Fetch every pending stage with ONE device-to-host copy.
+        Returns (positions, (score, t_end, q_end, found, fj, fi)) per
+        stage."""
+        if not pending:
+            return []
+        t1 = time.perf_counter()
+        flat = torch.cat([o for _, o, _, _ in pending], dim=1).cpu().numpy()
+        self.metrics["fetch_s"] += time.perf_counter() - t1
+        out, col = [], 0
+        for pos, o, ev, d in pending:
+            if ev is not None:
+                self.metrics[f"{d}_kernel_ms"] += ev[0].elapsed_time(ev[1])
+            n = o.shape[1]
+            out.append((pos, tuple(flat[i, col:col + n] for i in range(6))))
+            col += n
+        return out
+
+    def run_buckets(self, jobs, gap_open: int, gap_extend: int,
+                    reverse: bool):
+        """enqueue + flush + collect for one direction."""
+        return self.collect(self.enqueue(jobs, gap_open, gap_extend, reverse)
+                            + self.flush(gap_open, gap_extend, reverse))

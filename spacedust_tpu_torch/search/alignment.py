@@ -1,0 +1,436 @@
+"""Alignment stage: candidates -> filtered, sorted alignment records.
+
+Drives the device SW engine (ops/sw_engine.py) and the native banded
+traceback (native/) to reproduce the reference's Alignment::run /
+Matcher::getSWResult semantics (lib/mmseqs/src/alignment/
+Alignment.cpp:248-540, Matcher.cpp:60-142):
+
+  * canBeCovered length pre-check (Util.cpp:477-494)
+  * identity fast path for self-hits (scoreIdentical,
+    StripedSmithWaterman.cpp:1675-1710): score accumulates in int16
+  * forward SW -> (score, qEnd, tEnd); E-value from raw score + full
+    query length; early rejections for E-value/end-based coverage are
+    output-equivalent to the reference's in-kernel returns
+  * reverse SW -> (qStart, tStart) via terminate-column semantics
+  * banded traceback -> CIGAR; seqId = identical/alnLen (SEQ_ID_ALN_LEN)
+  * checkCriteria + Matcher::compareHits sort (eval asc, bit score desc,
+    tLen asc, tKey asc)
+
+Every pair goes through the engine, at any length: there is no length
+cap and no separate host SW path.  Only the default accept path is
+ported: --max-accept / --max-rejected and --alt-ali raise
+NotImplementedError (ROADMAP A12); profile queries are not ported yet
+(ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..db.setdb import SetDB
+from ..native import banded_align_batch, comp_bias_batch
+from ..ops.sw_engine import DeviceAlignDB
+from ..stats.evalue import EvalueComputation, BLOSUM62_GAPPED_11_1
+from ..stats.submat import SubstitutionMatrix, load_substitution_matrix
+from .records import AlnRecord
+
+COV_MODE_BIDIRECTIONAL = 0
+COV_MODE_QUERY = 2
+COV_MODE_TARGET = 1
+_INT_MAX = 2147483647
+
+
+def _cov_vec(start: np.ndarray, end: np.ndarray, length: np.ndarray
+             ) -> np.ndarray:
+    # StripedSmithWaterman.cpp:1671-1673
+    return ((np.minimum(length, np.maximum(start, end))
+             - np.minimum(start, end) + 1).astype(np.float32)
+            / length.astype(np.float32))
+
+
+def _can_be_covered_vec(cov_thr: float, cov_mode: int, qlen: np.ndarray,
+                        tlen: np.ndarray) -> np.ndarray:
+    thr = np.float32(cov_thr)
+    if cov_mode == COV_MODE_BIDIRECTIONAL:
+        return (qlen / tlen >= thr) & (tlen / qlen >= thr)
+    if cov_mode == COV_MODE_QUERY:
+        return tlen / qlen >= thr
+    if cov_mode == COV_MODE_TARGET:
+        return qlen / tlen >= thr
+    return np.ones(len(qlen), dtype=bool)
+
+
+def _has_coverage_vec(cov_thr: float, cov_mode: int, qcov: np.ndarray,
+                      tcov: np.ndarray) -> np.ndarray:
+    thr = np.float32(cov_thr)
+    if cov_mode == COV_MODE_BIDIRECTIONAL:
+        return (qcov >= thr) & (tcov >= thr)
+    if cov_mode == COV_MODE_QUERY:
+        return qcov >= thr
+    if cov_mode == COV_MODE_TARGET:
+        return tcov >= thr
+    return np.ones(len(qcov), dtype=bool)
+
+
+@dataclass
+class AlignmentParams:
+    gap_open: int = 11
+    gap_extend: int = 1
+    eval_thr: float = 0.001
+    cov_thr: float = 0.0
+    cov_mode: int = 0
+    seq_id_thr: float = 0.0
+    aln_len_thr: int = 0
+    max_accept: int = _INT_MAX
+    max_rejected: int = _INT_MAX
+    alt_alignments: int = 0
+    comp_bias_correction: bool = True
+    include_identity: bool = False
+
+
+class AlignmentEngine:
+    def __init__(self, query_db: SetDB, target_db: SetDB,
+                 params: AlignmentParams | None = None,
+                 matrix: SubstitutionMatrix | None = None,
+                 same_qt_db: bool | None = None, *,
+                 device: torch.device | str):
+        """`device` is where the SW passes run: a CUDA device launches
+        the kernels of ops/sw_cuda.py, the CPU runs their plain version."""
+        self.qdb = query_db
+        self.tdb = target_db
+        self.par = params or AlignmentParams()
+        if (self.par.max_accept != _INT_MAX
+                or self.par.max_rejected != _INT_MAX):
+            raise NotImplementedError(
+                "--max-accept/--max-rejected are not ported yet "
+                "(ROADMAP A12)")
+        if self.par.alt_alignments > 0:
+            raise NotImplementedError(
+                "--alt-ali is not ported yet (ROADMAP A12)")
+        self.device = torch.device(device)
+        self.matrix = matrix or load_substitution_matrix()
+        self.evaluer = EvalueComputation(target_db.total_residues,
+                                         BLOSUM62_GAPPED_11_1)
+        self.same_qt_db = (same_qt_db if same_qt_db is not None
+                           else query_db is target_db)
+        self._qbias_arr: np.ndarray | None = None
+        self._ident_raws: np.ndarray | None = None
+        self._dev: DeviceAlignDB | None = None
+
+    # ------------------------------------------------------------------
+    def _qbias_all(self) -> np.ndarray:
+        """Whole-DB int8 composition bias (zeros when the correction is
+        off), computed once natively, concatenated in seq_data layout."""
+        if self._qbias_arr is None:
+            qdb = self.qdb
+            if self.par.comp_bias_correction:
+                self._qbias_arr = comp_bias_batch(
+                    np.ascontiguousarray(qdb.seq_data, dtype=np.uint8),
+                    np.ascontiguousarray(qdb.offsets[:-1], dtype=np.int64),
+                    np.ascontiguousarray(qdb.lengths, dtype=np.int32),
+                    np.ascontiguousarray(self.matrix.sub_int,
+                                         dtype=np.int32),
+                    np.ascontiguousarray(self.matrix.p_back,
+                                         dtype=np.float64))
+            else:
+                self._qbias_arr = np.zeros(len(qdb.seq_data), dtype=np.int8)
+        return self._qbias_arr
+
+    def _identity_raws_all(self) -> np.ndarray:
+        """Whole-DB int16 identity raw scores (scoreIdentical semantics)
+        in one pass over the concatenated tokens."""
+        if self._ident_raws is None:
+            qdb = self.qdb
+            diag = np.diagonal(self.matrix.sub_int).astype(np.int64).copy()
+            d = (diag[qdb.seq_data.astype(np.int64)]
+                 + self._qbias_all().astype(np.int64))
+            csum = np.concatenate(([0], np.cumsum(d)))
+            o = qdb.offsets
+            self._ident_raws = (csum[o[1:]] - csum[o[:-1]]).astype(np.int16)
+        return self._ident_raws
+
+    def _identity_records_batch(self, qkeys: np.ndarray
+                                ) -> dict[int, AlnRecord]:
+        """Vectorized identity fast path (scoreIdentical semantics; int16
+        raw accumulation is order-independent mod 2^16)."""
+        out: dict[int, AlnRecord] = {}
+        if len(qkeys) == 0:
+            return out
+        keys = np.asarray(qkeys, dtype=np.int64)
+        raws = self._identity_raws_all()[keys].astype(np.int64)
+        lens = self.qdb.lengths[keys].astype(np.int64)
+        evalues = self.evaluer.compute_evalue(raws, lens)
+        bits = (self.evaluer.compute_bit_score(raws) + 0.5).astype(np.int64)
+        for i, qk in enumerate(keys.tolist()):
+            L = int(lens[i])
+            out[qk] = AlnRecord(
+                tkey=qk, score=int(bits[i]), seq_id=1.0,
+                evalue=float(evalues[i]), qstart=0, qend=L - 1, qlen=L,
+                tstart=0, tend=L - 1, tlen=L, backtrace="M" * L,
+                raw_score=int(raws[i]), qcov=1.0, tcov=1.0,
+                cigar=f"{L}M")
+        return out
+
+    # ------------------------------------------------------------------
+    def stream(self) -> "_AlignStream":
+        """Streaming entry: add() candidate fragments as the prefilter
+        produces them (forward SW dispatches asynchronously as the
+        engine's buffer fills, overlapping device scoring with the host
+        prefilter), finish() collects and completes.  align_all == one
+        add + finish."""
+        return _AlignStream(self)
+
+    def align_all(self, candidates: dict[int, list[int]]
+                  ) -> dict[int, list[AlnRecord]]:
+        """candidates: query key -> target keys (prefilter order).
+        Returns query key -> sorted accepted records."""
+        st = self.stream()
+        st.add(candidates)
+        return st.finish()
+
+    def _stage0_arrays(self, candidates: dict[int, list[int]]):
+        """Array form of the identity/coverage pre-check for one
+        candidate fragment.  Returns (qks, aqk, atk, keep_ident,
+        pair_idx, ident_recs) where pair_idx are the candidate positions
+        that become device pairs."""
+        par = self.par
+        qlens_all = self.qdb.lengths
+        tlens_all = self.tdb.lengths
+        qks = list(candidates)
+        all_qk: list[int] = []
+        all_tk: list[int] = []
+        for qk, tkeys in candidates.items():
+            all_qk.extend([qk] * len(tkeys))
+            all_tk.extend(tkeys)
+        aqk = np.asarray(all_qk, dtype=np.int64)
+        atk = np.asarray(all_tk, dtype=np.int64)
+        covered = _can_be_covered_vec(par.cov_thr, par.cov_mode,
+                                      qlens_all[aqk].astype(np.float32),
+                                      tlens_all[atk].astype(np.float32))
+        is_ident = ((aqk == atk)
+                    if (par.include_identity or self.same_qt_db)
+                    else np.zeros(len(aqk), dtype=bool))
+        ident_recs = self._identity_records_batch(
+            np.unique(aqk[is_ident & covered]))
+        keep_ident = is_ident & covered
+        pair_idx = np.nonzero(covered & ~is_ident)[0]
+        return qks, aqk, atk, keep_ident, pair_idx, ident_recs
+
+    def _survivor_filter_arrays(self, pqk, ptk, scores, q_ends, t_ends):
+        """Stage 2: E-value / end-coverage filters (vectorized) ->
+        survivor tuples (qk, tk, score, q_end, t_end, evalue) + {pair
+        idx: survivor idx} (the reverse-pass batch)."""
+        par = self.par
+        n = len(pqk)
+        qlens = self.qdb.lengths[pqk].astype(np.int64)
+        tlens = self.tdb.lengths[ptk].astype(np.int64)
+        evalues = self.evaluer.compute_evalue(scores, qlens)
+        qcov0 = _cov_vec(np.zeros(n, np.int64), q_ends, qlens)
+        tcov0 = _cov_vec(np.zeros(n, np.int64), t_ends, tlens)
+        keep = ((t_ends >= 0) & (evalues <= par.eval_thr)
+                & _has_coverage_vec(par.cov_thr, par.cov_mode,
+                                    qcov0, tcov0))
+        surv_of_pair: dict[int, int] = {}
+        survivors: list[tuple[int, int, int, int, int, float]] = []
+        for pi in np.nonzero(keep)[0]:
+            surv_of_pair[int(pi)] = len(survivors)
+            survivors.append((int(pqk[pi]), int(ptk[pi]),
+                              int(scores[pi]), int(q_ends[pi]),
+                              int(t_ends[pi]), float(evalues[pi])))
+        return survivors, surv_of_pair
+
+    # ------------------------------------------------------------------
+    def _device_db(self) -> DeviceAlignDB:
+        """Device-resident token/bias arrays, built on first use."""
+        if self._dev is None:
+            self._dev = DeviceAlignDB(
+                self.qdb.seq_data, self._qbias_all(), self.tdb.seq_data,
+                self.matrix.sub_int, device=self.device)
+        return self._dev
+
+    def _forward_jobs_arrays(self, qk: np.ndarray, tk: np.ndarray,
+                             positions: np.ndarray):
+        """Forward jobs for pair arrays: element offsets, lengths,
+        terminate -1 (unused), global pair positions."""
+        ql = self.qdb.lengths[qk]
+        return [(self.qdb.offsets[qk], ql, self.tdb.offsets[tk],
+                 self.tdb.lengths[tk], np.full(len(qk), -1, np.int64),
+                 positions)]
+
+    def _reverse_jobs(self, survivors):
+        """Reverse jobs for survivors: reversed prefixes [0..q_end] x
+        [0..t_end], terminate = forward score; positions are survivor
+        indices."""
+        n = len(survivors)
+        qk = np.fromiter((s[0] for s in survivors), np.int64, n)
+        tk = np.fromiter((s[1] for s in survivors), np.int64, n)
+        term = np.fromiter((s[2] for s in survivors), np.int64, n)
+        ql = np.fromiter((s[3] + 1 for s in survivors), np.int64, n)
+        tl = np.fromiter((s[4] + 1 for s in survivors), np.int64, n)
+        return [(self.qdb.offsets[qk], ql, self.tdb.offsets[tk], tl, term,
+                 np.arange(n, dtype=np.int64))]
+
+    @staticmethod
+    def _decode_reverse(collected, survivors, out) -> None:
+        for pos, (_s, _gj, _gi, found, fj, fi) in collected:
+            for bi, sidx in enumerate(pos):
+                if not found[bi]:
+                    raise RuntimeError(
+                        "forward/backward SW scores differ for "
+                        f"q={survivors[sidx][0]} t={survivors[sidx][1]}")
+                q_end, t_end = survivors[sidx][3], survivors[sidx][4]
+                out[sidx] = (q_end - int(fi[bi]), t_end - int(fj[bi]))
+
+    # ------------------------------------------------------------------
+    def _finish_pairs(self, survivors, starts) -> list["AlnRecord | None"]:
+        """Stage 3: vectorized coverage gate and one batched native
+        traceback call for all survivors (OpenMP over pairs)."""
+        n = len(survivors)
+        if n == 0:
+            return []
+        par = self.par
+        qk = np.fromiter((s[0] for s in survivors), np.int64, n)
+        tk = np.fromiter((s[1] for s in survivors), np.int64, n)
+        score = np.fromiter((s[2] for s in survivors), np.int64, n)
+        q_end = np.fromiter((s[3] for s in survivors), np.int64, n)
+        t_end = np.fromiter((s[4] for s in survivors), np.int64, n)
+        evalue = np.fromiter((s[5] for s in survivors), np.float64, n)
+        q_start = np.fromiter((p[0] for p in starts), np.int64, n)
+        t_start = np.fromiter((p[1] for p in starts), np.int64, n)
+        qlen = self.qdb.lengths[qk].astype(np.int64)
+        tlen = self.tdb.lengths[tk].astype(np.int64)
+        qcov = _cov_vec(q_start, q_end, qlen)
+        tcov = _cov_vec(t_start, t_end, tlen)
+        cov_ok = _has_coverage_vec(par.cov_thr, par.cov_mode, qcov, tcov)
+        sel = np.nonzero(cov_ok)[0]
+        recs: list[AlnRecord | None] = [None] * n
+        if len(sel) == 0:
+            return recs
+        ops_list, idents, cigars = banded_align_batch(
+            np.ascontiguousarray(self.qdb.seq_data, dtype=np.uint8),
+            np.ascontiguousarray(self.qdb.offsets[:-1], dtype=np.int64),
+            np.ascontiguousarray(self.tdb.seq_data, dtype=np.uint8),
+            np.ascontiguousarray(self.tdb.offsets[:-1], dtype=np.int64),
+            np.ascontiguousarray(self._qbias_all(), dtype=np.int8),
+            self.matrix.sub_int.astype(np.int8),
+            qk[sel], tk[sel], q_start[sel], q_end[sel],
+            t_start[sel], t_end[sel], score[sel],
+            par.gap_open, par.gap_extend)
+        bits = (self.evaluer.compute_bit_score(score[sel])
+                + 0.5).astype(np.int64)
+        for bi, si in enumerate(sel):
+            ops = ops_list[bi]
+            aln_len = len(ops)
+            seq_id = np.float32(int(idents[bi])) / np.float32(aln_len)
+            # checkCriteria (Alignment.cpp:548-567)
+            if not (evalue[si] <= par.eval_thr
+                    and seq_id >= np.float32(par.seq_id_thr)
+                    and aln_len >= par.aln_len_thr):
+                continue
+            recs[si] = AlnRecord(
+                tkey=int(tk[si]), score=int(bits[bi]),
+                seq_id=float(seq_id), evalue=float(evalue[si]),
+                qstart=int(q_start[si]), qend=int(q_end[si]),
+                qlen=int(qlen[si]), tstart=int(t_start[si]),
+                tend=int(t_end[si]), tlen=int(tlen[si]), backtrace=ops,
+                raw_score=int(score[si]), qcov=float(qcov[si]),
+                tcov=float(tcov[si]), cigar=cigars[bi])
+        return recs
+
+
+class _AlignStream:
+    """Incremental alignment loop: candidate fragments stream in (from
+    the chunked prefilter) and their forward SW pairs are enqueued on the
+    device engine, which dispatches a stage whenever its buffer fills,
+    overlapping device scoring with the host prefilter of later
+    fragments.  finish() flushes the rest, collects all forward results
+    in one transfer, filters survivors, and runs the reverse pass and
+    the traceback."""
+
+    def __init__(self, eng: AlignmentEngine):
+        self.eng = eng
+        self._dev = eng._device_db()
+        self._fwd_pending: list = []
+        self._frags: list = []
+        # pairs live as per-fragment (qk, tk) array blocks
+        self._pair_qk: list[np.ndarray] = []
+        self._pair_tk: list[np.ndarray] = []
+        self._n_pairs = 0
+
+    def add(self, candidates: dict[int, list[int]]) -> None:
+        eng = self.eng
+        qks, aqk, atk, keep_ident, pair_idx, ident_recs = \
+            eng._stage0_arrays(candidates)
+        base = self._n_pairs
+        pair_pos = np.full(len(aqk), -1, dtype=np.int64)
+        pair_pos[pair_idx] = base + np.arange(len(pair_idx))
+        self._frags.append((qks, aqk, keep_ident, pair_pos, ident_recs))
+        pqk, ptk = aqk[pair_idx], atk[pair_idx]
+        self._pair_qk.append(pqk)
+        self._pair_tk.append(ptk)
+        self._n_pairs += len(pair_idx)
+        if len(pair_idx):
+            jobs = eng._forward_jobs_arrays(
+                pqk, ptk, base + np.arange(len(pair_idx), dtype=np.int64))
+            self._fwd_pending += self._dev.enqueue(
+                jobs, eng.par.gap_open, eng.par.gap_extend, reverse=False)
+
+    def _accept(self, surv_of_pair: dict[int, int],
+                recs) -> dict[int, list[AlnRecord]]:
+        """Accept stage (no --max-accept/--max-rejected state machine):
+        only kept candidates run Python, in candidate order per query."""
+        surv_idx = np.full(max(self._n_pairs, 1), -1, np.int64)
+        for pi, si in surv_of_pair.items():
+            surv_idx[pi] = si
+        recs_ok = (np.fromiter((r is not None for r in recs), bool,
+                               len(recs)) if recs
+                   else np.zeros(0, dtype=bool))
+        accepted: dict[int, list[AlnRecord]] = {}
+        for qks, aqk, keep_ident, pair_pos, ident_recs in self._frags:
+            for qk in qks:
+                accepted.setdefault(qk, [])
+            has_pair = pair_pos >= 0
+            si = np.full(len(aqk), -1, np.int64)
+            si[has_pair] = surv_idx[pair_pos[has_pair]]
+            ok = si >= 0
+            ok[ok] = recs_ok[si[ok]]
+            keep = keep_ident | ok
+            for ci in np.nonzero(keep)[0]:
+                qk = int(aqk[ci])
+                accepted[qk].append(ident_recs[qk] if keep_ident[ci]
+                                    else recs[si[ci]])
+        for qk in accepted:
+            accepted[qk].sort(key=lambda r: (r.evalue, -r.score, r.tlen,
+                                             r.tkey))
+        return accepted
+
+    def finish(self) -> dict[int, list[AlnRecord]]:
+        eng = self.eng
+        go, ge = eng.par.gap_open, eng.par.gap_extend
+        pqk = (np.concatenate(self._pair_qk) if self._pair_qk
+               else np.empty(0, np.int64))
+        ptk = (np.concatenate(self._pair_tk) if self._pair_tk
+               else np.empty(0, np.int64))
+        n = self._n_pairs
+        self._fwd_pending += self._dev.flush(go, ge, reverse=False)
+        score = np.zeros(n, np.int64)
+        q_end = np.zeros(n, np.int64)
+        t_end = np.full(n, -1, np.int64)
+        for pos, (s, te, qe, _f, _fj, _fi) in \
+                self._dev.collect(self._fwd_pending):
+            score[pos] = s
+            t_end[pos] = te
+            q_end[pos] = qe
+        survivors, surv_of_pair = eng._survivor_filter_arrays(
+            pqk, ptk, score, q_end, t_end)
+        starts: list = [None] * len(survivors)
+        if survivors:
+            eng._decode_reverse(
+                self._dev.run_buckets(eng._reverse_jobs(survivors), go, ge,
+                                      reverse=True),
+                survivors, starts)
+        recs = eng._finish_pairs(survivors, starts)
+        return self._accept(surv_of_pair, recs)

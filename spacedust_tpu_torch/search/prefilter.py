@@ -1,0 +1,425 @@
+"""K-mer prefilter: double-diagonal match + ungapped rescore.
+
+Host side: the k-mer index build and the per-query matcher run in the
+native OpenMP engine (native/prefilter_engine.cpp); this module builds
+the seed tables and the index and drives the engine over contiguous
+query ranges.  The engine reproduces the reference's prefiltering
+(lib/mmseqs/src/prefiltering/):
+
+  * spaced 6-mers, pattern {1,1,0,1,0,1,0,0,1,1} (Sequence.h:24), over a
+    20-letter alphabet (X excluded; Prefiltering.cpp:530-533)
+  * targets are tantan-masked (IndexBuilder.cpp:131) and only k-mers with
+    self-score >= kmerThr on the VTML80 8-bit-scaled seed matrix are
+    indexed (IndexTable.h:144-152); postings carry (seqId, windowPos)
+  * per query window: composition bias (float32 chain, VTML80 scale)
+    shifts the k-mer threshold (QueryMatcher.cpp:230-236); similar k-mers
+    enumerated via sorted 3-mer product tables with threshold pruning
+    (KmerGenerator.cpp:104-230)
+  * double-diagonal detection: an arrival-ordered hit is "double" when
+    the previous hit of the same target had the same u8 diagonal —
+    including the zero-init quirk where a first hit on diagonal 0 counts
+    (CacheFriendlyOperations.cpp:193-208)
+  * surviving (target, diagonal) pairs are rescored by an ungapped
+    Kadane scan of the blosum62 2-bit profile (+bias/4) along the
+    diagonal, clamped at 255 (UngappedAlignment.cpp:30-43,385-414)
+  * per-target max score, histogram-capped at --max-seqs with
+    min-ungapped-score 15 floor (QueryMatcher.h:206-216)
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+
+from ..constants import X_INDEX
+from ..db.setdb import SetDB
+from ..native import tantan_mask
+from ..stats.submat import SubstitutionMatrix, load_pinned_matrix
+
+SPACED_PATTERN_6 = np.array([0, 1, 3, 5, 8, 9], dtype=np.int32)
+SEED_ALPHA = 20          # X excluded from seeding
+
+# spaced seed patterns per k (Sequence.h:24-33 spaced_seed_k)
+KMER_PATTERNS = {
+    6: SPACED_PATTERN_6,
+    7: np.array([0, 1, 3, 5, 6, 9, 10], dtype=np.int32),
+}
+
+
+def kmer_pattern(kmer_size: int, spaced: bool = True) -> np.ndarray:
+    """Seed pattern for one k: the spaced pattern (Sequence.h:24-33,
+    --spaced-kmer-mode 1, the default) or the consecutive window
+    (--spaced-kmer-mode 0, Sequence.cpp spacedKmer=false)."""
+    if spaced:
+        return KMER_PATTERNS[kmer_size]
+    return np.arange(kmer_size, dtype=np.int32)
+
+
+# IndexTable::computeKmerSize boundary (IndexTable.h:439-441); module
+# constant so tests can scale it down and exercise the size-triggered
+# k=7 path end-to-end without a 3.35 G-residue database
+K7_THRESHOLD_RESIDUES = 3350000000
+
+
+def compute_kmer_size(total_residues: int) -> int:
+    """IndexTable::computeKmerSize (IndexTable.h:439-441): k=6 below
+    ~3.35 G residues, k=7 above."""
+    return 6 if total_residues < K7_THRESHOLD_RESIDUES else 7
+
+
+def kmer_score_threshold(sensitivity: float, kmer_size: int = 6) -> int:
+    """Prefiltering::getKmerThreshold sequence table
+    (Prefiltering.cpp:1020-1065)."""
+    table = {5: (160.75, 12.75), 6: (163.2, 8.917), 7: (186.15, 11.22)}
+    base, per_step = table[kmer_size]
+    return int(np.float32(base) - np.float32(sensitivity) * np.float32(per_step))
+
+
+@dataclass
+class SeedTables:
+    """Sorted part-k-mer score tables (ExtendedSubstitutionMatrix
+    equivalent): (R, R) with R = 20^part_size (8000 for 3-mers, 400 for
+    the 2-mer tables of odd k)."""
+    scores: np.ndarray   # (R, R) int16, per row sorted desc
+    idx: np.ndarray      # (R, R) int16, part-k-mer indices per sorted row
+
+
+@lru_cache(maxsize=8)
+def _build_part_tables(matrix_name: str, part: int) -> SeedTables:
+    """Sorted part-k-mer product tables for part in {2, 3}
+    (ExtendedSubstitutionMatrix two/three)."""
+    from ..utils.cache import artifact_path
+    sc_path = artifact_path(f"seed{part}_{matrix_name}_scores.npy")
+    id_path = artifact_path(f"seed{part}_{matrix_name}_idx.npy")
+    if sc_path.exists() and id_path.exists():
+        sorted_scores = np.load(sc_path, mmap_mode="r")
+        order = np.load(id_path, mmap_mode="r")
+    else:
+        m = load_pinned_matrix(matrix_name)
+        sub = m.sub_int[:SEED_ALPHA, :SEED_ALPHA].astype(np.int32)
+        # scores[(x0..xp),(y0..yp)] = sum_i sub[xi, yi] with index packing
+        # idx = sum_i xi * 20^i (Indexer.h:21-35)
+        one = np.ones((SEED_ALPHA, SEED_ALPHA), dtype=np.int32)
+        scores = np.zeros((SEED_ALPHA ** part,) * 2, dtype=np.int32)
+        for i in range(part):
+            # digit i (fastest = 0) varies with the i-th innermost factor
+            t = sub
+            for _ in range(i):
+                t = np.kron(t, one)
+            for _ in range(part - 1 - i):
+                t = np.kron(one, t)
+            scores = scores + t
+        # tie order: the reference stable-sorts in cartesian-product order,
+        # i.e. lexicographic in (x0..xp) — the digit-REVERSED packing
+        # (ExtendedSubstitutionMatrix.cpp:38-56). rev is a bijection, so
+        # the composite (-score, rev) key is unique and a plain unstable
+        # argsort reproduces lexsort((rev, -score)) exactly.
+        R = SEED_ALPHA ** part
+        j = np.arange(R, dtype=np.int32)
+        rev = np.zeros(R, dtype=np.int32)
+        tmp = j.copy()
+        for _ in range(part):
+            rev = rev * SEED_ALPHA + tmp % SEED_ALPHA
+            tmp = tmp // SEED_ALPHA
+        key = (-scores << 13) + rev[None, :]
+        order = np.argsort(key, axis=1, kind="quicksort").astype(np.int16)
+        sorted_scores = np.take_along_axis(
+            scores.astype(np.int16), order.astype(np.int64), axis=1)
+        # per-process temporaries: concurrent first builds must not
+        # write into one file
+        tmp_sc = sc_path.with_suffix(f".{os.getpid()}.tmp.npy")
+        tmp_id = id_path.with_suffix(f".{os.getpid()}.tmp.npy")
+        np.save(tmp_sc, sorted_scores)
+        np.save(tmp_id, order)
+        tmp_sc.rename(sc_path)
+        tmp_id.rename(id_path)
+        sorted_scores = np.load(sc_path, mmap_mode="r")
+        order = np.load(id_path, mmap_mode="r")
+    return SeedTables(scores=sorted_scores, idx=order)
+
+
+def build_seed_tables(matrix_name: str = "vtml80_bf8_bias") -> SeedTables:
+    return _build_part_tables(matrix_name, 3)
+
+
+def build_seed_tables2(matrix_name: str = "vtml80_bf8_bias") -> SeedTables:
+    return _build_part_tables(matrix_name, 2)
+
+
+def mask_sequences(db: SetDB, seed_matrix: SubstitutionMatrix) -> list[np.ndarray]:
+    """tantan-masked copies of all sequences (Masker semantics)."""
+    ratio = seed_matrix.prob / (seed_matrix.p_back[:, None]
+                                * seed_matrix.p_back[None, :])
+    return [tantan_mask(db.sequence(k), ratio, X_INDEX)
+            for k in range(db.size)]
+
+
+class KmerIndex:
+    """Dense sorted k-mer posting index over the (masked) target DB."""
+
+    def __init__(self, target_db: SetDB, kmer_thr: int,
+                 seed_matrix: SubstitutionMatrix | None = None,
+                 mask: bool = True, kmer_size: int = 6,
+                 pattern: np.ndarray | None = None):
+        self.tdb = target_db
+        self.seed = seed_matrix or load_pinned_matrix("vtml80_bf8_bias")
+        self.kmer_thr = kmer_thr
+        self.kmer_size = kmer_size
+        self.pattern = (pattern if pattern is not None
+                        else KMER_PATTERNS[kmer_size])
+        self.masked = (mask_sequences(target_db, self.seed) if mask
+                       else [target_db.sequence(k) for k in range(target_db.size)])
+
+        # concatenated masked target residues (the engine's rescore input)
+        lens = np.array([len(s) for s in self.masked], dtype=np.int64)
+        self.t_offsets = np.concatenate(([0], np.cumsum(lens)))[:-1]
+        self.t_data = (np.concatenate(self.masked) if self.masked
+                       else np.empty(0, np.uint8))
+        # native parallel build (IndexBuilder::fillDatabase analog);
+        # emits postings in (kmer, seq, pos) order.  The posting-range
+        # structure is a compact
+        # hash + occupancy bitmap, NOT a dense 20^6 offset table: two
+        # 256 MB fresh tables per process cost seconds of first-touch
+        # page faults on the target host.
+        from ..native import build_kmer_index
+        km, sid, pos = build_kmer_index(
+            self.t_data, self.t_offsets, lens.astype(np.int32),
+            np.diagonal(self.seed.sub_int).astype(np.int32),
+            X_INDEX, self.kmer_thr, kmer_size=self.kmer_size,
+            pattern=self.pattern)
+        self.kmers = km.astype(np.int64)
+        self.seq_ids = sid
+        self.positions = pos
+        self._finish_hash()
+
+    def _finish_hash(self) -> None:
+        # compact posting-range hash + occupancy bitmap for the native
+        # match engine
+        from ..native import build_kmer_hash
+        self.hkeys, self.hoff, self.hcnt, self.occupied = build_kmer_hash(
+            self.kmers.astype(np.int32), SEED_ALPHA ** self.kmer_size)
+
+    # -- persistence (the PrefilteringIndexReader analog,
+    #    lib/mmseqs/src/prefiltering/PrefilteringIndexReader.cpp): the
+    #    sorted postings + masked tokens are saved; the dense offset
+    #    table is rebuilt on load (the native fill takes ~0.15 s, far
+    #    cheaper than persisting 256 MB). The cache key carries the
+    #    build settings + DB shape.
+    FORMAT_VERSION = 2
+
+    def save(self, path: str | Path) -> None:
+        path = str(path)
+        np.savez(path, version=self.FORMAT_VERSION, kmer_thr=self.kmer_thr,
+                 kmer_size=self.kmer_size,
+                 n_seqs=self.tdb.size, total_res=self.tdb.total_residues,
+                 kmers=self.kmers.astype(np.int32),
+                 seq_ids=self.seq_ids, positions=self.positions,
+                 t_data=self.t_data, t_offsets=self.t_offsets)
+
+    @classmethod
+    def load(cls, path: str | Path, target_db: SetDB, kmer_thr: int,
+             seed_matrix: SubstitutionMatrix | None = None,
+             kmer_size: int = 6,
+             pattern: np.ndarray | None = None) -> "KmerIndex | None":
+        try:
+            z = np.load(path)
+        except (OSError, ValueError):
+            return None
+        if (int(z["version"]) != cls.FORMAT_VERSION
+                or int(z["kmer_thr"]) != kmer_thr
+                or int(z.get("kmer_size", 6)) != kmer_size
+                or int(z["n_seqs"]) != target_db.size
+                or int(z["total_res"]) != target_db.total_residues):
+            return None
+        self = cls.__new__(cls)
+        self.tdb = target_db
+        self.seed = seed_matrix or load_pinned_matrix("vtml80_bf8_bias")
+        self.kmer_thr = kmer_thr
+        self.kmer_size = kmer_size
+        self.pattern = (pattern if pattern is not None
+                        else KMER_PATTERNS[kmer_size])
+        self.t_data = z["t_data"]
+        self.t_offsets = z["t_offsets"]
+        bounds = np.concatenate((self.t_offsets, [len(self.t_data)]))
+        self.masked = [self.t_data[bounds[i]:bounds[i + 1]]
+                       for i in range(target_db.size)]
+        self.kmers = z["kmers"].astype(np.int64)
+        self.seq_ids = z["seq_ids"]
+        self.positions = z["positions"]
+        self._finish_hash()
+        return self
+
+
+@dataclass
+class PrefilterHit:
+    seq_id: int
+    score: int
+    diagonal: int  # u16 semantics (i - j wrapped)
+
+
+class PrefilterEngine:
+    def __init__(self, query_db: SetDB, target_db: SetDB,
+                 sensitivity: float = 5.7,
+                 max_seqs: int = 300,
+                 min_diag_score: int = 15,
+                 same_qt_db: bool | None = None,
+                 comp_bias_correction: bool = True,
+                 mask: bool = True,
+                 cov_thr: float = 0.0,
+                 cov_mode: int = 0,
+                 index: "KmerIndex | None" = None,
+                 seed_matrix_name: str = "vtml80_bf8_bias",
+                 ungapped_matrix_name: str = "blosum62_bf2_bias",
+                 kmer_thr: int | None = None,
+                 kmer_size: int | None = None,
+                 spaced_kmer_mode: int = 1):
+        """Sequence queries only (profile queries are not ported yet).
+        An existing `index` can be shared across engines."""
+        self.qdb = query_db
+        self.tdb = target_db
+        # the prefilter builds matrices with scoreBias=-0.2 (Prefiltering.cpp:992)
+        self.seed = load_pinned_matrix(seed_matrix_name)
+        self.ungapped = load_pinned_matrix(ungapped_matrix_name)
+        # k auto-raises to 7 on >3.35 G-residue DBs
+        # (IndexTable::computeKmerSize, IndexTable.h:439-441)
+        self.kmer_size = (kmer_size if kmer_size is not None
+                          else compute_kmer_size(target_db.total_residues))
+        self.spaced_kmer_mode = spaced_kmer_mode
+        self.pattern = kmer_pattern(self.kmer_size, spaced_kmer_mode != 0)
+        self.kmer_thr = (kmer_thr if kmer_thr is not None
+                         else kmer_score_threshold(sensitivity,
+                                                   self.kmer_size))
+        self.max_seqs = max_seqs
+        self.min_diag_score = min_diag_score
+        self.comp_bias = comp_bias_correction
+        self.cov_thr = cov_thr
+        self.cov_mode = cov_mode
+        self.same_qt_db = (same_qt_db if same_qt_db is not None
+                           else query_db is target_db)
+        self.tables = build_seed_tables(seed_matrix_name)
+        self.tables2 = (build_seed_tables2(seed_matrix_name)
+                        if self.kmer_size % 3 != 0 else None)
+        index_thr = self.kmer_thr
+        if index is not None:
+            self.index = index
+        else:
+            self.index = None
+            cache = None
+            if getattr(target_db, "path", None):
+                from pathlib import Path as _P
+                import hashlib as _h
+                # cheap content fingerprint: first/last residue bytes +
+                # offsets, so a same-shaped DB with different contents
+                # cannot load a stale index (ADVICE r2)
+                sd = target_db.seq_data
+                fp = _h.sha1(sd[:4096].tobytes() + sd[-4096:].tobytes()
+                             + target_db.offsets.tobytes()).hexdigest()[:10]
+                sp = ("" if spaced_kmer_mode != 0
+                      else f"_sp{spaced_kmer_mode}")
+                cache = (_P(target_db.path)
+                         / f"kmeridx_k{self.kmer_size}_t{index_thr}"
+                           f"_m{int(mask)}_{seed_matrix_name}{sp}_{fp}.npz")
+                if cache.exists():
+                    self.index = KmerIndex.load(cache, target_db, index_thr,
+                                                self.seed,
+                                                kmer_size=self.kmer_size,
+                                                pattern=self.pattern)
+            if self.index is None:
+                self.index = KmerIndex(target_db, index_thr, self.seed,
+                                       mask=mask, kmer_size=self.kmer_size,
+                                       pattern=self.pattern)
+                if cache is not None:
+                    try:
+                        self.index.save(cache)
+                    except OSError:
+                        pass
+        self._bin_count = compute_bin_count(target_db.size)
+        self._tlens = target_db.lengths
+
+    def match_range(self, start: int, end: int
+                    ) -> dict[int, list[PrefilterHit]]:
+        """Prefilter a contiguous query-key range (the streaming loop's
+        unit of work; identity semantics preserved via identity_base)."""
+        qdb = self.qdb
+        qoffs_all = qdb.offsets
+        qdata = np.ascontiguousarray(
+            qdb.seq_data[qoffs_all[start]:qoffs_all[end]], dtype=np.uint8)
+        qoffs = np.ascontiguousarray(
+            qoffs_all[start:end] - qoffs_all[start], dtype=np.int64)
+        qlens = np.ascontiguousarray(qdb.lengths[start:end], dtype=np.int32)
+        base = start if self.same_qt_db else -1
+        hits = self._match_native(qdata, qoffs, qlens, base)
+        return {start + i: h for i, h in enumerate(hits)}
+
+    def _match_native(self, qdata, qoffs, qlens, identity_base
+                      ) -> list[list[PrefilterHit]]:
+        from ..native import prefilter_match_batch
+        idx = self.index
+        o_seq, o_score, o_diag, o_cnt, _raw = prefilter_match_batch(
+            qdata, qoffs, qlens,
+            np.ascontiguousarray(self.seed.sub_int, dtype=np.int32),
+            np.ascontiguousarray(self.seed.p_back, dtype=np.float64),
+            self.comp_bias,
+            np.ascontiguousarray(self.tables.scores, dtype=np.int16),
+            np.ascontiguousarray(self.tables.idx, dtype=np.int16),
+            idx.hkeys, idx.hoff, idx.hcnt, idx.occupied,
+            np.ascontiguousarray(idx.seq_ids, dtype=np.int32),
+            np.ascontiguousarray(idx.positions, dtype=np.int32),
+            np.ascontiguousarray(idx.t_data, dtype=np.uint8),
+            np.ascontiguousarray(idx.t_offsets, dtype=np.int64),
+            np.ascontiguousarray(self._tlens, dtype=np.int32),
+            np.ascontiguousarray(self.ungapped.sub_int, dtype=np.int32),
+            X_INDEX, self.kmer_thr, self.max_seqs, self.min_diag_score,
+            self._bin_count, identity_base, self.cov_thr, self.cov_mode,
+            kmer_size=self.kmer_size, pattern=self.pattern,
+            sc2=(np.ascontiguousarray(self.tables2.scores, dtype=np.int16)
+                 if self.tables2 is not None else None),
+            id2=(np.ascontiguousarray(self.tables2.idx, dtype=np.int16)
+                 if self.tables2 is not None else None))
+        n_q = len(qlens)
+        out = []
+        for bi in range(n_q):
+            n = int(o_cnt[bi])
+            base = bi * self.max_seqs
+            out.append([PrefilterHit(seq_id=int(o_seq[base + i]),
+                                     score=int(o_score[base + i]),
+                                     diagonal=int(o_diag[base + i]))
+                        for i in range(n)])
+        # prefilter statistics (the printStatistics analog,
+        # Prefiltering.cpp:953-975), accumulated across streamed chunks
+        counts = np.asarray(o_cnt[:n_q], dtype=np.int64)
+        prev = getattr(self, "stats", None) or {
+            "db_matches": 0, "sum_passed": 0, "empty_lists": 0,
+            "queries": 0, "_counts": []}
+        prev.setdefault("_counts", [])
+        prev["db_matches"] = prev.get("db_matches", 0) + int(_raw)
+        prev["sum_passed"] = prev.get("sum_passed", 0) + int(counts.sum())
+        prev["empty_lists"] += int((counts == 0).sum())
+        prev["queries"] += n_q
+        prev["_counts"].append(counts)
+        nq = max(1, prev["queries"])
+        prev["db_matches_per_seq"] = prev["db_matches"] // nq
+        prev["passed_per_seq"] = prev["sum_passed"] / nq
+        prev["median_result_list"] = int(
+            np.median(np.concatenate(prev["_counts"])))
+        self.stats = prev
+        return out
+
+
+def compute_bin_count(db_size: int) -> int:
+    """QueryMatcher::initDiagonalMatcher's L2-derived bin count
+    (QueryMatcher.cpp:424-451); affects only the order of tie-scored hits
+    at the --max-seqs cut."""
+    try:
+        l2 = os.sysconf("SC_LEVEL2_CACHE_SIZE")
+        if l2 <= 0:
+            l2 = 2 * 1024 * 1024
+    except (ValueError, OSError):
+        l2 = 2 * 1024 * 1024
+    for n in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024):
+        if db_size // n < l2:
+            return n
+    return 2048
