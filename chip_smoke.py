@@ -25,8 +25,26 @@ result line):
                 kernel launch counters reset just before and read just
                 after; hit and cluster counts and the canonical-TSV sha256
                 must equal tests/fixtures/torch_port_real.json;
-  6. timing  -- each kernel against its plain version on the largest stage
-                the real run dispatched, with the main path's own resident
+  6. kernels-struct -- sw_forward_struct / sw_reverse_struct against
+                their plain version (ops/sw.py::sw_struct_jobs_ref) on a
+                seeded ragged batch: lengths 1-2,700, homologs (kept 3Di,
+                remote amino acids), planted ties, zero-score pairs, 3Di
+                bias at -128..127 (the 3Di channel wraps int8), a 9,000 x
+                9,000 and a 40,000 x 600 pair; all six outputs equal;
+  7. struct-small -- through the CLI on the small structure set:
+                createsetdb of the Foldseek-style flat DB, clustersearch
+                --search-mode 2, then aa2foldseek and --search-mode 1 (which
+                must launch all four kernels); both results must equal
+                tests/fixtures/torch_port_struct_small{,_mode1}.tsv;
+  8. struct-real -- --search-mode 2 through cluster_search_to_file on the
+                real-size structure set (4,300 + 1,600 genes), counters reset
+                just before and read just after (both struct kernels must
+                launch); every gene of >= 100 aa must find itself with
+                E < 1e-10, and the set of the size that
+                tests/fixtures/torch_port_struct_real.json names must give
+                its hit / cluster counts and sha256;
+  9. timing  -- each kernel against its plain version on the largest stage
+                the real runs dispatched, with the main path's own resident
                 tensors: equal outputs, milliseconds and GCUPS.
 
 The line before the last is the card's name and power limit, the one
@@ -36,6 +54,7 @@ before it a JSON object {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -50,9 +69,20 @@ ROOT = Path(__file__).resolve().parent
 GO, GE = 11, 1
 SEED = 0
 TOL = 0                 # integer DP: kernel and plain version agree exactly
-REPLACES = {"fwd": ("sw_forward", "spacedust_tpu/ops/sw_pallas.py:41"),
-            "rev": ("sw_reverse", "spacedust_tpu/ops/sw_pallas.py:147")}
-GATHER = "spacedust_tpu/ops/sw_engine.py:82"     # fused into both kernels
+STRUCT_GO = 10          # foldseek's gap costs in structure mode
+STRUCT_REPLACES = "spacedust_tpu/ops/sw_engine.py:608"
+# direction -> (wrapper, replaced TPU kernel / device program, launch
+# counter)
+KERNELS = {
+    "fwd": ("sw_forward", "spacedust_tpu/ops/sw_pallas.py:41",
+            "FORWARD_LAUNCHES"),
+    "rev": ("sw_reverse", "spacedust_tpu/ops/sw_pallas.py:147",
+            "REVERSE_LAUNCHES"),
+    "fwd_struct": ("sw_forward_struct", STRUCT_REPLACES,
+                   "FORWARD_STRUCT_LAUNCHES"),
+    "rev_struct": ("sw_reverse_struct", STRUCT_REPLACES,
+                   "REVERSE_STRUCT_LAUNCHES")}
+GATHER = "spacedust_tpu/ops/sw_engine.py:82"     # fused into the kernels
 
 
 def fail(msg: str) -> None:
@@ -143,6 +173,71 @@ def kernel_batch(seed: int = SEED):
             np.ascontiguousarray(jobs, dtype=np.int64))
 
 
+def kernel_batch_struct(seed: int = SEED):
+    """Resident 3Di / amino-acid / 3Di-bias arrays of both sides and a
+    (5, n) forward job array: 2,000 ragged pairs of 1-2,700 residues
+    (homologs with kept 3Di and remote amino acids, planted ties,
+    zero-score, length-1 and int8-wrapping 3Di-bias pairs), then a 9,000 x
+    9,000 homolog pair and a 40,000 x 600 pair."""
+    rng = np.random.default_rng(seed + 1)
+    n = 2000
+    ql = np.minimum(np.exp(rng.uniform(0, np.log(2700), n)), 2700)
+    tl = np.minimum(np.exp(rng.uniform(0, np.log(2700), n)), 2700)
+    ql, tl = ql.astype(np.int64), tl.astype(np.int64)
+    ql[:8] = 1
+    tl[8:16] = 1
+    ql[16:20] = tl[16:20] = 1
+    qs, qa, bs, ts, ta = [], [], [], [], []
+    for p in range(n):
+        s = rng.integers(0, 21, ql[p]).astype(np.uint8)
+        a = rng.integers(0, 21, ql[p]).astype(np.uint8)
+        b = rng.integers(-3, 4, ql[p]).astype(np.int8)
+        kind = p % 8
+        if kind in (0, 1, 2) and ql[p] > 20:          # homolog
+            lo = int(rng.integers(0, ql[p] // 2))
+            t_s = _mutate(rng, s[lo:lo + int(tl[p])], int(rng.integers(15, 40)))
+            t_a = rng.integers(0, 20, len(t_s)).astype(np.uint8)
+            m = min(len(t_a), len(a) - lo)
+            keep = rng.integers(0, 100, m) < 40
+            t_a[:m][keep] = a[lo:lo + m][keep]
+        elif kind == 3 and ql[p] > 24:                # tie: motif twice
+            k = min(int(ql[p]) // 2, 40)
+            gap = rng.integers(0, 20, int(rng.integers(0, 30))).astype(np.uint8)
+            t_s = np.concatenate([s[:k], gap, s[:k]])
+            t_a = np.concatenate([a[:k], gap, a[:k]])
+        else:
+            t_s = rng.integers(0, 21, tl[p]).astype(np.uint8)
+            t_a = rng.integers(0, 21, tl[p]).astype(np.uint8)
+        if kind == 4:
+            b[:] = -100                               # every cell < 0
+        elif kind == 5:
+            b = rng.integers(-128, 128, ql[p]).astype(np.int8)   # wraps
+        qs.append(s)
+        qa.append(a)
+        bs.append(b)
+        ts.append(t_s)
+        ta.append(t_a)
+    for qlen, tlen in ((9000, 9000), (40000, 600)):
+        s = rng.integers(0, 20, qlen).astype(np.uint8)
+        a = rng.integers(0, 20, qlen).astype(np.uint8)
+        lo = (qlen - tlen) // 2
+        qs.append(s)
+        qa.append(a)
+        bs.append(rng.integers(-3, 4, qlen).astype(np.int8))
+        ts.append(_mutate(rng, s[lo:lo + tlen], 25)[:tlen])
+        t_a = a[lo:lo + len(ts[-1])].copy()
+        hit = rng.integers(0, 100, len(t_a)) < 60
+        t_a[hit] = rng.integers(0, 20, int(hit.sum()))
+        ta.append(t_a)
+    qlen = np.array([len(q) for q in qs], np.int64)
+    tlen = np.array([len(t) for t in ts], np.int64)
+    qoff = np.concatenate(([0], np.cumsum(qlen)[:-1]))
+    toff = np.concatenate(([0], np.cumsum(tlen)[:-1]))
+    jobs = np.stack([qoff, qlen, toff, tlen, np.full(len(qs), -1)])
+    return ([np.concatenate(x) for x in (qs, qa, bs, ts, ta)],
+            np.ascontiguousarray(jobs, dtype=np.int64))
+
+
 def reverse_jobs(jobs: np.ndarray, fwd: np.ndarray) -> np.ndarray:
     """Reverse-pass jobs for the pairs with a positive forward score:
     prefixes [0..q_end] x [0..t_end], terminate = the forward score."""
@@ -161,38 +256,61 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> int:
     return err
 
 
-def check_kernels(sub: torch.Tensor, errs: dict) -> None:
+def plain(d: str):
+    """The plain version of direction d's kernel, with the wrapper's
+    arguments."""
+    from spacedust_tpu_torch.ops.sw import sw_jobs_ref, sw_struct_jobs_ref
+    ref = sw_struct_jobs_ref if d.endswith("struct") else sw_jobs_ref
+    return lambda *args: ref(*args, reverse=d.startswith("rev"))
+
+
+def check_batch(tag: str, resident: list, jobs: np.ndarray, go: int,
+                dirs: tuple, errs: dict) -> None:
+    """Each kernel of dirs (forward, then reverse on the forward's
+    positive pairs) against its plain version on one seeded batch."""
     from spacedust_tpu_torch.ops import sw_cuda
-    from spacedust_tpu_torch.ops.sw import sw_jobs_ref
-    dev = sub.device
-    q, b, t, jobs = kernel_batch()
-    Q, B, T = (torch.from_numpy(a).to(dev) for a in (q, b, t))
     fwd = None
-    for d in ("fwd", "rev"):
-        js = jobs if d == "fwd" else reverse_jobs(jobs, fwd)
-        fn = sw_cuda.sw_forward if d == "fwd" else sw_cuda.sw_reverse
+    for d in dirs:
+        js = jobs if fwd is None else reverse_jobs(jobs, fwd)
+        fn = getattr(sw_cuda, KERNELS[d][0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = fn(Q, B, T, sub, js, GO, GE)
+        got = fn(*resident, js, go, GE)
         torch.cuda.synchronize()
         k_ms = 1e3 * (time.perf_counter() - t0)
         t0 = time.perf_counter()
-        ref = sw_jobs_ref(Q, B, T, sub, js, GO, GE, d == "rev")
+        ref = plain(d)(*resident, js, go, GE)
         torch.cuda.synchronize()
         p_ms = 1e3 * (time.perf_counter() - t0)
-        errs[d] = max(errs[d], compare(f"kernel batch {d}", got, ref))
+        errs[d] = max(errs[d], compare(f"{tag} {d}", got, ref))
         out = got.cpu().numpy()
-        if d == "fwd":
+        if fwd is None:
             fwd = out
             n_zero = int((out[0] == 0).sum())
             if n_zero < 100 or out[0, -2] < 1000 or out[0, -1] < 300:
-                fail(f"kernel batch lost its shape: {n_zero} zero-score "
+                fail(f"{tag} lost its shape: {n_zero} zero-score "
                      f"pairs, long-pair scores {out[0, -2]}, {out[0, -1]}")
         elif not out[3].all():
-            fail("kernel batch: the reverse pass missed a terminate score")
-        print(f"[kernels] {d}: {js.shape[1]} pairs, {cells(js) / 1e6:.1f} "
+            fail(f"{tag}: the reverse pass missed a terminate score")
+        print(f"[{tag}] {d}: {js.shape[1]} pairs, {cells(js) / 1e6:.1f} "
               f"M cells, all six outputs equal; one call (host clock): "
               f"kernel {k_ms:.1f} ms, plain {p_ms:.1f} ms")
+
+
+def check_kernels(sub: torch.Tensor, errs: dict) -> None:
+    q, b, t, jobs = kernel_batch()
+    Q, B, T = (torch.from_numpy(a).to(sub.device) for a in (q, b, t))
+    check_batch("kernels", [Q, B, T, sub], jobs, GO, ("fwd", "rev"), errs)
+
+
+def check_kernels_struct(dev: torch.device, errs: dict) -> None:
+    from spacedust_tpu_torch.search.structure import combined_matrices
+    arrays, jobs = kernel_batch_struct()
+    m3di, aasc, _ = combined_matrices()
+    resident = [torch.from_numpy(a).to(dev) for a in arrays] + [
+        torch.from_numpy(m.astype(np.int8)).to(dev) for m in (m3di, aasc)]
+    check_batch("kernels-struct", resident, jobs, STRUCT_GO,
+                ("fwd_struct", "rev_struct"), errs)
 
 
 # ------------------------------------------------------- 4-6. the slices
@@ -213,6 +331,35 @@ def small_slice(work: Path) -> None:
         fail("small slice differs from tests/fixtures/torch_port_small.tsv")
     print(f"[small] {counts(tsv)[0]} hits / {counts(tsv)[1]} clusters, "
           f"equal to the JAX fixture ({time.perf_counter() - t0:.1f} s)")
+
+
+def read_counts() -> dict:
+    from spacedust_tpu_torch.ops import sw_cuda
+    return {d: getattr(sw_cuda, k[2]) for d, k in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def recording(stages: dict, dirs: tuple):
+    """Record, per direction, the arguments of the largest stage on its
+    way to the wrapper (the wrappers are looked up at dispatch)."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    saved = {d: getattr(sw_cuda, KERNELS[d][0]) for d in dirs}
+
+    def recorded(d, fn):
+        def call(*args):
+            if (d not in stages
+                    or args[-3].shape[1] > stages[d][-3].shape[1]):
+                stages[d] = args
+            return fn(*args)
+        return call
+
+    for d, fn in saved.items():
+        setattr(sw_cuda, KERNELS[d][0], recorded(d, fn))
+    try:
+        yield
+    finally:
+        for d, fn in saved.items():
+            setattr(sw_cuda, KERNELS[d][0], fn)
 
 
 def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
@@ -236,20 +383,8 @@ def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
     db = create_setdb([str(p) for p in fa], str(work / f"{size}_db"))
     t_ingest = time.perf_counter() - t0
 
-    # record each stage's arguments on its way to the wrapper
-    stages: dict = {"fwd": None, "rev": None}
-    wrappers = (sw_cuda.sw_forward, sw_cuda.sw_reverse)
-
-    def recorded(d, fn):
-        def call(*args):
-            if stages[d] is None or args[4].shape[1] > stages[d][4].shape[1]:
-                stages[d] = args
-            return fn(*args)
-        return call
-
-    sw_cuda.sw_forward = recorded("fwd", wrappers[0])
-    sw_cuda.sw_reverse = recorded("rev", wrappers[1])
-    try:
+    stages: dict = {}
+    with recording(stages, ("fwd", "rev")):
         sw_cuda.reset_counts()
         t0 = time.perf_counter()
         res = cluster_search_to_file(
@@ -257,10 +392,7 @@ def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
             params=ClusterSearchParams(filter_self_match=True), device=dev)
         torch.cuda.synchronize()
         t_search = time.perf_counter() - t0
-        launches = {"fwd": sw_cuda.FORWARD_LAUNCHES,
-                    "rev": sw_cuda.REVERSE_LAUNCHES}
-    finally:
-        sw_cuda.sw_forward, sw_cuda.sw_reverse = wrappers
+        launches = read_counts()
     if launches["fwd"] <= 0 or launches["rev"] <= 0:
         fail(f"the main path did not launch both kernels: {launches}")
     hits, clusters = counts(res.tsv)
@@ -280,18 +412,138 @@ def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
     return launches, stages
 
 
+def struct_small(work: Path) -> None:
+    """Modes 2 and 1 through the CLI on the small structure set."""
+    from spacedust_tpu_torch import cli, synth
+    from spacedust_tpu_torch.cluster.summarize import canonical_blocks
+    base, ref = synth.write_struct_set(work / "struct_small", "small")
+    db = str(work / "struct_small_db")
+    if cli.main(["createsetdb", str(base), db]) != 0:
+        fail("createsetdb of the flat DB (struct-small) failed")
+    for mode in (2, 1):
+        t0 = time.perf_counter()
+        if mode == 1 and cli.main(["aa2foldseek", db, str(ref),
+                                   "--device", "cuda"]) != 0:
+            fail("aa2foldseek (struct-small) failed")
+        out = str(work / f"struct_small_mode{mode}.tsv")
+        before = read_counts()
+        if cli.main(["clustersearch", db, db, out,
+                     str(work / f"struct_small_tmp{mode}"),
+                     "--filter-self-match", "--search-mode", str(mode),
+                     "--device", "cuda"]) != 0:
+            fail(f"clustersearch --search-mode {mode} (struct-small) failed")
+        launched = {d: n - before[d] for d, n in read_counts().items()}
+        need = KERNELS if mode == 1 else ("fwd_struct", "rev_struct")
+        if any(launched[d] <= 0 for d in need):
+            fail(f"--search-mode {mode} did not launch {list(need)}: "
+                 f"{launched}")
+        tsv = Path(out).read_text()
+        name = ("torch_port_struct_small.tsv" if mode == 2
+                else "torch_port_struct_small_mode1.tsv")
+        want = (ROOT / "tests" / "fixtures" / name).read_text()
+        if canonical_blocks(tsv) != canonical_blocks(want):
+            fail(f"struct-small mode {mode} differs from {name}")
+        print(f"[struct-small] mode {mode}: {counts(tsv)[0]} hits / "
+              f"{counts(tsv)[1]} clusters, equal to the JAX fixture; "
+              f"launches {launched} ({time.perf_counter() - t0:.1f} s)")
+
+
+def self_hits_ok(db, tmp: Path) -> int:
+    """Every gene of >= 100 aa finds itself with E < 1e-10 in the result
+    checkpoint (the per-query alignment records); returns the count."""
+    from spacedust_tpu_torch.db.mmseqs_io import FlatDB
+    res = FlatDB.open(next(tmp.glob("*/result.index")).with_suffix(""))
+    keys = set(res.keys())
+    missing = []
+    for k in np.nonzero(db.lengths >= 100)[0].tolist():
+        lines = res.lines(k) if k in keys else []
+        if not any(int(c[0]) == k and float(c[3]) < 1e-10
+                   for c in (ln.split("\t") for ln in lines)):
+            missing.append(k)
+    if missing:
+        fail(f"{len(missing)} genes of >= 100 aa lack a self hit with "
+             f"E < 1e-10 (first: {missing[:5]})")
+    return int((db.lengths >= 100).sum())
+
+
+def struct_run(work: Path, dev: torch.device, size: str,
+               stages: dict) -> tuple[dict, str]:
+    """--search-mode 2 of the structure set at `size` through
+    cluster_search_to_file; returns the launch counts and the TSV."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.cluster.summarize import canonical_sha256
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.workflow.clustersearch import (
+        ClusterSearchParams, cluster_search_to_file)
+    from spacedust_tpu_torch.workflow.createsetdb import create_setdb
+    base, _ref = synth.write_struct_set(work / f"struct_{size}", size)
+    t0 = time.perf_counter()
+    db = create_setdb([str(base)])
+    t_ingest = time.perf_counter() - t0
+    tmp = work / f"struct_{size}_tmp"
+    with recording(stages, ("fwd_struct", "rev_struct")):
+        sw_cuda.reset_counts()
+        t0 = time.perf_counter()
+        res = cluster_search_to_file(
+            db, db, str(work / f"struct_{size}.tsv"), str(tmp),
+            params=ClusterSearchParams(filter_self_match=True,
+                                       search_mode=2), device=dev)
+        torch.cuda.synchronize()
+        t_search = time.perf_counter() - t0
+        launches = read_counts()
+    if launches["fwd_struct"] <= 0 or launches["rev_struct"] <= 0:
+        fail(f"--search-mode 2 did not launch both struct kernels: "
+             f"{launches}")
+    n_self = self_hits_ok(db, tmp)
+    tm = res.timings
+    hits, clusters = counts(res.tsv)
+    print(f"[struct-{size}] {db.size} genes, {len(db.seq_data)} residues; "
+          f"createsetdb {t_ingest:.2f} s; clustersearch {t_search:.2f} s = "
+          f"structure_search {tm['structure_search']:.2f} + aggregate "
+          f"{tm['aggregate']:.2f}")
+    print(f"[struct-{size}] align detail {json.dumps(tm['align_detail'])}")
+    print(f"[struct-{size}] launches {launches}; {hits} hits / {clusters} "
+          f"clusters, canonical sha256 {canonical_sha256(res.tsv)}; "
+          f"{n_self} genes of >= 100 aa find themselves with E < 1e-10")
+    return launches, res.tsv
+
+
+def struct_real(work: Path, dev: torch.device) -> tuple[dict, dict]:
+    """The real-size structure run (launch counts of its run), and the
+    run of the fixture's size held against the fixture."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.cluster.summarize import canonical_sha256
+    fx = json.loads((ROOT / "tests" / "fixtures"
+                     / "torch_port_struct_real.json").read_text())
+    size = next((k for k, v in synth.SIZES.items()
+                 if list(v) == fx["sizes"]), None)
+    if size is None or fx["seed"] != synth.SEED:
+        fail("tests/fixtures/torch_port_struct_real.json does not match "
+             "synth.py")
+    stages: dict = {}
+    launches, tsv = struct_run(work, dev, "real", stages)
+    if size != "real":
+        _, tsv = struct_run(work, dev, size, {})
+    got = (*counts(tsv), canonical_sha256(tsv))
+    want = (fx["hits"], fx["clusters"], fx["canonical_sha256"])
+    if got != want:
+        fail(f"struct-{size} differs from the JAX fixture: {got} vs {want}")
+    print(f"[struct-{size}] equal to tests/fixtures/torch_port_struct_real"
+          f".json")
+    return launches, stages
+
+
 def time_stages(stages: dict, launches: dict, errs: dict,
                 card: str) -> list:
     """Kernel (CUDA events over 3 calls after a warm one) against the
     plain version (host clock, one call) on the main path's largest
     stages.  These launches come after the counts were read."""
     from spacedust_tpu_torch.ops import sw_cuda
-    from spacedust_tpu_torch.ops.sw import sw_jobs_ref
     report = []
-    for d, (name, replaces) in REPLACES.items():
+    for d, (name, replaces, _counter) in KERNELS.items():
         args = stages[d]
-        js = args[4]
-        fn = sw_cuda.sw_forward if d == "fwd" else sw_cuda.sw_reverse
+        js = args[-3]
+        fn = getattr(sw_cuda, name)
         got = fn(*args)
         torch.cuda.synchronize()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -303,7 +555,7 @@ def time_stages(stages: dict, launches: dict, errs: dict,
         torch.cuda.synchronize()
         k_ms = e0.elapsed_time(e1) / reps
         t0 = time.perf_counter()
-        ref = sw_jobs_ref(*args, reverse=(d == "rev"))
+        ref = plain(d)(*args)
         torch.cuda.synchronize()
         p_ms = 1e3 * (time.perf_counter() - t0)
         errs[d] = max(errs[d], compare(f"main-path {d} stage", got, ref))
@@ -312,14 +564,16 @@ def time_stages(stages: dict, launches: dict, errs: dict,
               f"{js.shape[1]} pairs, {c / 1e9:.3f} G cells; kernel "
               f"{k_ms:.2f} ms = {c / k_ms / 1e6:.2f} GCUPS; plain "
               f"{p_ms:.2f} ms = {c / p_ms / 1e6:.3f} GCUPS; equal; {card}")
-        report.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "spacedust_tpu_torch/csrc/sw.cu",
-            "replaces": replaces, "also_replaces": GATHER,
-            "launches": launches[d], "max_abs_err": errs[d],
-            "ms": k_ms, "plain_ms": p_ms, "pairs": int(js.shape[1]),
-            "cells": c, "gcups": c / k_ms / 1e6,
-            "plain_gcups": c / p_ms / 1e6})
+            "replaces": replaces, "launches": launches[d],
+            "max_abs_err": errs[d], "ms": k_ms, "plain_ms": p_ms,
+            "pairs": int(js.shape[1]), "cells": c, "gcups": c / k_ms / 1e6,
+            "plain_gcups": c / p_ms / 1e6}
+        if not d.endswith("struct"):
+            entry["also_replaces"] = GATHER
+        report.append(entry)
     return report
 
 
@@ -350,11 +604,16 @@ def main() -> int:
 
     sub = torch.from_numpy(
         load_substitution_matrix().sub_int.astype(np.int8)).to(dev)
-    errs = {"fwd": 0, "rev": 0}
+    errs = dict.fromkeys(KERNELS, 0)
     check_kernels(sub, errs)
+    check_kernels_struct(dev, errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         small_slice(Path(tmp))
         launches, stages = real_slice(Path(tmp), dev)
+        struct_small(Path(tmp))
+        s_launches, s_stages = struct_real(Path(tmp), dev)
+    launches.update({d: s_launches[d] for d in ("fwd_struct", "rev_struct")})
+    stages.update(s_stages)
     report = time_stages(stages, launches, errs, card)
 
     print(json.dumps({"kernels": report}))

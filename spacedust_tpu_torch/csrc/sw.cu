@@ -26,6 +26,13 @@
 //                    reaching it there; (0, -1, 0) when none (reverse only;
 //                    the forward kernel writes the (0, -1, 0) placeholders)
 //
+// Structure mode (kStruct, spacedust_tpu/ops/sw_engine.py::_sw_bucket_struct,
+// the XLA scan ops/sw_tiled.py::sw_scan_core(prof2=, tseq2=)): the cell
+// score has two channels, each cast to int8 on its own before the sum,
+//   s = int8(m3di[q_ss_i][t_ss_j] + bias3di_i) + int8(aa[q_aa_i][t_aa_j]),
+// with both 21x21 tables in shared memory and the strip keeping both query
+// tokens; sw_forward_struct / sw_reverse_struct are the same DP otherwise.
+//
 // Design: one thread per pair; the wrapper sorts pairs by cell count so a
 // warp's pairs carry similar work.  A thread walks its pair in strips of
 // kRows query rows: the strip's H/E state, tokens and bias live in
@@ -54,22 +61,40 @@ constexpr int kRows = 16;      // query rows per register strip
 constexpr int kAlphaPad = 32;  // sub table row pitch in shared memory
 constexpr int kNeg = -(1 << 30);
 
-template <bool kReverse>
+// Score tables: channel 1 (sub with the query bias) and, in structure
+// mode, channel 2 (sub2, no bias) on tokens qdata2 / tdata2.
+struct Tables {
+  const int8_t* sub;
+  int alpha;
+  const uint8_t* qdata2;
+  const uint8_t* tdata2;
+  const int8_t* sub2;
+  int alpha2;
+};
+
+// s_tab[t * kAlphaPad + q] = tab[q][t], zero outside the alphabet
+__device__ void load_table(int8_t* s_tab, const int8_t* tab, int alpha) {
+  for (int k = threadIdx.x; k < kAlphaPad * kAlphaPad; k += blockDim.x) {
+    const int t = k / kAlphaPad, q = k % kAlphaPad;
+    s_tab[k] = (t < alpha && q < alpha) ? tab[q * alpha + t] : 0;
+  }
+}
+
+template <bool kReverse, bool kStruct>
 __global__ void __launch_bounds__(kThreads)
 sw_scan_kernel(const uint8_t* __restrict__ qdata,
                const int8_t* __restrict__ qbias,
-               const uint8_t* __restrict__ tdata,
-               const int8_t* __restrict__ sub, int alpha,
+               const uint8_t* __restrict__ tdata, const Tables tab,
                const int64_t* __restrict__ jobs, int64_t job_stride, int n,
                int go, int ge, void* __restrict__ scratch,
                int32_t* __restrict__ out, int64_t out_stride) {
-  // s_sub[t * kAlphaPad + q] = sub[q][t]
   __shared__ int8_t s_sub[kAlphaPad * kAlphaPad];
-  for (int k = threadIdx.x; k < kAlphaPad * kAlphaPad; k += blockDim.x) {
-    const int t = k / kAlphaPad, q = k % kAlphaPad;
-    s_sub[k] = (t < alpha && q < alpha) ? sub[q * alpha + t] : 0;
-  }
+  __shared__ int8_t s_sub2[kStruct ? kAlphaPad * kAlphaPad : 1];
+  load_table(s_sub, tab.sub, tab.alpha);
+  if constexpr (kStruct) load_table(s_sub2, tab.sub2, tab.alpha2);
   __syncthreads();
+  const uint8_t* __restrict__ qdata2 = tab.qdata2;
+  const uint8_t* __restrict__ tdata2 = tab.tdata2;
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
@@ -94,13 +119,15 @@ sw_scan_kernel(const uint8_t* __restrict__ qdata,
     const bool first = (i0 == 0);
     const bool last = (i0 + kRows >= qlen);
     const int nvalid = min(kRows, qlen - i0);
-    int qt[kRows], qb[kRows], hmask[kRows], Hr[kRows], Er[kRows];
+    int qt[kRows], qt2[kRows], qb[kRows], hmask[kRows], Hr[kRows],
+        Er[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int i = min(i0 + r, qlen - 1);
       const int64_t qi = kReverse ? qoff + qlen - 1 - i : qoff + i;
       qt[r] = qdata[qi];
       qb[r] = qbias[qi];
+      if constexpr (kStruct) qt2[r] = qdata2[qi];
       // rows past qlen are held at H = 0, as the JAX scan holds them;
       // they sit below every valid row, so nothing flows back up
       hmask[r] = (r < nvalid) ? -1 : 0;
@@ -119,9 +146,11 @@ sw_scan_kernel(const uint8_t* __restrict__ qdata,
       }
     }
     int t_nxt = tlen > 0 ? tdata[tpos(0)] : 0;
+    int t2_nxt = (kStruct && tlen > 0) ? tdata2[tpos(0)] : 0;
     for (int j = 0; j < tlen; ++j) {
       const int4 cur = nxt;           // (H[i0-1][j], F[i0][j], cmax, crow)
       const int t = t_nxt;
+      const int t2 = t2_nxt;
       if (j + 1 < tlen) {
         if (!first) {
           const int64_t k = static_cast<int64_t>(j + 1) * n + p;
@@ -133,15 +162,18 @@ sw_scan_kernel(const uint8_t* __restrict__ qdata,
           }
         }
         t_nxt = tdata[tpos(j + 1)];
+        if constexpr (kStruct) t2_nxt = tdata2[tpos(j + 1)];
       }
       const int8_t* col = s_sub + t * kAlphaPad;
+      const int8_t* col2 = s_sub2 + (kStruct ? t2 * kAlphaPad : 0);
       int F = cur.y;
       int diag = diag_up;
       diag_up = cur.x;
       int cmax = -1, ci = 0;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const int s = static_cast<int8_t>(col[qt[r]] + qb[r]);
+        int s = static_cast<int8_t>(col[qt[r]] + qb[r]);
+        if constexpr (kStruct) s += col2[qt2[r]];
         const int e = max(Er[r] - ge, Hr[r] - go);
         const int h = max(max(max(diag + s, 0), e), F) & hmask[r];
         F = max(F - ge, h - go);
@@ -182,21 +214,35 @@ sw_scan_kernel(const uint8_t* __restrict__ qdata,
   out[5 * out_stride + p] = fi;
 }
 
-template <bool kReverse>
+template <bool kReverse, bool kStruct>
 int launch(const void* qdata, const void* qbias, const void* tdata,
-           const void* sub, int alpha, const void* jobs, long long job_stride,
-           int n, int go, int ge, void* scratch, void* out,
-           long long out_stride, void* stream) {
+           const Tables& tab, const void* jobs, long long job_stride, int n,
+           int go, int ge, void* scratch, void* out, long long out_stride,
+           void* stream) {
   if (n <= 0) return 0;
-  if (alpha > kAlphaPad) return static_cast<int>(cudaErrorInvalidValue);
+  if (tab.alpha > kAlphaPad || (kStruct && tab.alpha2 > kAlphaPad))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + kThreads - 1) / kThreads;
-  sw_scan_kernel<kReverse><<<blocks, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  sw_scan_kernel<kReverse, kStruct><<<blocks, kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(qdata), static_cast<const int8_t*>(qbias),
-      static_cast<const uint8_t*>(tdata), static_cast<const int8_t*>(sub),
-      alpha, static_cast<const int64_t*>(jobs), job_stride, n, go, ge,
-      scratch, static_cast<int32_t*>(out), out_stride);
+      static_cast<const uint8_t*>(tdata), tab,
+      static_cast<const int64_t*>(jobs), job_stride, n, go, ge, scratch,
+      static_cast<int32_t*>(out), out_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+Tables seq_tables(const void* sub, int alpha) {
+  return Tables{static_cast<const int8_t*>(sub), alpha, nullptr, nullptr,
+                nullptr, 0};
+}
+
+Tables struct_tables(const void* m3di, const void* qaa, const void* taa,
+                     const void* aasc, int alpha, int alpha2) {
+  return Tables{static_cast<const int8_t*>(m3di), alpha,
+                static_cast<const uint8_t*>(qaa),
+                static_cast<const uint8_t*>(taa),
+                static_cast<const int8_t*>(aasc), alpha2};
 }
 
 }  // namespace
@@ -211,16 +257,43 @@ int sw_forward(const void* qdata, const void* qbias, const void* tdata,
                const void* sub, int alpha, const void* jobs,
                long long job_stride, int n, int go, int ge, void* scratch,
                void* out, long long out_stride, void* stream) {
-  return launch<false>(qdata, qbias, tdata, sub, alpha, jobs, job_stride, n,
-                       go, ge, scratch, out, out_stride, stream);
+  return launch<false, false>(qdata, qbias, tdata, seq_tables(sub, alpha),
+                              jobs, job_stride, n, go, ge, scratch, out,
+                              out_stride, stream);
 }
 
 int sw_reverse(const void* qdata, const void* qbias, const void* tdata,
                const void* sub, int alpha, const void* jobs,
                long long job_stride, int n, int go, int ge, void* scratch,
                void* out, long long out_stride, void* stream) {
-  return launch<true>(qdata, qbias, tdata, sub, alpha, jobs, job_stride, n,
-                      go, ge, scratch, out, out_stride, stream);
+  return launch<true, false>(qdata, qbias, tdata, seq_tables(sub, alpha),
+                             jobs, job_stride, n, go, ge, scratch, out,
+                             out_stride, stream);
+}
+
+// Structure mode: 3Di tokens (qss, tss) scored by m3di with the query's
+// 3Di bias, amino-acid tokens (qaa, taa) by aasc; jobs, out and scratch as
+// above (offsets index all four token arrays alike).
+int sw_forward_struct(const void* qss, const void* qaa, const void* qbias,
+                      const void* tss, const void* taa, const void* m3di,
+                      int alpha, const void* aasc, int alpha2,
+                      const void* jobs, long long job_stride, int n, int go,
+                      int ge, void* scratch, void* out, long long out_stride,
+                      void* stream) {
+  return launch<false, true>(
+      qss, qbias, tss, struct_tables(m3di, qaa, taa, aasc, alpha, alpha2),
+      jobs, job_stride, n, go, ge, scratch, out, out_stride, stream);
+}
+
+int sw_reverse_struct(const void* qss, const void* qaa, const void* qbias,
+                      const void* tss, const void* taa, const void* m3di,
+                      int alpha, const void* aasc, int alpha2,
+                      const void* jobs, long long job_stride, int n, int go,
+                      int ge, void* scratch, void* out, long long out_stride,
+                      void* stream) {
+  return launch<true, true>(
+      qss, qbias, tss, struct_tables(m3di, qaa, taa, aasc, alpha, alpha2),
+      jobs, job_stride, n, go, ge, scratch, out, out_stride, stream);
 }
 
 }  // extern "C"

@@ -43,8 +43,8 @@ class SetDB:
     pos_idx: np.ndarray = field(default=None)     # int32 gene index in genome
     starts: np.ndarray = field(default=None)      # int64 CDS start (as in name)
     ends: np.ndarray = field(default=None)        # int64 CDS end
-    # optional structural (3Di) states per gene, same offsets as seq_data;
-    # carried through load/save only (structure mode is not ported yet)
+    # optional structural (3Di) states per gene, same offsets as seq_data
+    # (the reference's *_ss sidecar DB, e.g. examples/foldseek_testdb):
     ss_data: np.ndarray = field(default=None)     # uint8 encoded 3Di states
     # on-disk home when loaded from an artifact dir (hosts index caches)
     path: str = field(default=None)
@@ -73,6 +73,48 @@ class SetDB:
 
     def sequence(self, key: int) -> np.ndarray:
         return self.seq_data[self.offsets[key]:self.offsets[key + 1]]
+
+    @property
+    def has_ss(self) -> bool:
+        return self.ss_data is not None
+
+    def ss_sequence(self, key: int) -> np.ndarray:
+        return self.ss_data[self.offsets[key]:self.offsets[key + 1]]
+
+    def subset(self, keys: list[int]) -> "SetDB":
+        """New SetDB containing the given genes (renumbered 0..n-1; names,
+        set ids, and sidecar 3Di states preserved) — the createsubdb
+        module equivalent."""
+        keys = list(keys)
+        parts = [self.sequence(k) for k in keys]
+        offsets = np.concatenate(
+            ([0], np.cumsum([len(p) for p in parts]))).astype(np.int64)
+        sub = SetDB(
+            dbtype=self.dbtype,
+            seq_data=(np.concatenate(parts) if parts
+                      else np.empty(0, np.uint8)),
+            offsets=offsets,
+            names=[self.names[k] for k in keys],
+            set_ids=self.set_ids[keys].copy(),
+            headers=[self.headers[k] for k in keys],
+            sources=list(self.sources))
+        if self.has_ss:
+            sub.ss_data = np.concatenate(
+                [self.ss_sequence(k) for k in keys]) if keys else \
+                np.empty(0, np.uint8)
+        sub.finalize_metadata()
+        return sub
+
+    def ss_view(self) -> "SetDB":
+        """A SetDB view whose primary residues are the 3Di states (shares
+        all metadata) — feeds the structure-mode prefilter/index."""
+        if not self.has_ss:
+            raise ValueError("SetDB has no 3Di (_ss) data")
+        return SetDB(dbtype=self.dbtype, seq_data=self.ss_data,
+                     offsets=self.offsets, names=self.names,
+                     set_ids=self.set_ids, headers=self.headers,
+                     sources=self.sources, pos_idx=self.pos_idx,
+                     starts=self.starts, ends=self.ends)
 
     def strand(self, key: int) -> bool:
         """True = plus strand (start < end), as ClusterHits.cpp:349-350."""

@@ -5,7 +5,7 @@ The sources are the JAX package's, copied; `banded_sw.cpp` here writes
 its compressed CIGARs without the one-byte overrun of the original.  The
 shared library is compiled with g++ at first use into the package's
 `_build/` directory (content-hashed, git-ignored).  Only the symbols the
-clustersearch path calls are bound.
+clustersearch paths call are bound.
 """
 
 from __future__ import annotations
@@ -120,6 +120,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P(i32), P(i32), P(i32), P(i32), P(i32), P(i32), P(i32),
         ctypes.c_int, ctypes.c_int, P(i64), ctypes.c_char_p, P(i32), P(i32),
         ctypes.c_char_p, P(i32)]
+    lib.banded_align_profile_u16.restype = ctypes.c_int
+    lib.banded_align_profile_u16.argtypes = [
+        P(ctypes.c_uint16),               # t (wide symbols)
+        ctypes.c_int, ctypes.c_int,       # q_len, t_len
+        P(ctypes.c_int8),                 # prof [sym][qpos]
+        ctypes.c_int, ctypes.c_int,       # prof_qlen, query_start
+        ctypes.c_int,                     # score
+        ctypes.c_int, ctypes.c_int,       # gap_open, gap_extend
+        ctypes.c_int,                     # band_width
+        ctypes.c_char_p, ctypes.c_int]    # out, cap
     lib.cluster_hits_engine.restype = ctypes.c_int
     lib.cluster_hits_engine.argtypes = [
         P(i64), P(i64), P(ctypes.c_uint8), P(ctypes.c_uint8), ctypes.c_int,
@@ -346,6 +356,26 @@ def banded_align_batch(qdata, qoffs, tdata, toffs, bias_data, mat_int8,
     cigs = [craw[2 * int(out_offs[i]):2 * int(out_offs[i])
                  + int(out_clen[i])].decode("ascii") for i in range(n)]
     return ops, out_ident, cigs
+
+
+def banded_align_profile_u16(tsym: np.ndarray, q_len: int,
+                             prof: np.ndarray, query_start: int, score: int,
+                             gap_open: int, gap_extend: int) -> str:
+    """Banded traceback of one pair over a wide (up to 65,536-symbol)
+    alphabet: target symbols `tsym` (uint16) against the query rows
+    [query_start, query_start + q_len) of the int8 profile `prof`
+    (symbols x query positions).  Returns the expanded ops string."""
+    tsym = np.ascontiguousarray(tsym, dtype=np.uint16)
+    prof = np.ascontiguousarray(prof, dtype=np.int8)
+    cap = q_len + len(tsym) + 8
+    buf = ctypes.create_string_buffer(cap)
+    n = get_lib().banded_align_profile_u16(
+        _ptr(tsym, ctypes.c_uint16), q_len, len(tsym),
+        _ptr(prof, ctypes.c_int8), prof.shape[1], query_start, int(score),
+        gap_open, gap_extend, abs(len(tsym) - q_len) + 1, buf, cap)
+    if n < 0:
+        raise RuntimeError(f"banded_align_profile_u16 failed: {n}")
+    return buf.raw[:n].decode("ascii")
 
 
 def set_num_threads(n: int) -> None:

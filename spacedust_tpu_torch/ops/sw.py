@@ -24,6 +24,12 @@ int8 (wrapping), as the JAX scan does.  The DP runs in int32 (Gotoh with
 a local 0 clamp; E carries across target columns, F is the in-column gap
 in the closed form of a running max).
 
+Structure mode (`sw_struct_jobs_ref`, the plain version of the JAX
+package's `ops/sw_engine.py::_sw_bucket_struct`) adds a second channel:
+`sw_scan_ref(prof2=, tseq2=)` scores a cell as
+int8(prof[t_j]) + int8(prof2[t2_j]), each profile cast to int8 on its own
+(3Di: m3di + the 3Di bias; amino acids: the scaled table, no bias).
+
 These run wherever their tensors are.  The CPU tests hold them against
 the JAX package; on the card they are the yardstick `chip_smoke.py`
 holds the kernels of `ops/sw_cuda.py` against.
@@ -36,8 +42,10 @@ import torch
 
 NEG = -(1 << 30)
 # (pairs x query rows) per plain-version batch: bounds the (B, A, Lq)
-# profile and the (B, Lq) DP state
+# profile and the (B, Lq) DP state.  On CUDA a column step's dozen small
+# ops cost their launches, not their bytes, until a batch is this large.
 REF_CELLS = 1 << 20
+REF_CELLS_CUDA = 1 << 23
 
 
 def gather_panels(qdata: torch.Tensor, qbias: torch.Tensor,
@@ -66,19 +74,23 @@ def gather_panels(qdata: torch.Tensor, qbias: torch.Tensor,
             tdata[t_idx].to(torch.int32))
 
 
-def make_profile(qtok: torch.Tensor, qb: torch.Tensor,
+def make_profile(qtok: torch.Tensor, qb: torch.Tensor | None,
                  sub: torch.Tensor) -> torch.Tensor:
-    """prof[b, a, i] = sub[q[b, i], a] + bias[b, i]  -> (B, A, Lq) int32."""
+    """prof[b, a, i] = sub[q[b, i], a] + bias[b, i]  -> (B, A, Lq) int32
+    (no bias term when qb is None)."""
     prof = sub.to(torch.int32)[qtok.to(torch.int64)]      # (B, Lq, A)
-    prof = prof + qb.to(torch.int32)[:, :, None]
+    if qb is not None:
+        prof = prof + qb.to(torch.int32)[:, :, None]
     return prof.permute(0, 2, 1).contiguous()
 
 
 def sw_scan_ref(prof: torch.Tensor, tseq: torch.Tensor, qlens: torch.Tensor,
                 tlens: torch.Tensor, gap_open: int, gap_extend: int,
-                terminate: torch.Tensor):
+                terminate: torch.Tensor, prof2: torch.Tensor | None = None,
+                tseq2: torch.Tensor | None = None):
     """prof: (B, A, Lq) int32; tseq: (B, Lt) int tokens; lens and
-    terminate (B,).  Returns the six int32 outputs described above.
+    terminate (B,); optional second channel prof2 (B, A2, Lq) / tseq2
+    (B, Lt).  Returns the six int32 outputs described above.
 
     H and E are not frozen past a pair's tlen: those columns feed only
     later columns of the same pair, which are past tlen too, and every
@@ -92,6 +104,7 @@ def sw_scan_ref(prof: torch.Tensor, tseq: torch.Tensor, qlens: torch.Tensor,
     tlens = tlens.to(i32)
     terminate = terminate.to(i32)
     valid = (iota_q < qlens[:, None]).to(i32)              # (B, Lq) 0/1
+    valid_m1 = valid - 1
     go = gap_open
     ge = gap_extend
     # int8 wrap, NEG on rows past qlen; rows of the flat (B*A, Lq) view
@@ -101,6 +114,12 @@ def sw_scan_ref(prof: torch.Tensor, tseq: torch.Tensor, qlens: torch.Tensor,
     prof_rows = prof_i8.reshape(B * A, Lq)
     row_base = torch.arange(B, device=dev, dtype=torch.int64) * A
     tseq = tseq.to(torch.int64)
+    if prof2 is not None:
+        # rows past qlen already carry NEG in channel 1
+        A2 = prof2.shape[1]
+        prof2_rows = prof2.to(torch.int8).to(i32).reshape(B * A2, Lq)
+        row_base2 = torch.arange(B, device=dev, dtype=torch.int64) * A2
+        tseq2 = tseq2.to(torch.int64)
     ge_iota = ge * iota_q
     f_off = go + ge * (iota_q - 1)
     neg_col = torch.full((B, 1), NEG, device=dev, dtype=i32)
@@ -116,6 +135,9 @@ def sw_scan_ref(prof: torch.Tensor, tseq: torch.Tensor, qlens: torch.Tensor,
     fi = torch.zeros(B, device=dev, dtype=i32)
     for j in range(Lt):
         s_col = prof_rows.index_select(0, row_base + tseq[:, j])
+        if prof2 is not None:
+            s_col = s_col + prof2_rows.index_select(0, row_base2
+                                                    + tseq2[:, j])
         diag = torch.cat([zero_col, H[:, :-1]], dim=1)
         E = torch.maximum(E - ge, H - go)
         Hbase = torch.maximum((diag + s_col).clamp_(min=0), E)
@@ -124,7 +146,7 @@ def sw_scan_ref(prof: torch.Tensor, tseq: torch.Tensor, qlens: torch.Tensor,
         H = torch.maximum(Hbase, F) * valid               # 0 past qlen
 
         # column max over valid rows (-1 past qlen) and its first row
-        cmax, ci = (H + (valid - 1)).max(dim=1)
+        cmax, ci = (H + valid_m1).max(dim=1)
         ci = ci.to(i32)
         col_valid = j < tlens
         better = col_valid & (cmax > gmax)
@@ -138,6 +160,51 @@ def sw_scan_ref(prof: torch.Tensor, tseq: torch.Tensor, qlens: torch.Tensor,
     return gmax, gj, gi, found.to(i32), fj, fi
 
 
+def _job_batches(jobs: np.ndarray, tight: bool):
+    """Index batches, each grown while B * max(qlen) fits REF_CELLS
+    (REF_CELLS_CUDA when not tight).
+
+    tight (the CPU, where the scan is compute-bound): pairs grouped by
+    query length in quarter-octave buckets and ordered by target length
+    within a bucket, so that a batch's (max qlen) x (max tlen) box holds
+    little padding.  Otherwise (CUDA, where each target column costs a
+    dozen small kernel launches, so the count of batches and columns sets
+    the time): pairs ordered by their longer side, in as few batches as
+    fit."""
+    n = jobs.shape[1]
+    limit = REF_CELLS if tight else REF_CELLS_CUDA
+    if tight:
+        q = np.maximum(jobs[1], 1).astype(np.int64)
+        octave = np.floor(np.log2(q)).astype(np.int64)
+        bucket = 4 * octave + ((q >> np.maximum(octave - 2, 0)) & 3)
+        order = np.lexsort((jobs[3], bucket))
+    else:
+        bucket = np.zeros(n, dtype=np.int64)
+        order = np.argsort(np.maximum(jobs[1], jobs[3]), kind="stable")
+    s = 0
+    while s < n:
+        rest = order[s:]
+        same = bucket[rest] == bucket[rest[0]]
+        m = len(rest) if same.all() else int(np.argmin(same))
+        ql = np.maximum.accumulate(jobs[1, rest[:m]])
+        fits = np.arange(1, m + 1) * np.maximum(ql, 1) <= limit
+        e = s + max(int(fits.sum()), 1)
+        yield order[s:e]
+        s = e
+
+
+def _jobs_ref(dev: torch.device, jobs: np.ndarray, scan) -> torch.Tensor:
+    """Run `scan(j, Lq, Lt)` (j: the batch's (5, B) jobs on dev) over
+    _job_batches and scatter the six outputs into a (6, n) result."""
+    out = torch.empty((6, jobs.shape[1]), dtype=torch.int32, device=dev)
+    for idx in _job_batches(jobs, tight=dev.type == "cpu"):
+        j = torch.from_numpy(np.ascontiguousarray(jobs[:, idx])).to(dev)
+        Lq = max(int(jobs[1, idx].max()), 1)
+        Lt = max(int(jobs[3, idx].max()), 1)
+        out[:, torch.from_numpy(idx).to(dev)] = torch.stack(scan(j, Lq, Lt))
+    return out
+
+
 def sw_jobs_ref(qdata: torch.Tensor, qbias: torch.Tensor,
                 tdata: torch.Tensor, sub: torch.Tensor, jobs: np.ndarray,
                 gap_open: int, gap_extend: int, reverse: bool) -> torch.Tensor:
@@ -145,25 +212,29 @@ def sw_jobs_ref(qdata: torch.Tensor, qbias: torch.Tensor,
     int64 job array in (qoff, qlen, toff, tlen, terminate), the same
     (6, n) int32 result, on the device of `qdata`.  Pairs are scanned in
     batches of similar length (gather_panels + make_profile + sw_scan_ref)."""
-    dev = qdata.device
-    n = jobs.shape[1]
-    out = torch.empty((6, n), dtype=torch.int32, device=dev)
-    longest = np.maximum(jobs[1], jobs[3])
-    order = np.argsort(longest, kind="stable")
-    s = 0
-    while s < n:
-        # ascending lengths: grow the batch while B * max(qlen) fits
-        ql = np.maximum.accumulate(jobs[1, order[s:]])
-        fits = np.arange(1, n - s + 1) * np.maximum(ql, 1) <= REF_CELLS
-        e = s + max(int(fits.sum()), 1)
-        idx = order[s:e]
-        j = torch.from_numpy(np.ascontiguousarray(jobs[:, idx])).to(dev)
-        Lq = max(int(jobs[1, idx].max()), 1)
-        Lt = max(int(jobs[3, idx].max()), 1)
+    def scan(j, Lq, Lt):
         qt, qb, tt = gather_panels(qdata, qbias, tdata, j[0], j[1], j[2],
                                    j[3], Lq, Lt, reverse)
-        res = sw_scan_ref(make_profile(qt, qb, sub), tt, j[1], j[3],
-                          gap_open, gap_extend, j[4])
-        out[:, torch.from_numpy(idx).to(dev)] = torch.stack(res)
-        s = e
-    return out
+        return sw_scan_ref(make_profile(qt, qb, sub), tt, j[1], j[3],
+                           gap_open, gap_extend, j[4])
+    return _jobs_ref(qdata.device, jobs, scan)
+
+
+def sw_struct_jobs_ref(qss: torch.Tensor, qaa: torch.Tensor,
+                       qbias: torch.Tensor, tss: torch.Tensor,
+                       taa: torch.Tensor, m3di: torch.Tensor,
+                       aasc: torch.Tensor, jobs: np.ndarray, gap_open: int,
+                       gap_extend: int, reverse: bool) -> torch.Tensor:
+    """Plain version of the structure-mode kernels (`sw_forward_struct` /
+    `sw_reverse_struct`): jobs and result as sw_jobs_ref; the 3Di channel
+    (qss/tss, m3di, the int8 3Di bias qbias) and the amino-acid channel
+    (qaa/taa, aasc) are profiled and cast to int8 separately."""
+    def scan(j, Lq, Lt):
+        qs, qb, ts = gather_panels(qss, qbias, tss, j[0], j[1], j[2], j[3],
+                                   Lq, Lt, reverse)
+        qa, _qb, ta = gather_panels(qaa, qbias, taa, j[0], j[1], j[2], j[3],
+                                    Lq, Lt, reverse)
+        return sw_scan_ref(make_profile(qs, qb, m3di), ts, j[1], j[3],
+                           gap_open, gap_extend, j[4],
+                           prof2=make_profile(qa, None, aasc), tseq2=ta)
+    return _jobs_ref(qss.device, jobs, scan)

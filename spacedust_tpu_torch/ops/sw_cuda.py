@@ -1,9 +1,14 @@
 """Hand-written Hopper kernels for the SW score passes, and their wrappers.
 
-`csrc/sw.cu` holds two CUDA kernels (see the note at its top):
-`sw_forward` replaces the JAX package's `ops/sw_pallas.py::_kernel_rowmax`,
-`sw_reverse` its `ops/sw_pallas.py::_kernel`, and both take over
-`ops/sw_engine.py::panel_gather` as their own load stage.  The source is
+`csrc/sw.cu` holds one CUDA DP in four instantiations (see the note at
+its top): `sw_forward` replaces the JAX package's
+`ops/sw_pallas.py::_kernel_rowmax`, `sw_reverse` its
+`ops/sw_pallas.py::_kernel`, and both take over
+`ops/sw_engine.py::panel_gather` as their own load stage;
+`sw_forward_struct` / `sw_reverse_struct` replace the structure-mode XLA
+program `ops/sw_engine.py::_sw_bucket_struct` (two score channels, 3Di
+with its bias and amino acids, each cast to int8 before the sum).  The
+source is
 compiled with nvcc for sm_90a at first use into `_build/` beside the
 package (git-ignored) and bound through a plain C interface with ctypes.
 
@@ -14,9 +19,13 @@ device of the resident arrays.  For CUDA tensors they copy the jobs to
 the card once and launch the kernel on the current stream, in as many
 launches as keep each launch's DP scratch under SCRATCH_BYTES; nothing is
 synchronised.  For CPU tensors they run the plain version
-(`ops/sw.py::sw_jobs_ref`).  There is no fallback between the two.
+(`ops/sw.py::sw_jobs_ref` / `sw_struct_jobs_ref`).  There is no fallback
+between the two.  The structure wrappers take five resident arrays (3Di
+and amino-acid tokens of the queries with the int8 3Di bias, and of the
+targets) and the two int8 tables in place of (qdata, qbias, tdata, sub).
 
-FORWARD_LAUNCHES / REVERSE_LAUNCHES count kernel launches.
+FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
+REVERSE_STRUCT_LAUNCHES count kernel launches.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .sw import sw_jobs_ref
+from .sw import sw_jobs_ref, sw_struct_jobs_ref
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "sw.cu"
@@ -43,6 +52,8 @@ SCRATCH_BYTES = 1 << 30        # per-launch DP scratch bound
 
 FORWARD_LAUNCHES = 0
 REVERSE_LAUNCHES = 0
+FORWARD_STRUCT_LAUNCHES = 0
+REVERSE_STRUCT_LAUNCHES = 0
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -50,8 +61,11 @@ _LOCK = threading.Lock()
 
 def reset_counts() -> None:
     global FORWARD_LAUNCHES, REVERSE_LAUNCHES
+    global FORWARD_STRUCT_LAUNCHES, REVERSE_STRUCT_LAUNCHES
     FORWARD_LAUNCHES = 0
     REVERSE_LAUNCHES = 0
+    FORWARD_STRUCT_LAUNCHES = 0
+    REVERSE_STRUCT_LAUNCHES = 0
 
 
 def _nvcc() -> str:
@@ -89,11 +103,15 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             p = ctypes.c_void_p
+            tail = [p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, p, p, ctypes.c_longlong, p]
             for fn in (lib.sw_forward, lib.sw_reverse):
                 fn.restype = ctypes.c_int
-                fn.argtypes = [p, p, p, p, ctypes.c_int, p, ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p,
-                               ctypes.c_longlong, p]
+                fn.argtypes = [p, p, p, p, ctypes.c_int, *tail]
+            for fn in (lib.sw_forward_struct, lib.sw_reverse_struct):
+                fn.restype = ctypes.c_int
+                fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, p,
+                               ctypes.c_int, *tail]
             _LIB = lib
     return _LIB
 
@@ -113,67 +131,116 @@ def scratch_chunks(tlen: np.ndarray, bytes_per_cell: int,
     return chunks
 
 
-def _check(qdata, qbias, tdata, sub, jobs, gap_open, gap_extend):
-    dev = qdata.device
-    for name, t, dt in (("qdata", qdata, torch.uint8),
-                        ("qbias", qbias, torch.int8),
-                        ("tdata", tdata, torch.uint8),
-                        ("sub", sub, torch.int8)):
+def _check(tokens, qbias, tables, jobs, gap_open, gap_extend):
+    """tokens: ((name, query tokens, target tokens), ...) per channel;
+    tables: ((name, table), ...)."""
+    dev = qbias.device
+    named = [("qbias", qbias, torch.int8)]
+    for name, q, t in tokens:
+        named += [(f"query {name}", q, torch.uint8),
+                  (f"target {name}", t, torch.uint8)]
+    named += [(name, tab, torch.int8) for name, tab in tables]
+    for name, t, dt in named:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on {dev}")
-    if sub.dim() != 2 or sub.shape[0] != sub.shape[1] or sub.shape[0] > 32:
-        raise ValueError("sub must be a square matrix of at most 32 letters")
+    for name, tab in tables:
+        if tab.dim() != 2 or tab.shape[0] != tab.shape[1] or tab.shape[0] > 32:
+            raise ValueError(f"{name} must be a square matrix of at most 32 "
+                             "letters")
+    qlen_all = len(qbias)
+    for name, q, t in tokens:
+        if len(q) != qlen_all or len(t) != len(tokens[0][2]):
+            raise ValueError(f"{name}: the resident arrays of a side must "
+                             "have one length")
     if jobs.dtype != np.int64 or jobs.ndim != 2 or jobs.shape[0] != 5:
         raise ValueError("jobs must be a (5, n) int64 array")
     qoff, qlen, toff, tlen = jobs[:4]
     if jobs.shape[1] and not (
             (qlen >= 1).all() and (tlen >= 1).all()
             and (qlen < 2**31).all() and (tlen < 2**31).all()
-            and (qoff >= 0).all() and (qoff + qlen <= len(qdata)).all()
-            and (toff >= 0).all() and (toff + tlen <= len(tdata)).all()):
+            and (qoff >= 0).all() and (qoff + qlen <= qlen_all).all()
+            and (toff >= 0).all()
+            and (toff + tlen <= len(tokens[0][2])).all()):
         raise ValueError("SW jobs need 1 <= length < 2**31 and offsets "
                          "inside the resident arrays")
     if gap_open < gap_extend:
         raise ValueError("the SW kernels need gap_open >= gap_extend")
 
 
-def _run(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
-         gap_open: int, gap_extend: int) -> torch.Tensor:
-    global FORWARD_LAUNCHES, REVERSE_LAUNCHES
-    _check(qdata, qbias, tdata, sub, jobs, gap_open, gap_extend)
-    dev = qdata.device
-    if dev.type == "cpu":
-        return sw_jobs_ref(qdata, qbias, tdata, sub, jobs, gap_open,
-                           gap_extend, reverse)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    lib = _lib()
-    fn = lib.sw_reverse if reverse else lib.sw_forward
+def _launch(fn, name: str, resident: list, jobs: np.ndarray, gap_open: int,
+            gap_extend: int, reverse: bool) -> tuple[torch.Tensor, int]:
+    """Launch `fn(*resident, jobs, ..., stream)` over scratch-bounded
+    chunks of the pairs; returns the (6, n) result and the launch count."""
+    dev = resident[0].device
     n = jobs.shape[1]
     out = torch.empty((6, n), dtype=torch.int32, device=dev)
     if n == 0:
-        return out
+        return out, 0
     jobs_np = np.ascontiguousarray(jobs)
     jobs_d = torch.from_numpy(jobs_np).to(dev, non_blocking=False)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in resident]
     cell = 16 if reverse else 8
-    for s, e in scratch_chunks(jobs_np[3], cell):
+    chunks = scratch_chunks(jobs_np[3], cell)
+    for s, e in chunks:
         mt = max(int(jobs_np[3, s:e].max()), 1)
         scratch = torch.empty((e - s) * mt * cell, dtype=torch.uint8,
                               device=dev)
-        rc = fn(qdata.data_ptr(), qbias.data_ptr(), tdata.data_ptr(),
-                sub.data_ptr(), int(sub.shape[0]),
-                jobs_d.data_ptr() + 8 * s, n, e - s,
+        rc = fn(*args, jobs_d.data_ptr() + 8 * s, n, e - s,
                 int(gap_open), int(gap_extend), scratch.data_ptr(),
                 out.data_ptr() + 4 * s, n, stream)
         if rc != 0:
-            raise RuntimeError(
-                f"{'sw_reverse' if reverse else 'sw_forward'} launch failed: "
-                f"CUDA error {rc}")
-        if reverse:
-            REVERSE_LAUNCHES += 1
-        else:
-            FORWARD_LAUNCHES += 1
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out, len(chunks)
+
+
+def _device_of(t: torch.Tensor) -> torch.device:
+    dev = t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _run(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
+         gap_open: int, gap_extend: int) -> torch.Tensor:
+    global FORWARD_LAUNCHES, REVERSE_LAUNCHES
+    _check((("tokens", qdata, tdata),), qbias, (("sub", sub),), jobs,
+           gap_open, gap_extend)
+    if _device_of(qdata).type == "cpu":
+        return sw_jobs_ref(qdata, qbias, tdata, sub, jobs, gap_open,
+                           gap_extend, reverse)
+    lib = _lib()
+    name = "sw_reverse" if reverse else "sw_forward"
+    out, k = _launch(getattr(lib, name), name,
+                     [qdata, qbias, tdata, sub, int(sub.shape[0])], jobs,
+                     gap_open, gap_extend, reverse)
+    if reverse:
+        REVERSE_LAUNCHES += k
+    else:
+        FORWARD_LAUNCHES += k
+    return out
+
+
+def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
+                jobs: np.ndarray, gap_open: int, gap_extend: int
+                ) -> torch.Tensor:
+    global FORWARD_STRUCT_LAUNCHES, REVERSE_STRUCT_LAUNCHES
+    _check((("3Di", qss, tss), ("amino acids", qaa, taa)), qbias,
+           (("m3di", m3di), ("aasc", aasc)), jobs, gap_open, gap_extend)
+    if _device_of(qss).type == "cpu":
+        return sw_struct_jobs_ref(qss, qaa, qbias, tss, taa, m3di, aasc,
+                                  jobs, gap_open, gap_extend, reverse)
+    lib = _lib()
+    name = "sw_reverse_struct" if reverse else "sw_forward_struct"
+    out, k = _launch(getattr(lib, name), name,
+                     [qss, qaa, qbias, tss, taa, m3di, int(m3di.shape[0]),
+                      aasc, int(aasc.shape[0])], jobs,
+                     gap_open, gap_extend, reverse)
+    if reverse:
+        REVERSE_STRUCT_LAUNCHES += k
+    else:
+        FORWARD_STRUCT_LAUNCHES += k
     return out
 
 
@@ -189,3 +256,21 @@ def sw_reverse(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
     """Reverse pass on the flipped prefixes: all six outputs, with
     (found, fj, fi) at the terminate score in flipped coordinates."""
     return _run(True, qdata, qbias, tdata, sub, jobs, gap_open, gap_extend)
+
+
+def sw_forward_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
+                      jobs: np.ndarray, gap_open: int,
+                      gap_extend: int) -> torch.Tensor:
+    """Structure-mode forward pass: as sw_forward, with the cell score
+    int8(m3di[q_ss][t_ss] + bias_i) + int8(aasc[q_aa][t_aa])."""
+    return _run_struct(False, qss, qaa, qbias, tss, taa, m3di, aasc, jobs,
+                       gap_open, gap_extend)
+
+
+def sw_reverse_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
+                      jobs: np.ndarray, gap_open: int,
+                      gap_extend: int) -> torch.Tensor:
+    """Structure-mode reverse pass: as sw_reverse, with the two-channel
+    cell score of sw_forward_struct."""
+    return _run_struct(True, qss, qaa, qbias, tss, taa, m3di, aasc, jobs,
+                       gap_open, gap_extend)

@@ -11,6 +11,11 @@ wrapper copies to the device once, and scored by the `ops/sw_cuda.py`
 kernels on the current stream (the plain version for CPU tensors).
 Results stay on the device until collect(), which fetches every pending
 stage with one device-to-host copy.
+
+`StructureDeviceDB` is the port of `StructureDeviceDB` (the resident side
+of `_sw_bucket_struct`): five resident arrays (3Di and amino-acid tokens
+of both sides and the int8 3Di bias) and two int8 tables, the same
+enqueue/flush/collect/run_buckets contract, and the structure kernels.
 """
 
 from __future__ import annotations
@@ -27,6 +32,24 @@ from . import sw_cuda
 DISPATCH_PAIRS = 1 << 16
 
 
+def _device(device: torch.device | str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is "
+                           "not available")
+    return device
+
+
+def _check_tokens(name: str, a: np.ndarray, alpha: int) -> None:
+    if len(a) and int(a.max()) >= alpha:
+        raise ValueError(f"{name} token out of the {alpha}-letter alphabet")
+
+
+def _upload(a: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
+    # a loaded SetDB maps its arrays read-only: copy those
+    return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(device)
+
+
 class DeviceAlignDB:
     """Resident arrays for one (query DB, target DB) pair.
 
@@ -35,30 +58,34 @@ class DeviceAlignDB:
     live and the SW runs (a CUDA device runs the kernels, the CPU the
     plain version)."""
 
+    # per direction (reverse?): the ops/sw_cuda.py wrapper and its launch
+    # counter, looked up at dispatch
+    KERNELS = {False: ("sw_forward", "FORWARD_LAUNCHES"),
+               True: ("sw_reverse", "REVERSE_LAUNCHES")}
+
     def __init__(self, qdata: np.ndarray, qbias: np.ndarray,
                  tdata: np.ndarray, sub: np.ndarray,
                  device: torch.device | str):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is "
-                               "not available")
-        alpha = sub.shape[0]
+        self.device = _device(device)
         for name, a in (("query", qdata), ("target", tdata)):
-            if len(a) and int(a.max()) >= alpha:
-                raise ValueError(f"{name} token out of the {alpha}-letter "
-                                 "alphabet")
-        self.device = device
-        # a loaded SetDB maps its arrays read-only: copy those
+            _check_tokens(name, a, sub.shape[0])
         self.qdata, self.qbias, self.tdata, self.sub = (
-            torch.from_numpy(np.require(a, dt, ["C", "W"])).to(device)
+            _upload(a, dt, self.device)
             for a, dt in ((qdata, np.uint8), (qbias, np.int8),
                           (tdata, np.uint8), (sub, np.int8)))
+        self._init_state()
+
+    def _init_state(self) -> None:
         self._buf: dict[tuple, list] = {}
         self.metrics = {"n_batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
                         "fwd_launches": 0, "rev_launches": 0,
                         "fwd_pairs": 0, "rev_pairs": 0,
                         "fwd_cells": 0, "rev_cells": 0,
                         "fwd_kernel_ms": 0.0, "rev_kernel_ms": 0.0}
+
+    def _resident(self) -> tuple:
+        """The wrappers' leading arguments."""
+        return (self.qdata, self.qbias, self.tdata, self.sub)
 
     def enqueue(self, jobs, gap_open: int, gap_extend: int,
                 reverse: bool):
@@ -95,18 +122,16 @@ class DeviceAlignDB:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-        before = (sw_cuda.FORWARD_LAUNCHES, sw_cuda.REVERSE_LAUNCHES)
-        fn = sw_cuda.sw_reverse if reverse else sw_cuda.sw_forward
-        out = fn(self.qdata, self.qbias, self.tdata, self.sub, jobs,
-                 gap_open, gap_extend)
+        fn_name, counter = self.KERNELS[reverse]
+        before = getattr(sw_cuda, counter)
+        out = getattr(sw_cuda, fn_name)(*self._resident(), jobs, gap_open,
+                                        gap_extend)
         if timed:
             ev[1].record()
         d = "rev" if reverse else "fwd"
         m = self.metrics
         m["n_batches"] += 1
-        m[f"{d}_launches"] += ((sw_cuda.REVERSE_LAUNCHES - before[1])
-                               if reverse
-                               else (sw_cuda.FORWARD_LAUNCHES - before[0]))
+        m[f"{d}_launches"] += getattr(sw_cuda, counter) - before
         m[f"{d}_pairs"] += jobs.shape[1]
         m[f"{d}_cells"] += int(cells.sum())
         m["dispatch_s"] += time.perf_counter() - t0
@@ -135,3 +160,33 @@ class DeviceAlignDB:
         """enqueue + flush + collect for one direction."""
         return self.collect(self.enqueue(jobs, gap_open, gap_extend, reverse)
                             + self.flush(gap_open, gap_extend, reverse))
+
+
+class StructureDeviceDB(DeviceAlignDB):
+    """Resident 3Di + amino-acid arrays of the structure search: qss/qaa
+    and tss/taa are the uint8 3Di and amino-acid tokens of the queries and
+    targets (same offsets), qbias the int8 3Di composition bias, m3di and
+    aasc the (21, 21) tables of the two score channels."""
+
+    KERNELS = {False: ("sw_forward_struct", "FORWARD_STRUCT_LAUNCHES"),
+               True: ("sw_reverse_struct", "REVERSE_STRUCT_LAUNCHES")}
+
+    def __init__(self, qss: np.ndarray, qaa: np.ndarray, qbias: np.ndarray,
+                 tss: np.ndarray, taa: np.ndarray, m3di: np.ndarray,
+                 aasc: np.ndarray, device: torch.device | str):
+        self.device = _device(device)
+        for name, a, tab in (("query 3Di", qss, m3di),
+                             ("query amino-acid", qaa, aasc),
+                             ("target 3Di", tss, m3di),
+                             ("target amino-acid", taa, aasc)):
+            _check_tokens(name, a, tab.shape[0])
+        (self.qss, self.qaa, self.qbias, self.tss, self.taa, self.m3di,
+         self.aasc) = (_upload(a, dt, self.device) for a, dt in (
+             (qss, np.uint8), (qaa, np.uint8), (qbias, np.int8),
+             (tss, np.uint8), (taa, np.uint8), (m3di, np.int8),
+             (aasc, np.int8)))
+        self._init_state()
+
+    def _resident(self) -> tuple:
+        return (self.qss, self.qaa, self.qbias, self.tss, self.taa,
+                self.m3di, self.aasc)

@@ -17,7 +17,12 @@ Alignment.cpp:248-540, Matcher.cpp:60-142):
     tLen asc, tKey asc)
 
 Every pair goes through the engine, at any length: there is no length
-cap and no separate host SW path.  Only the default accept path is
+cap and no separate host SW path.  A subclass may replace the scoring
+through three hooks (the structure search, search/structure.py, does):
+`_device_db` (the resident engine), `evaluer` (the E-value statistics),
+and the optional per-key `_identity_record` / per-pair `_traceback`,
+which, when set, take the place of the batched identity and traceback
+paths of the sequence search.  Only the default accept path is
 ported: --max-accept / --max-rejected and --alt-ali raise
 NotImplementedError (ROADMAP A12); profile queries are not ported yet
 (ROADMAP A10).
@@ -92,6 +97,12 @@ class AlignmentParams:
 
 
 class AlignmentEngine:
+    # optional hooks (None: the batched sequence-search paths):
+    #   _identity_record(qk) -> AlnRecord of the self hit;
+    #   _traceback(qk, tk, q_start, q_end, t_start, t_end, score) -> ops
+    _identity_record = None
+    _traceback = None
+
     def __init__(self, query_db: SetDB, target_db: SetDB,
                  params: AlignmentParams | None = None,
                  matrix: SubstitutionMatrix | None = None,
@@ -159,6 +170,8 @@ class AlignmentEngine:
         out: dict[int, AlnRecord] = {}
         if len(qkeys) == 0:
             return out
+        if self._identity_record is not None:
+            return {int(qk): self._identity_record(int(qk)) for qk in qkeys}
         keys = np.asarray(qkeys, dtype=np.int64)
         raws = self._identity_raws_all()[keys].astype(np.int64)
         lens = self.qdb.lengths[keys].astype(np.int64)
@@ -285,9 +298,31 @@ class AlignmentEngine:
                 out[sidx] = (q_end - int(fi[bi]), t_end - int(fj[bi]))
 
     # ------------------------------------------------------------------
+    def _pair_tracebacks(self, qk, tk, q_start, q_end, t_start, t_end,
+                         score):
+        """Per-pair `_traceback` calls: (ops list, identity counts), where
+        an identity is an M column with equal amino acids."""
+        ops_list, idents = [], []
+        for i in range(len(qk)):
+            ops = self._traceback(int(qk[i]), int(tk[i]), int(q_start[i]),
+                                  int(q_end[i]), int(t_start[i]),
+                                  int(t_end[i]), int(score[i]))
+            b = np.frombuffer(ops.encode(), dtype=np.uint8)
+            is_m = b == ord("M")
+            q_adv = is_m | (b == ord("I"))
+            t_adv = is_m | (b == ord("D"))
+            qp = q_start[i] + np.cumsum(q_adv) - q_adv
+            tp = t_start[i] + np.cumsum(t_adv) - t_adv
+            qseq = self.qdb.sequence(int(qk[i]))
+            tseq = self.tdb.sequence(int(tk[i]))
+            ops_list.append(ops)
+            idents.append(int((qseq[qp[is_m]] == tseq[tp[is_m]]).sum()))
+        return ops_list, idents
+
     def _finish_pairs(self, survivors, starts) -> list["AlnRecord | None"]:
         """Stage 3: vectorized coverage gate and one batched native
-        traceback call for all survivors (OpenMP over pairs)."""
+        traceback call for all survivors (OpenMP over pairs), or one
+        `_traceback` call per pair when the hook is set."""
         n = len(survivors)
         if n == 0:
             return []
@@ -309,16 +344,22 @@ class AlignmentEngine:
         recs: list[AlnRecord | None] = [None] * n
         if len(sel) == 0:
             return recs
-        ops_list, idents, cigars = banded_align_batch(
-            np.ascontiguousarray(self.qdb.seq_data, dtype=np.uint8),
-            np.ascontiguousarray(self.qdb.offsets[:-1], dtype=np.int64),
-            np.ascontiguousarray(self.tdb.seq_data, dtype=np.uint8),
-            np.ascontiguousarray(self.tdb.offsets[:-1], dtype=np.int64),
-            np.ascontiguousarray(self._qbias_all(), dtype=np.int8),
-            self.matrix.sub_int.astype(np.int8),
-            qk[sel], tk[sel], q_start[sel], q_end[sel],
-            t_start[sel], t_end[sel], score[sel],
-            par.gap_open, par.gap_extend)
+        if self._traceback is not None:
+            ops_list, idents = self._pair_tracebacks(
+                qk[sel], tk[sel], q_start[sel], q_end[sel], t_start[sel],
+                t_end[sel], score[sel])
+            cigars = [None] * len(sel)
+        else:
+            ops_list, idents, cigars = banded_align_batch(
+                np.ascontiguousarray(self.qdb.seq_data, dtype=np.uint8),
+                np.ascontiguousarray(self.qdb.offsets[:-1], dtype=np.int64),
+                np.ascontiguousarray(self.tdb.seq_data, dtype=np.uint8),
+                np.ascontiguousarray(self.tdb.offsets[:-1], dtype=np.int64),
+                np.ascontiguousarray(self._qbias_all(), dtype=np.int8),
+                self.matrix.sub_int.astype(np.int8),
+                qk[sel], tk[sel], q_start[sel], q_end[sel],
+                t_start[sel], t_end[sel], score[sel],
+                par.gap_open, par.gap_extend)
         bits = (self.evaluer.compute_bit_score(score[sel])
                 + 0.5).astype(np.int64)
         for bi, si in enumerate(sel):

@@ -339,6 +339,23 @@ class PrefilterEngine:
         self._bin_count = compute_bin_count(target_db.size)
         self._tlens = target_db.lengths
 
+    def match_all(self, qkeys: list[int] | None = None
+                  ) -> dict[int, list[PrefilterHit]]:
+        """Prefilter the queries `qkeys` (default: all), in their order.
+        Each run of consecutive keys is one match_range call, so a
+        same-DB search keeps its identity semantics for any key list (the
+        native engine maps batch rows to keys by range start)."""
+        keys = list(range(self.qdb.size) if qkeys is None else qkeys)
+        out: dict[int, list[PrefilterHit]] = {}
+        s = 0
+        while s < len(keys):
+            e = s + 1
+            while e < len(keys) and keys[e] == keys[e - 1] + 1:
+                e += 1
+            out.update(self.match_range(keys[s], keys[e - 1] + 1))
+            s = e
+        return out
+
     def match_range(self, start: int, end: int
                     ) -> dict[int, list[PrefilterHit]]:
         """Prefilter a contiguous query-key range (the streaming loop's

@@ -100,9 +100,23 @@ def load_pinned_matrix(name: str) -> SubstitutionMatrix:
     (matrix, bitFactor) combos — the same pinning pattern the reference
     uses for its Gumbel parameters (EvalueComputation.h:56-78). Guarantees
     ulp-exact probability ratios for tantan masking.
-    Available: "vtml80_bf8" / "vtml80_bf8_bias" (k-mer seed matrix) and
-    "blosum62_bf2" / "blosum62_bf2_bias" (ungapped rescore).
+    Available: "vtml80_bf8" / "vtml80_bf8_bias" (k-mer seed matrix),
+    "blosum62_bf2" / "blosum62_bf2_bias" (ungapped rescore), and the
+    pinned 3Di structural matrix "mat3di" (Foldseek mat3di.out) plus its
+    seed-scale variant "mat3di_bf8_bias" (scores rescaled from the native
+    ~2-bit integers to the bit-factor-8 seed scale with the -0.2 score
+    bias: round(4*s - 1.6)).
     """
+    if name == "mat3di_bf8_bias":
+        base = load_pinned_matrix("mat3di")
+        sub = c_round(4.0 * base.sub_int.astype(np.float64) - 1.6).astype(
+            np.int32)
+        sub[X_INDEX, :] = 0
+        sub[:, X_INDEX] = 0
+        return SubstitutionMatrix(
+            name="mat3di.out", lam=base.lam / 4.0, p_back=base.p_back,
+            prob=base.prob, sub_float=base.sub_float, sub_int=sub,
+            bit_factor=8.0)
     raw = json.loads((_DATA_DIR / "derived" / f"{name}.json").read_text())
     assert raw["alphabet"] == AA_ORDER
     prob = np.asarray(raw["prob"], dtype=np.float64)

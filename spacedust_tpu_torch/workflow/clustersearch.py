@@ -120,9 +120,13 @@ class ClusterSearchParams:
     kmer_size: int = 0
     spaced_kmer_mode: int = 1
     # not ported yet (they raise): --split-memory-limit (out-of-core
-    # target splits), --profile-cluster-search, --search-mode 1/2
+    # target splits), --profile-cluster-search
     split_memory_limit: int = 0
     profile_cluster_search: bool = False
+    # --search-mode (LocalParameters.h:32-41): 0 = sequence, 1 = foldseek
+    # on aa2foldseek-mapped subset + sequence search of the unmapped rest,
+    # 2 = structure (3Di) search of the whole DB (ProstT5/foldseek-testdb
+    # style, _ss states present in the SetDB)
     search_mode: int = 0
 
 
@@ -144,19 +148,41 @@ def _check_ported(par: ClusterSearchParams) -> None:
     if par.profile_cluster_search:
         raise NotImplementedError(
             "--profile-cluster-search is not ported yet (ROADMAP A10)")
-    if par.search_mode != 0:
-        raise NotImplementedError(
-            f"--search-mode {par.search_mode} is not ported yet (ROADMAP A9)")
+
+
+def _sequence_aln_params(par: ClusterSearchParams) -> AlignmentParams:
+    return AlignmentParams(gap_open=par.gap_open, gap_extend=par.gap_extend,
+                           eval_thr=par.eval_thr, cov_thr=par.cov_thr,
+                           cov_mode=par.cov_mode,
+                           aln_len_thr=par.aln_len_thr,
+                           max_accept=par.max_accept,
+                           max_rejected=par.max_rejected,
+                           alt_alignments=par.alt_alignments,
+                           comp_bias_correction=par.comp_bias_correction)
+
+
+def _structure_params(par: ClusterSearchParams):
+    # FOLDSEEKSEARCH_PAR forwards only -e/-c/--cov-mode/--max-seqs
+    # (LocalParameters.h foldseeksearch list); sensitivity, gap costs,
+    # and aln-len stay at foldseek defaults
+    from ..search.structure import StructureSearchParams
+    return StructureSearchParams(
+        max_seqs=par.max_seqs, eval_thr=par.eval_thr, cov_thr=par.cov_thr,
+        cov_mode=par.cov_mode, mask=par.mask,
+        comp_bias_correction=par.comp_bias_correction)
 
 
 def cluster_search(query_db: SetDB, target_db: SetDB,
                    params: ClusterSearchParams | None = None,
                    same_qt_db: bool | None = None,
+                   query_mapping=None, target_mapping=None,
                    ckpt_dir: str | Path | None = None, *,
                    device: torch.device | str) -> ClusterSearchResult:
-    """Sequence-mode clustersearch of query_db against target_db; the SW
-    passes run on `device` (CUDA: the hand-written kernels; CPU: their
-    plain PyTorch version)."""
+    """clustersearch of query_db against target_db; the SW passes run on
+    `device` (CUDA: the hand-written kernels; CPU: their plain PyTorch
+    version).  `query_mapping`/`target_mapping`:
+    workflow.aa2foldseek.FoldseekMapping artifacts (required for
+    --search-mode 1, the reference's *_foldseek/_unmapped sidecars)."""
     par = params or ClusterSearchParams()
     _check_ported(par)
     if same_qt_db is None:
@@ -166,17 +192,58 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
 
     if ck.has("result"):
         records = None          # search stage resumed from checkpoint
+    elif par.search_mode == 1:
+        # foldseek search of the aa2foldseek-mapped subset + sequence
+        # search of the unmapped genes vs the full target, concatenated
+        # per query key (data/clustersearch.sh:84-107)
+        from ..search.structure import structure_search
+        if query_mapping is None or target_mapping is None:
+            raise ValueError("--search-mode 1 requires aa2foldseek mappings "
+                             "for query and target (see workflow.aa2foldseek)")
+        t0 = time.time()
+        q_att = query_mapping.attach(query_db)
+        t_att = (q_att if (same_qt_db and target_mapping is query_mapping)
+                 else target_mapping.attach(target_db))
+        detail: dict = {}
+        fs_records = structure_search(q_att, t_att, _structure_params(par),
+                                      same_qt_db=same_qt_db, device=device,
+                                      metrics=detail)
+        mapped = set(query_mapping.mapping)
+        records = {qk: v for qk, v in fs_records.items() if qk in mapped}
+        timings["structure_search"] = time.time() - t0
+        timings["align_detail"] = detail
+
+        t0 = time.time()
+        unmapped = query_mapping.unmapped_keys(query_db)
+        if unmapped:
+            pref = PrefilterEngine(query_db, target_db,
+                                   sensitivity=par.sensitivity,
+                                   max_seqs=par.max_seqs,
+                                   same_qt_db=same_qt_db,
+                                   comp_bias_correction=par.comp_bias_correction,
+                                   mask=par.mask,
+                                   cov_thr=par.cov_thr, cov_mode=par.cov_mode)
+            cands = {qk: [h.seq_id for h in hits]
+                     for qk, hits in pref.match_all(list(unmapped)).items()}
+            eng = AlignmentEngine(query_db, target_db,
+                                  _sequence_aln_params(par),
+                                  same_qt_db=same_qt_db, device=device)
+            records.update(eng.align_all(cands))
+            timings["unmapped_align_detail"] = dict(
+                eng._device_db().metrics)
+        timings["unmapped_search"] = time.time() - t0
+    elif par.search_mode == 2:
+        from ..search.structure import structure_search
+        t0 = time.time()
+        detail = {}
+        records = structure_search(query_db, target_db,
+                                   _structure_params(par),
+                                   same_qt_db=same_qt_db, device=device,
+                                   metrics=detail)
+        timings["structure_search"] = time.time() - t0
+        timings["align_detail"] = detail
     else:
-        aln_par = AlignmentParams(gap_open=par.gap_open,
-                                  gap_extend=par.gap_extend,
-                                  eval_thr=par.eval_thr, cov_thr=par.cov_thr,
-                                  cov_mode=par.cov_mode,
-                                  aln_len_thr=par.aln_len_thr,
-                                  max_accept=par.max_accept,
-                                  max_rejected=par.max_rejected,
-                                  alt_alignments=par.alt_alignments,
-                                  comp_bias_correction=par.comp_bias_correction)
-        aln = AlignmentEngine(query_db, target_db, aln_par,
+        aln = AlignmentEngine(query_db, target_db, _sequence_aln_params(par),
                               same_qt_db=same_qt_db, device=device)
 
         t0 = time.time()

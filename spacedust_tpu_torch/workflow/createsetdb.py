@@ -2,8 +2,10 @@
 
 Mirrors src/workflow/createsetdb.cpp:20-140: expands a directory or .tsv
 list into file names (with --file-include/--file-exclude regex), then
-runs the amino-acid (Prodigal headers) path.  The nucleotide (GFF) and
-pre-built-DB inputs are not ported yet (ROADMAP A11) and raise.
+runs the amino-acid (Prodigal headers) path.  A single input with a
+`.dbtype` file is a pre-built MMseqs2/Foldseek DB (with its `_ss` 3Di
+sidecar, if any) and goes through db/flatdb_ingest.py.  The nucleotide
+(GFF) input is not ported yet (ROADMAP A11) and raises.
 """
 
 from __future__ import annotations
@@ -41,10 +43,14 @@ def create_setdb(inputs: list[str], out_path: str | None = None,
                  gff_dir: str | None = None,
                  file_include: str = ".*",
                  file_exclude: str = "^$") -> SetDB:
+    # pre-built MMseqs2/Foldseek DB input (createsetdb.sh:51-77 "external"
+    # path): copy sequences (+ _ss 3Di sidecar) and rewrite the lookup
     if len(inputs) == 1 and Path(f"{inputs[0]}.dbtype").exists():
-        raise NotImplementedError(
-            "pre-built MMseqs2/Foldseek DB input is not ported yet "
-            "(ROADMAP A11)")
+        from ..db.flatdb_ingest import create_setdb_from_flatdb
+        db = create_setdb_from_flatdb(inputs[0])
+        if out_path is not None:
+            db.save(out_path)
+        return db
     files = expand_inputs(inputs, file_include, file_exclude)
     if not files:
         raise ValueError("no input files after expansion")

@@ -19,6 +19,9 @@ names = [m.name for m in pkgutil.walk_packages(
     if not m.name.endswith(".__main__")]
 for name in names:
     importlib.import_module(name)
+for name in ("spacedust_tpu_torch.search.structure",
+             "spacedust_tpu_torch.workflow.aa2foldseek"):
+    assert name in names and name in sys.modules, name
 leaked = sorted(m for m in sys.modules
                 if m == "spacedust_tpu" or m.startswith("spacedust_tpu.")
                 or m.startswith("jax."))
