@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (spacedust_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,real,timing]
 
 Phases, each fatal on failure (the script exits non-zero and prints no
-result line):
+result line).  Phases 1 and 2 always run; --phases picks among the rest
+by name (a comma list, in any order; they run in the order below), for a
+quick look at one of them.  Such a partial run exits 0 when its phases
+pass and prints none of the last three lines: only a whole run prints
+the kernels line, the card and the result.
 
   1. device  -- a CUDA card is required; prints its name and power limit;
   2. build   -- compiles the native host engines (g++) and csrc/sw.cu
@@ -15,7 +19,13 @@ result line):
                 batch: lengths 1-3,000, zero-score pairs, planted ties,
                 int8-wrapping bias, a 9,000 x 9,000 and a 40,000 x 600
                 pair.  All six outputs must be equal (tolerance 0: the DP
-                is integer);
+                is integer).  Then, for each class R of query rows per
+                lane that the warp-per-pair body is compiled for, the
+                boundary shapes and planted ties of edge_batch, with every
+                pair forced into that class: forward, reverse on the same
+                pairs (terminate = their score) and reverse on the derived
+                prefixes, and the planted ties must come out where the
+                design puts them;
   4. small   -- createsetdb + clustersearch --filter-self-match through the
                 CLI on the small synthetic genome set; the result must equal
                 tests/fixtures/torch_port_small.tsv (recorded by the JAX
@@ -45,7 +55,12 @@ result line):
                 its hit / cluster counts and sha256;
   9. timing  -- each kernel against its plain version on the largest stage
                 the real runs dispatched, with the main path's own resident
-                tensors: equal outputs, milliseconds and GCUPS.
+                tensors: equal outputs, milliseconds and GCUPS, beside the
+                least time the card could take for the stage (bound_ms:
+                the larger of its bytes over the memory rate and its
+                integer instructions over the int32 instruction rate).
+                For the two sequence stages also the longest pair alone
+                and what the classes of query rows per lane buy.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object {"kernels": [...]}; the last line is
@@ -54,6 +69,7 @@ before it a JSON object {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
@@ -71,6 +87,22 @@ SEED = 0
 TOL = 0                 # integer DP: kernel and plain version agree exactly
 STRUCT_GO = 10          # foldseek's gap costs in structure mode
 STRUCT_REPLACES = "spacedust_tpu/ops/sw_engine.py:608"
+PHASES = ("kernels", "kernels-struct", "small", "real", "struct-small",
+          "struct-real", "timing")
+# The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM, and
+# 67 TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x
+# 2 (FMA) x 1.98 GHz.  An SM runs int32 on 64 lanes, one operation an
+# instruction, so the int32 peak is a quarter of that figure.
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_S = 67e12 / 4
+# int32 instructions the recurrence needs for a DP cell, whatever the body:
+# lookup address, int8 wrap (add, sign extension), E (add, max-plus), H
+# (max-plus-relu, max), F (add, max-plus), column max = 10; the reverse
+# cell's tracker is compare, max, select in place of the column max = 12;
+# the second channel of the structure cell adds its lookup address and its
+# sum.  What a body spends beside these (a mask for rows past qlen,
+# register moves, shuffles) is its own cost and stands outside the bound.
+CELL_INT32 = {"fwd": 10, "rev": 12, "fwd_struct": 12, "rev_struct": 14}
 # direction -> (wrapper, replaced TPU kernel / device program, launch
 # counter)
 KERNELS = {
@@ -238,6 +270,125 @@ def kernel_batch_struct(seed: int = SEED):
             np.ascontiguousarray(jobs, dtype=np.int64))
 
 
+def tie_letters(sub: np.ndarray) -> tuple[int, int, list]:
+    """A query filler, a target filler and three motif letters: the
+    fillers score below 0 against each other and against every motif
+    letter, and the motif letters below 0 against one another, so that a
+    planted motif scores exactly its self-score and nothing extends it."""
+    A = 20
+    for fq in range(A):
+        for ft in range(A):
+            if sub[fq, ft] >= 0:
+                continue
+            ms: list = []
+            for m in range(A):
+                if (m not in (fq, ft) and sub[m, m] >= 5 and sub[m, ft] < 0
+                        and sub[fq, m] < 0
+                        and all(sub[m, o] < 0 for o in ms)):
+                    ms.append(m)
+            if len(ms) >= 3:
+                return fq, ft, ms[:3]
+    raise ValueError("no tie letters in this matrix")
+
+
+def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED):
+    """Pairs that stress the warp-per-pair body at `rows` query rows per
+    lane (a strip is 32 * rows rows).  Returns resident (q, bias, t), the
+    (5, n) forward jobs and, for the planted ties, {pair: (score, t_end,
+    q_end)}, the forward result the design must give.
+
+    Grid: qlen in {1, rows, 32 rows - 1, 32 rows, 32 rows + 1, 64 rows,
+    64 rows + 1, 96 rows + 7} x tlen in {1, 2, 7, 31, 32, 33, 100}, random
+    with a mutated copy of a query segment as the target (a wavefront
+    shorter than the warp, lanes and strips that end on every side of a
+    boundary).  Ties (zero bias, two six-letter motifs M1 and M2 of one
+    self-score among fillers that score below 0): the same column on
+    either side of a lane boundary and of a strip boundary; the smaller
+    column in the later lane, in the later strip, and in the same lane of
+    the later strip; the smaller column in the earlier strip; and a
+    three-strip query against an 8-residue target.  Gaps: a query insert
+    that the best alignment bridges with one gap across a lane boundary,
+    and across a strip boundary (F crosses by shuffle, and through the
+    boundary scratch).  The reverse jobs derived from these hold a
+    terminate score that first appears in a column whose max sits in the
+    first strip while the last strip is a later one."""
+    rng = np.random.default_rng(seed + rows)
+    strip = 32 * rows
+    qs, bs, ts = [], [], []
+    for ql in (1, rows, strip - 1, strip, strip + 1, 2 * strip,
+               2 * strip + 1, 3 * strip + 7):
+        for tl in (1, 2, 7, 31, 32, 33, 100):
+            q = rng.integers(0, 20, ql).astype(np.uint8)
+            lo = int(rng.integers(0, max(ql - tl, 0) + 1))
+            t = q[lo:lo + tl].copy()
+            if len(t) < tl:
+                t = np.concatenate([t, rng.integers(0, 20, tl - len(t))])
+            hit = rng.integers(0, 100, tl) < 25
+            t[hit] = rng.integers(0, 20, int(hit.sum()))
+            qs.append(q)
+            bs.append(rng.integers(-3, 4, ql).astype(np.int8))
+            ts.append(t.astype(np.uint8))
+    fq, ft, (a, b, c) = tie_letters(sub)
+    motif = {1: [a, b, c, a, b, c], 2: [c, b, a, c, b, a]}
+    score = 2 * int(sub[a, a] + sub[b, b] + sub[c, c])
+    expect = {}
+
+    def plant(qlen, tlen, q_ends, t_ends, want):
+        q = np.full(qlen, fq, np.uint8)
+        t = np.full(tlen, ft, np.uint8)
+        for seq, ends in ((q, q_ends), (t, t_ends)):
+            for end, m in ends:
+                seq[end - 5:end + 1] = motif[m]
+        expect[len(qs)] = (score, *want)
+        qs.append(q)
+        bs.append(np.zeros(qlen, np.int8))
+        ts.append(t)
+
+    lane_end = 2 * rows - 1            # last row of lane 1
+    strip_end = strip - 2              # lane 31 of strip 0
+    # one column, two rows: the earlier lane / strip keeps the tie
+    plant(lane_end + 20, 20, [(lane_end, 1), (lane_end + 7, 1)], [(9, 1)],
+          (9, lane_end))
+    plant(strip + 20, 40, [(strip_end, 1), (strip + 8, 1)], [(33, 1)],
+          (33, strip_end))
+    # the smaller column sits in the later lane / strip
+    plant(lane_end + 20, 30, [(lane_end, 2), (lane_end + 7, 1)],
+          [(9, 1), (20, 2)], (9, lane_end + 7))
+    plant(strip + 20, 40, [(strip_end, 2), (strip + 8, 1)],
+          [(9, 1), (30, 2)], (9, strip + 8))
+    plant(strip + lane_end + 10, 30, [(lane_end, 2), (strip + lane_end, 1)],
+          [(9, 1), (20, 2)], (9, strip + lane_end))
+    # the smaller column sits in the earlier strip (too far apart to chain)
+    plant(strip + 110, 30, [(strip_end, 1), (strip + 100, 2)],
+          [(9, 1), (17, 2)], (9, strip_end))
+    # three strips, a target shorter than the warp
+    plant(2 * strip + 10, 8, [(10, 1), (2 * strip + 3, 1)], [(5, 1)],
+          (5, 10))
+    # one gap over an insert of the query: within strip 0 across a lane
+    # boundary, then across the strip boundary
+    for start, n_ins in ((5, rows + 2), (strip - 35, 10)):
+        left, right = (rng.integers(0, 20, 30).astype(np.uint8)
+                       for _ in range(2))
+        ins = rng.integers(0, 20, n_ins).astype(np.uint8)
+        q = np.concatenate([np.full(start, fq), left, ins, right,
+                            np.full(6, fq)]).astype(np.uint8)
+        t = np.concatenate([np.full(3, ft), left, right,
+                            np.full(3, ft)]).astype(np.uint8)
+        gapped = (int(sub[left, left].sum() + sub[right, right].sum())
+                  - GO - GE * (n_ins - 1))
+        expect[len(qs)] = (gapped, 3 + 60 - 1, start + 60 + n_ins - 1)
+        qs.append(q)
+        bs.append(np.zeros(len(q), np.int8))
+        ts.append(t)
+    qlen = np.array([len(q) for q in qs], np.int64)
+    tlen = np.array([len(t) for t in ts], np.int64)
+    qoff = np.concatenate(([0], np.cumsum(qlen)[:-1]))
+    toff = np.concatenate(([0], np.cumsum(tlen)[:-1]))
+    jobs = np.stack([qoff, qlen, toff, tlen, np.full(len(qs), -1)])
+    return (np.concatenate(qs), np.concatenate(bs), np.concatenate(ts),
+            np.ascontiguousarray(jobs, dtype=np.int64), expect)
+
+
 def reverse_jobs(jobs: np.ndarray, fwd: np.ndarray) -> np.ndarray:
     """Reverse-pass jobs for the pairs with a positive forward score:
     prefixes [0..q_end] x [0..t_end], terminate = the forward score."""
@@ -297,10 +448,51 @@ def check_batch(tag: str, resident: list, jobs: np.ndarray, go: int,
               f"kernel {k_ms:.1f} ms, plain {p_ms:.1f} ms")
 
 
+def check_edges(sub: torch.Tensor, errs: dict) -> None:
+    """Each compiled class of the warp-per-pair body on edge_batch, every
+    pair forced into the class (a plan of one class, handed to the
+    wrappers' launcher); the planted ties where the design puts them."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.ops.sw import sw_jobs_ref
+    sub_np = sub.cpu().numpy().astype(np.int32)
+    for rows in sw_cuda.LANE_ROWS:
+        q, b, t, jobs, expect = edge_batch(rows, sub_np)
+        res = [torch.from_numpy(a).to(sub.device) for a in (q, b, t)] + [sub]
+        got = sw_cuda._launch_warp(
+            False, *res, sw_cuda.warp_plan(jobs, 8, rows=rows), GO, GE)
+        ref = sw_jobs_ref(*res, jobs, GO, GE, False)
+        errs["fwd"] = max(errs["fwd"],
+                          compare(f"edges R={rows} fwd", got, ref))
+        fwd = got.cpu().numpy()
+        for p, want in expect.items():
+            if tuple(fwd[:3, p]) != want:
+                fail(f"edges R={rows}: planted tie {p} gave "
+                     f"{tuple(fwd[:3, p])}, the design says {want}")
+        whole = jobs.copy()
+        whole[4] = fwd[0]
+        derived = reverse_jobs(jobs, fwd)
+        n_multi = int((derived[1] > 32 * rows).sum())
+        if n_multi < 4:
+            fail(f"edges R={rows}: only {n_multi} multi-strip reverse jobs")
+        for tag, js in (("whole", whole), ("prefix", derived)):
+            got = sw_cuda._launch_warp(
+                True, *res, sw_cuda.warp_plan(js, 16, rows=rows), GO, GE)
+            ref = sw_jobs_ref(*res, js, GO, GE, True)
+            errs["rev"] = max(errs["rev"], compare(
+                f"edges R={rows} rev {tag}", got, ref))
+        if not bool(got[3].all()):
+            fail(f"edges R={rows}: a prefix job missed its terminate score")
+        print(f"[kernels] edges R={rows}: {jobs.shape[1]} forward, "
+              f"{whole.shape[1]} + {derived.shape[1]} reverse pairs "
+              f"({n_multi} multi-strip), {len(expect)} planted ties: all "
+              f"six outputs equal")
+
+
 def check_kernels(sub: torch.Tensor, errs: dict) -> None:
     q, b, t, jobs = kernel_batch()
     Q, B, T = (torch.from_numpy(a).to(sub.device) for a in (q, b, t))
     check_batch("kernels", [Q, B, T, sub], jobs, GO, ("fwd", "rev"), errs)
+    check_edges(sub, errs)
 
 
 def check_kernels_struct(dev: torch.device, errs: dict) -> None:
@@ -533,51 +725,132 @@ def struct_real(work: Path, dev: torch.device) -> tuple[dict, dict]:
     return launches, stages
 
 
+def bound_ms(d: str, js: np.ndarray) -> tuple[float, str]:
+    """The least milliseconds the card could take for stage js of
+    direction d, and what sets it.  Bytes: every token and bias byte of
+    the stage's pairs read once (one byte a query residue and channel,
+    one for its bias, one a target residue and channel), 40 bytes of job
+    and 24 of result a pair.  Operations: CELL_INT32 instructions a
+    cell."""
+    channels = 2 if d.endswith("struct") else 1
+    nbytes = (int(js[1].sum()) * (channels + 1) + int(js[3].sum()) * channels
+              + 64 * js.shape[1])
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * cells(js) * CELL_INT32[d] / INT32_PER_S
+    return max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops
+                                   else "operations")
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Milliseconds a call of fn by CUDA events, over reps calls after a
+    warm one."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def stage_detail(d: str, args: tuple) -> None:
+    """What sets a sequence stage's time, and what the classes of query
+    rows per lane buy: the stage's longest pair alone (on one warp: no
+    other work can shorten that), the whole stage with every pair at 16
+    rows a lane, and the stage without its 32 longest pairs at the
+    wrapper's own classes and forced into each compiled class, beside the
+    lane-steps sum(ceil(qlen / 32 R) * (tlen + 31)) of that class (a step
+    costs R cells and an overhead: sw_cuda.STEP_OVERHEAD_CELLS is fitted
+    to these times).  The engine hands a stage over longest pair first."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    *resident, jobs, go, ge = args
+    reverse = d == "rev"
+
+    def ms(js, rows=None):
+        plan = sw_cuda.warp_plan(js, sw_cuda.WARP_SCRATCH[reverse], rows=rows)
+        return event_ms(lambda: sw_cuda._launch_warp(reverse, *resident,
+                                                     plan, go, ge))
+
+    rest = jobs[:, 32:]
+    print(f"[timing] {d} stage: longest pair ({int(jobs[1, 0])} x "
+          f"{int(jobs[3, 0])}) alone {ms(jobs[:, :1]):.2f} ms; whole stage "
+          f"at 16 rows a lane {ms(jobs, 16):.2f} ms; without its 32 longest "
+          f"({rest.shape[1]} pairs, {cells(rest) / 1e9:.3f} G cells): own "
+          f"classes {ms(rest):.2f} ms")
+    for rows in sw_cuda.LANE_ROWS:
+        steps = int((-(-rest[1] // (32 * rows)) * (rest[3] + 31)).sum())
+        print(f"[timing] {d} stage without its 32 longest, every pair at "
+              f"{rows} rows a lane: {ms(rest, rows):.2f} ms, {steps} "
+              f"lane-steps")
+
+
 def time_stages(stages: dict, launches: dict, errs: dict,
                 card: str) -> list:
-    """Kernel (CUDA events over 3 calls after a warm one) against the
-    plain version (host clock, one call) on the main path's largest
-    stages.  These launches come after the counts were read."""
+    """Kernel (event_ms) against the plain version (host clock, one
+    call) on the main path's largest stages, and stage_detail of the
+    sequence stages.  These launches come after the counts were read."""
     from spacedust_tpu_torch.ops import sw_cuda
     report = []
+    print(f"[timing] bound: int32 rate {INT32_PER_S / 1e12:.2f} T "
+          f"instructions/s (132 SMs x 64 lanes x 1.98 GHz), HBM "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; instructions a cell "
+          f"{CELL_INT32}")
     for d, (name, replaces, _counter) in KERNELS.items():
+        if d not in stages:
+            continue
         args = stages[d]
         js = args[-3]
         fn = getattr(sw_cuda, name)
         got = fn(*args)
-        torch.cuda.synchronize()
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        reps = 3
-        e0.record()
-        for _ in range(reps):
-            fn(*args)
-        e1.record()
-        torch.cuda.synchronize()
-        k_ms = e0.elapsed_time(e1) / reps
+        k_ms = event_ms(lambda: fn(*args))
         t0 = time.perf_counter()
         ref = plain(d)(*args)
         torch.cuda.synchronize()
         p_ms = 1e3 * (time.perf_counter() - t0)
         errs[d] = max(errs[d], compare(f"main-path {d} stage", got, ref))
         c = cells(js)
+        b_ms, b_by = bound_ms(d, js)
         print(f"[timing] {name}, main path's largest {d} stage: "
               f"{js.shape[1]} pairs, {c / 1e9:.3f} G cells; kernel "
               f"{k_ms:.2f} ms = {c / k_ms / 1e6:.2f} GCUPS; plain "
-              f"{p_ms:.2f} ms = {c / p_ms / 1e6:.3f} GCUPS; equal; {card}")
+              f"{p_ms:.2f} ms = {c / p_ms / 1e6:.3f} GCUPS; bound "
+              f"{b_ms:.2f} ms by {b_by} ({b_ms / k_ms:.1%} of it "
+              f"reached); equal; {card}")
         entry = {
             "name": name, "route": "cuda",
             "source": "spacedust_tpu_torch/csrc/sw.cu",
             "replaces": replaces, "launches": launches[d],
             "max_abs_err": errs[d], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes a batched Smith-Waterman
+            "library_ms": None, "share_of_bound": b_ms / k_ms,
             "pairs": int(js.shape[1]), "cells": c, "gcups": c / k_ms / 1e6,
             "plain_gcups": c / p_ms / 1e6}
         if not d.endswith("struct"):
             entry["also_replaces"] = GATHER
+            stage_detail(d, args)
         report.append(entry)
     return report
 
 
-def main() -> int:
+def parse_phases(argv: list) -> tuple:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma list of {', '.join(PHASES)} (default: all; "
+                         "device and build always run)")
+    names = [x for x in ap.parse_args(argv).phases.split(",") if x]
+    unknown = [x for x in names if x not in PHASES]
+    if unknown or not names:
+        ap.error(f"unknown phases {unknown}; choose from {PHASES}")
+    if "timing" in names and not {"real", "struct-real"} & set(names):
+        ap.error("timing times the stages that real / struct-real dispatch")
+    return tuple(x for x in PHASES if x in names)
+
+
+def main(argv: list | None = None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     # 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a CUDA "
@@ -605,16 +878,33 @@ def main() -> int:
     sub = torch.from_numpy(
         load_substitution_matrix().sub_int.astype(np.int8)).to(dev)
     errs = dict.fromkeys(KERNELS, 0)
-    check_kernels(sub, errs)
-    check_kernels_struct(dev, errs)
+    launches: dict = {}
+    stages: dict = {}
+    if "kernels" in phases:
+        check_kernels(sub, errs)
+    if "kernels-struct" in phases:
+        check_kernels_struct(dev, errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        small_slice(Path(tmp))
-        launches, stages = real_slice(Path(tmp), dev)
-        struct_small(Path(tmp))
-        s_launches, s_stages = struct_real(Path(tmp), dev)
-    launches.update({d: s_launches[d] for d in ("fwd_struct", "rev_struct")})
-    stages.update(s_stages)
-    report = time_stages(stages, launches, errs, card)
+        if "small" in phases:
+            small_slice(Path(tmp))
+        if "real" in phases:
+            launches, stages = real_slice(Path(tmp), dev)
+        if "struct-small" in phases:
+            struct_small(Path(tmp))
+        if "struct-real" in phases:
+            s_launches, s_stages = struct_real(Path(tmp), dev)
+            launches.update({d: s_launches[d]
+                             for d in ("fwd_struct", "rev_struct")})
+            stages.update(s_stages)
+    report = (time_stages(stages, launches, errs, card)
+              if "timing" in phases else [])
+    torch.cuda.synchronize()
+    if phases != PHASES:
+        print(f"[partial] phases {','.join(phases)} passed; no result line "
+              f"without the whole run")
+        return 0
+    if len(report) != len(KERNELS):
+        fail(f"timed {len(report)} of {len(KERNELS)} kernels")
 
     print(json.dumps({"kernels": report}))
     print(card_line())

@@ -1,28 +1,33 @@
 """Hand-written Hopper kernels for the SW score passes, and their wrappers.
 
-`csrc/sw.cu` holds one CUDA DP in four instantiations (see the note at
-its top): `sw_forward` replaces the JAX package's
-`ops/sw_pallas.py::_kernel_rowmax`, `sw_reverse` its
-`ops/sw_pallas.py::_kernel`, and both take over
-`ops/sw_engine.py::panel_gather` as their own load stage;
-`sw_forward_struct` / `sw_reverse_struct` replace the structure-mode XLA
-program `ops/sw_engine.py::_sw_bucket_struct` (two score channels, 3Di
-with its bias and amino acids, each cast to int8 before the sum).  The
-source is
-compiled with nvcc for sm_90a at first use into `_build/` beside the
-package (git-ignored) and bound through a plain C interface with ctypes.
+`csrc/sw.cu` holds two CUDA DP bodies (see the note at its top).  A warp
+owns a pair in `sw_forward`, which replaces the JAX package's
+`ops/sw_pallas.py::_kernel_rowmax`, and in `sw_reverse`, which replaces
+its `ops/sw_pallas.py::_kernel`; both take over
+`ops/sw_engine.py::panel_gather` as their own load stage.  A thread owns
+a pair in `sw_forward_struct` / `sw_reverse_struct`, which replace the
+structure-mode XLA program `ops/sw_engine.py::_sw_bucket_struct` (two
+score channels, 3Di with its bias and amino acids, each cast to int8
+before the sum).  The source is compiled with nvcc for sm_90a at first
+use into `_build/` beside the package (git-ignored) and bound through a
+plain C interface with ctypes.
 
 The wrappers take the resident device arrays, the substitution matrix and
 a host (5, n) int64 job array (qoff, qlen, toff, tlen, terminate) and
 return a (6, n) int32 tensor (score, t_end, q_end, found, fj, fi) on the
-device of the resident arrays.  For CUDA tensors they copy the jobs to
-the card once and launch the kernel on the current stream, in as many
-launches as keep each launch's DP scratch under SCRATCH_BYTES; nothing is
-synchronised.  For CPU tensors they run the plain version
-(`ops/sw.py::sw_jobs_ref` / `sw_struct_jobs_ref`).  There is no fallback
-between the two.  The structure wrappers take five resident arrays (3Di
-and amino-acid tokens of the queries with the int8 3Di bias, and of the
-targets) and the two int8 tables in place of (qdata, qbias, tdata, sub).
+device of the resident arrays, pair p in column p whatever order the
+kernels take the pairs in.  For CUDA tensors they copy the jobs to the
+card once and launch the kernel on the current stream; nothing is
+synchronised.  The sequence wrappers give each pair one of the kernel's
+compile-time classes of query rows per lane (LANE_ROWS, `lane_rows`) and
+its place in the boundary scratch (`warp_plan`), in one launch unless
+the scratch would pass SCRATCH_BYTES; the structure wrappers launch over
+contiguous chunks that keep to the same bound (`scratch_chunks`).  For
+CPU tensors they run the plain version (`ops/sw.py::sw_jobs_ref` /
+`sw_struct_jobs_ref`).  There is no fallback between the two.  The
+structure wrappers take five resident arrays (3Di and amino-acid tokens
+of the queries with the int8 3Di bias, and of the targets) and the two
+int8 tables in place of (qdata, qbias, tdata, sub).
 
 FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
 REVERSE_STRUCT_LAUNCHES count kernel launches.
@@ -49,6 +54,18 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SCRATCH_BYTES = 1 << 30        # per-launch DP scratch bound
+# sequence kernels: the compile-time classes of query rows per lane (a
+# strip is 32 lanes x R rows), and what a wavefront step costs beside its
+# R cells (shuffles, the chunk feed, the loop), in cells.  Fitted on an
+# H100 to the times of one stage with every pair forced into each class
+# (chip_smoke.py::stage_detail: time / lane-steps is linear in R, and its
+# intercept over its slope gave 3.2 forward, 4.9 on the far smaller
+# reverse stage).
+LANE_ROWS = (4, 8, 12, 16)
+STEP_OVERHEAD_CELLS = 3
+# bytes of boundary scratch per target column of a multi-strip pair, by
+# direction (reverse?): (H, F), and the column max with its row
+WARP_SCRATCH = {False: 8, True: 16}
 
 FORWARD_LAUNCHES = 0
 REVERSE_LAUNCHES = 0
@@ -97,21 +114,29 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-def _lib() -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
+    """Build, bind and load the kernels onto the current CUDA device, so
+    that no later launch (or whatever times it) pays for any of it."""
     global _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             p = ctypes.c_void_p
-            tail = [p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, p, p, ctypes.c_longlong, p]
+            i, ll = ctypes.c_int, ctypes.c_longlong
+            # ..., jobs, job_stride, n, go, ge, scratch, out, out_stride,
+            # stream
             for fn in (lib.sw_forward, lib.sw_reverse):
-                fn.restype = ctypes.c_int
-                fn.argtypes = [p, p, p, p, ctypes.c_int, *tail]
+                fn.restype = i
+                fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, ll, p]
             for fn in (lib.sw_forward_struct, lib.sw_reverse_struct):
-                fn.restype = ctypes.c_int
-                fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, p,
-                               ctypes.c_int, *tail]
+                fn.restype = i
+                fn.argtypes = [p, p, p, p, p, p, i, p, i,
+                               p, ll, i, i, i, p, p, ll, p]
+            lib.sw_load.restype = i
+            rc = lib.sw_load()
+            if rc != 0:
+                raise RuntimeError(f"loading the SW kernels failed: CUDA "
+                                   f"error {rc}")
             _LIB = lib
     return _LIB
 
@@ -129,6 +154,48 @@ def scratch_chunks(tlen: np.ndarray, bytes_per_cell: int,
         chunks.append((s, e))
         s = e
     return chunks
+
+
+def lane_rows(qlen: np.ndarray) -> np.ndarray:
+    """Per pair, the class of LANE_ROWS that sweeps its query in the
+    fewest lane-steps: ceil(qlen / 32R) strips, each step costing R cells
+    and STEP_OVERHEAD_CELLS; ties go to the larger class (fewer strips)."""
+    qlen = np.asarray(qlen, dtype=np.int64)
+    classes = np.array(LANE_ROWS[::-1], dtype=np.int64)[:, None]
+    cost = -(-qlen[None, :] // (32 * classes)) * (classes
+                                                 + STEP_OVERHEAD_CELLS)
+    return classes[np.argmin(cost, axis=0), 0]
+
+
+def warp_plan(jobs: np.ndarray, bytes_per_column: int,
+              budget: int = SCRATCH_BYTES, rows: int | None = None
+              ) -> tuple[np.ndarray, list[tuple[int, int, int]]]:
+    """The sequence kernels' launches for a (5, n) job array.
+
+    Returns the (7, n) table the kernels read -- the jobs in the caller's
+    order, with row 5 the pair's class (lane_rows, or `rows` for every
+    pair) and row 6 its first column in the launch's boundary scratch --
+    and the launches (start, end, scratch columns) over its columns.
+    The wrappers leave `rows` alone; a check of one class passes it.
+    Only a pair longer than one strip (qlen > 32 * rows) takes scratch,
+    one column per target residue; the pairs are split where a launch's
+    scratch would pass `budget` bytes (a lone pair may exceed it)."""
+    n = jobs.shape[1]
+    table = np.empty((7, n), dtype=np.int64)
+    table[:5] = jobs
+    table[5] = lane_rows(jobs[1]) if rows is None else rows
+    cols = np.where(table[1] > 32 * table[5], table[3], 0)
+    cum = np.concatenate(([0], np.cumsum(cols)))
+    limit = budget // bytes_per_column
+    launches = []
+    s = 0
+    while s < n:
+        fit = int(np.searchsorted(cum, cum[s] + limit, side="right")) - 1
+        e = max(fit, s + 1)
+        table[6, s:e] = cum[s:e] - cum[s]
+        launches.append((s, e, int(cum[e] - cum[s])))
+        s = e
+    return table, launches
 
 
 def _check(tokens, qbias, tables, jobs, gap_open, gap_extend):
@@ -169,8 +236,8 @@ def _check(tokens, qbias, tables, jobs, gap_open, gap_extend):
 
 def _launch(fn, name: str, resident: list, jobs: np.ndarray, gap_open: int,
             gap_extend: int, reverse: bool) -> tuple[torch.Tensor, int]:
-    """Launch `fn(*resident, jobs, ..., stream)` over scratch-bounded
-    chunks of the pairs; returns the (6, n) result and the launch count."""
+    """Launch the thread-per-pair kernel `fn` over scratch-bounded chunks
+    of the pairs; returns the (6, n) result and the launch count."""
     dev = resident[0].device
     n = jobs.shape[1]
     out = torch.empty((6, n), dtype=torch.int32, device=dev)
@@ -195,6 +262,40 @@ def _launch(fn, name: str, resident: list, jobs: np.ndarray, gap_open: int,
     return out, len(chunks)
 
 
+def _launch_warp(reverse: bool, qdata, qbias, tdata, sub, plan: tuple,
+                 gap_open: int, gap_extend: int) -> torch.Tensor:
+    """Launch the warp-per-pair kernel of the direction over a warp_plan
+    of the jobs (its table and launches), counting the launches; returns
+    the (6, n) result."""
+    global FORWARD_LAUNCHES, REVERSE_LAUNCHES
+    name = "sw_reverse" if reverse else "sw_forward"
+    fn = getattr(load(), name)
+    table, launches = plan
+    dev = qdata.device
+    n = table.shape[1]
+    out = torch.empty((6, n), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    cell = WARP_SCRATCH[reverse]
+    table_d = torch.from_numpy(table).to(dev, non_blocking=False)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for s, e, cols in launches:
+        scratch = torch.empty(max(cols, 1) * cell, dtype=torch.uint8,
+                              device=dev)
+        rc = fn(qdata.data_ptr(), qbias.data_ptr(), tdata.data_ptr(),
+                sub.data_ptr(), int(sub.shape[0]),
+                table_d.data_ptr() + 8 * s, n, e - s, int(gap_open),
+                int(gap_extend), scratch.data_ptr(), out.data_ptr() + 4 * s,
+                n, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        if reverse:
+            REVERSE_LAUNCHES += 1
+        else:
+            FORWARD_LAUNCHES += 1
+    return out
+
+
 def _device_of(t: torch.Tensor) -> torch.device:
     dev = t.device
     if dev.type not in ("cpu", "cuda"):
@@ -202,24 +303,16 @@ def _device_of(t: torch.Tensor) -> torch.device:
     return dev
 
 
-def _run(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
-         gap_open: int, gap_extend: int) -> torch.Tensor:
-    global FORWARD_LAUNCHES, REVERSE_LAUNCHES
+def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
+              gap_open: int, gap_extend: int) -> torch.Tensor:
     _check((("tokens", qdata, tdata),), qbias, (("sub", sub),), jobs,
            gap_open, gap_extend)
     if _device_of(qdata).type == "cpu":
         return sw_jobs_ref(qdata, qbias, tdata, sub, jobs, gap_open,
                            gap_extend, reverse)
-    lib = _lib()
-    name = "sw_reverse" if reverse else "sw_forward"
-    out, k = _launch(getattr(lib, name), name,
-                     [qdata, qbias, tdata, sub, int(sub.shape[0])], jobs,
-                     gap_open, gap_extend, reverse)
-    if reverse:
-        REVERSE_LAUNCHES += k
-    else:
-        FORWARD_LAUNCHES += k
-    return out
+    return _launch_warp(reverse, qdata, qbias, tdata, sub,
+                        warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
+                        gap_extend)
 
 
 def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
@@ -231,7 +324,7 @@ def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
     if _device_of(qss).type == "cpu":
         return sw_struct_jobs_ref(qss, qaa, qbias, tss, taa, m3di, aasc,
                                   jobs, gap_open, gap_extend, reverse)
-    lib = _lib()
+    lib = load()
     name = "sw_reverse_struct" if reverse else "sw_forward_struct"
     out, k = _launch(getattr(lib, name), name,
                      [qss, qaa, qbias, tss, taa, m3di, int(m3di.shape[0]),
@@ -248,14 +341,16 @@ def sw_forward(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
                gap_extend: int) -> torch.Tensor:
     """Forward pass: (score, t_end, q_end) in rows 0-2 of the (6, n)
     result; rows 3-5 hold the (0, -1, 0) placeholders."""
-    return _run(False, qdata, qbias, tdata, sub, jobs, gap_open, gap_extend)
+    return _run_warp(False, qdata, qbias, tdata, sub, jobs, gap_open,
+                     gap_extend)
 
 
 def sw_reverse(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
                gap_extend: int) -> torch.Tensor:
     """Reverse pass on the flipped prefixes: all six outputs, with
     (found, fj, fi) at the terminate score in flipped coordinates."""
-    return _run(True, qdata, qbias, tdata, sub, jobs, gap_open, gap_extend)
+    return _run_warp(True, qdata, qbias, tdata, sub, jobs, gap_open,
+                     gap_extend)
 
 
 def sw_forward_struct(qss, qaa, qbias, tss, taa, m3di, aasc,

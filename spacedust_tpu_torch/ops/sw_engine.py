@@ -5,10 +5,12 @@ The query tokens, their int8 composition bias and the target tokens are
 copied to the device once, unpadded, and addressed by int64 element
 offsets.  Forward and reverse jobs are buffered per direction and
 dispatched as one stage once DISPATCH_PAIRS pairs are waiting (or at
-flush()): the stage's pairs are sorted by cell count, packed into one
-(5, n) int64 job array (qoff, qlen, toff, tlen, terminate) that the
-wrapper copies to the device once, and scored by the `ops/sw_cuda.py`
-kernels on the current stream (the plain version for CPU tensors).
+flush()): the stage's pairs are sorted by cell count (longest first for
+the sequence kernels, where a warp owns a pair and a launch should end
+on its short pairs), packed into one (5, n) int64 job array (qoff, qlen,
+toff, tlen, terminate) that the wrapper copies to the device once, and
+scored by the `ops/sw_cuda.py` kernels on the current stream (the plain
+version for CPU tensors).
 Results stay on the device until collect(), which fetches every pending
 stage with one device-to-host copy.
 
@@ -27,8 +29,8 @@ import torch
 
 from . import sw_cuda
 
-# pairs per dispatched stage: one thread per pair, so a stage should
-# carry enough pairs to fill the card
+# pairs per dispatched stage: enough to fill the card, at a warp per pair
+# (sequence) as at a thread per pair (structure)
 DISPATCH_PAIRS = 1 << 16
 
 
@@ -62,6 +64,9 @@ class DeviceAlignDB:
     # counter, looked up at dispatch
     KERNELS = {False: ("sw_forward", "FORWARD_LAUNCHES"),
                True: ("sw_reverse", "REVERSE_LAUNCHES")}
+    # a warp owns a pair and blocks start in order: the longest pairs
+    # first, so that a launch ends on short ones
+    LONGEST_FIRST = True
 
     def __init__(self, qdata: np.ndarray, qbias: np.ndarray,
                  tdata: np.ndarray, sub: np.ndarray,
@@ -76,6 +81,9 @@ class DeviceAlignDB:
         self._init_state()
 
     def _init_state(self) -> None:
+        if self.device.type == "cuda":
+            # build and load the kernels now, outside every timed stage
+            sw_cuda.load()
         self._buf: dict[tuple, list] = {}
         self.metrics = {"n_batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
                         "fwd_launches": 0, "rev_launches": 0,
@@ -114,8 +122,8 @@ class DeviceAlignDB:
         t0 = time.perf_counter()
         jobs = np.stack([c.astype(np.int64) for c in cols[:5]])
         cells = jobs[1] * jobs[3]
-        # similar work per warp: one thread per pair
-        order = np.argsort(cells, kind="stable")
+        order = np.argsort(-cells if self.LONGEST_FIRST else cells,
+                           kind="stable")
         jobs = np.ascontiguousarray(jobs[:, order])
         timed = self.device.type == "cuda"
         if timed:
@@ -170,6 +178,9 @@ class StructureDeviceDB(DeviceAlignDB):
 
     KERNELS = {False: ("sw_forward_struct", "FORWARD_STRUCT_LAUNCHES"),
                True: ("sw_reverse_struct", "REVERSE_STRUCT_LAUNCHES")}
+    # a thread owns a pair: ascending, so a warp's pairs carry similar work
+    # and a launch's scratch chunks (n x max tlen) stay tight
+    LONGEST_FIRST = False
 
     def __init__(self, qss: np.ndarray, qaa: np.ndarray, qbias: np.ndarray,
                  tss: np.ndarray, taa: np.ndarray, m3di: np.ndarray,

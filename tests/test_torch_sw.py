@@ -237,3 +237,360 @@ def test_scratch_chunks_cover_and_bound(cell):
         assert e > s
         assert (e - s) * tlen[s:e].max() * cell <= budget or e - s == 1
     assert len(chunks) > 10
+
+
+# ---------------------------------------------------------------------
+# The lane schedule of the warp-per-pair CUDA body (csrc/sw.cu::
+# sw_warp_kernel), modelled in numpy: 32 lanes x R rows, the step loop
+# j = s - lane, shuffles as array shifts, the chunk feed of lane 0, the
+# in-place strip boundary, the per-lane forward trackers and their merge,
+# the reverse column-max hand-down.  The kernel is written from it; here
+# it is held against sw_scan_ref.  Nothing here runs the CUDA body: model
+# and kernel meet only on the card (chip_smoke.py --phases kernels, on the
+# same edge_batch).  FAULTS are mistakes planted in the model, one at a
+# time, each of which edge_batch must expose.
+LANES = 32
+NEG = -(1 << 30)
+
+
+def _shfl_up(x, fill):
+    """lane l receives lane l - 1's value; lane 0 receives `fill` (the
+    CUDA lane 0 keeps its own value and overwrites it from the chunk)."""
+    return np.concatenate(([fill], x[:-1]))
+
+
+FAULTS = {
+    # forward
+    "lane_f_lost": "F does not cross from a lane to the next",
+    "strip_f_lost": "F does not cross the strip boundary",
+    "lane_merge_any_row": "the warp merge ignores the row on equal (score, j)",
+    "strip_merge_score_only": "a later strip wins only on a greater score",
+    # reverse
+    "later_row_takes_tie": "a row replaces an equal column max",
+    "strip_cmax_lost": "the column max does not cross the strip boundary",
+}
+
+
+def lane_model(S, go, ge, term, R, reverse, fault=None):
+    """One pair.  S: (qlen, tlen) cell scores, already flipped for the
+    reverse pass.  Returns (score, t_end, q_end, found, fj, fi).  fault:
+    one of FAULTS, planted."""
+    assert fault is None or fault in FAULTS
+    qlen, tlen = S.shape
+    lane = np.arange(LANES)
+    strip = LANES * R
+    lb, lj, li = (np.zeros(LANES, np.int64), np.full(LANES, -1),
+                  np.zeros(LANES, np.int64))
+    best, bj, bi, found, fj, fi = 0, -1, 0, 0, -1, 0
+    bnd = np.zeros((tlen, 4), np.int64)          # lane 31's hand-over
+    for i0 in range(0, qlen, strip):
+        first, last = i0 == 0, qlen - i0 <= strip
+        rows = i0 + lane[:, None] * R + np.arange(R)[None, :]
+        valid = rows < qlen
+        srow = np.minimum(rows, qlen - 1)
+        H = np.zeros((LANES, R), np.int64)
+        E = np.full((LANES, R), NEG, np.int64)
+        sb, sj, si = (np.zeros(LANES, np.int64), np.full(LANES, -1),
+                      np.zeros(LANES, np.int64))
+        diag_up = np.zeros(LANES, np.int64)
+        col_o = np.zeros(LANES, np.int64)        # the target token's stand-in
+        h_o, f_o = np.zeros(LANES, np.int64), np.full(LANES, NEG)
+        c_o, ci_o = np.full(LANES, -1), np.zeros(LANES, np.int64)
+
+        def load_chunk(c0):
+            cols = c0 + lane
+            ok = cols < tlen
+            tok = np.where(ok, cols, -7)         # a token past tlen is junk
+            b = np.tile(np.array([0, NEG, -1, 0]), (LANES, 1))
+            if not first:
+                b[ok] = bnd[cols[ok]]
+                if fault == "strip_f_lost":
+                    b[:, 1] = NEG
+                if fault == "strip_cmax_lost":
+                    b[:, 2:] = (-1, 0)
+            return tok, b
+
+        nxt = load_chunk(0)
+        for s in range(tlen + LANES - 1):
+            k = s % LANES
+            if k == 0:
+                ctok, cb = nxt
+                nxt = load_chunk(s + LANES)
+            col = _shfl_up(col_o, ctok[k])
+            hin, fin = _shfl_up(h_o, cb[k, 0]), _shfl_up(f_o, cb[k, 1])
+            if fault == "lane_f_lost":
+                fin[1:] = NEG
+            cin, ciin = _shfl_up(c_o, cb[k, 2]), _shfl_up(ci_o, cb[k, 3])
+            j = s - lane
+            act = (j >= 0) & (j < tlen)
+            assert (col[act] == j[act]).all()    # the token travelled right
+            sc = S[srow, np.where(act, col, 0)[:, None]]
+            F, diag = fin.copy(), diag_up.copy()
+            cmax, ci = cin.copy(), ciin.copy()
+            newH, newE = H.copy(), E.copy()
+            m = np.zeros(LANES, np.int64)
+            for r in range(R):
+                e = np.maximum(E[:, r] - ge, H[:, r] - go)
+                hb = np.maximum(np.maximum(diag + sc[:, r], e), 0)
+                h = np.where(valid[:, r], np.maximum(hb, F), 0)
+                F = np.maximum(F - ge, hb - go)
+                diag = H[:, r]
+                newH[:, r], newE[:, r] = h, e
+                if reverse:
+                    up = (h >= cmax if fault == "later_row_takes_tie"
+                          else h > cmax)
+                    cmax, ci = (np.where(up, h, cmax),
+                                np.where(up, rows[:, r], ci))
+                else:
+                    m = np.maximum(m, h)
+            # commit the active lanes only
+            a2 = act[:, None]
+            H, E = np.where(a2, newH, H), np.where(a2, newE, E)
+            diag_up = np.where(act, hin, diag_up)
+            up = act & (m > sb)
+            first_row = rows[lane, np.argmax(H == m[:, None], axis=1)]
+            sb, sj, si = (np.where(up, m, sb), np.where(up, j, sj),
+                          np.where(up, first_row, si))
+            col_o, h_o, f_o = (np.where(act, col, col_o),
+                               np.where(act, H[:, -1], h_o),
+                               np.where(act, F, f_o))
+            c_o, ci_o = np.where(act, cmax, c_o), np.where(act, ci, ci_o)
+            if act[31]:
+                j31 = int(j[31])
+                if not last:
+                    bnd[j31] = (h_o[31], f_o[31], c_o[31], ci_o[31])
+                elif reverse:
+                    if c_o[31] > best:
+                        best, bj, bi = int(c_o[31]), j31, int(ci_o[31])
+                    if not found and c_o[31] == term:
+                        found, fj, fi = 1, j31, int(ci_o[31])
+        up = sb > lb
+        if fault != "strip_merge_score_only":
+            up |= (sb == lb) & (sj < lj)
+        lb, lj, li = np.where(up, sb, lb), np.where(up, sj, lj), np.where(
+            up, si, li)
+    if not reverse:
+        d = LANES // 2
+        while d:
+            ob, oj, oi = lb[lane ^ d], lj[lane ^ d], li[lane ^ d]
+            rowwise = (oi < li) & (fault != "lane_merge_any_row")
+            up = (ob > lb) | ((ob == lb) & ((oj < lj)
+                                            | ((oj == lj) & rowwise)))
+            lb, lj, li = (np.where(up, ob, lb), np.where(up, oj, lj),
+                          np.where(up, oi, li))
+            d //= 2
+        assert (lb == lb[0]).all() and (lj == lj[0]).all()
+        best, bj, bi = int(lb[0]), int(lj[0]), int(li[0])
+    return best, bj, bi, found, fj, fi
+
+
+def _job_scores(q, qb, t, sub, job, reverse):
+    """(qlen, tlen) cell scores int8(sub[q_i][t_j] + bias_i) of one job,
+    flipped for the reverse pass."""
+    qoff, qlen, toff, tlen = (int(x) for x in job[:4])
+    qq, bb, tt = (q[qoff:qoff + qlen], qb[qoff:qoff + qlen],
+                  t[toff:toff + tlen])
+    if reverse:
+        qq, bb, tt = qq[::-1], bb[::-1], tt[::-1]
+    S = sub[qq.astype(np.int64)][:, tt.astype(np.int64)] + bb[:, None]
+    return S.astype(np.int8).astype(np.int64)
+
+
+def _model_jobs(q, qb, t, sub, jobs, R, reverse, fault=None):
+    return np.array([lane_model(_job_scores(q, qb, t, sub, jobs[:, p],
+                                            reverse), GO, GE,
+                                int(jobs[4, p]), R, reverse, fault)
+                     for p in range(jobs.shape[1])]).T
+
+
+def _plain_jobs(q, qb, t, sub, jobs, reverse):
+    return sw_jobs_ref(torch.from_numpy(q), torch.from_numpy(qb),
+                       torch.from_numpy(t),
+                       torch.from_numpy(sub.astype(np.int8)), jobs, GO, GE,
+                       reverse).numpy()
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+ROWS = [4, 8, 12, 16]
+
+
+def test_lane_rows_are_the_compiled_classes():
+    from spacedust_tpu_torch.ops.sw_cuda import (LANE_ROWS,
+                                                 STEP_OVERHEAD_CELLS,
+                                                 lane_rows)
+    assert list(LANE_ROWS) == ROWS
+    qlen = np.arange(1, 20_000)
+    got = lane_rows(qlen)
+    assert set(got.tolist()) == set(ROWS)
+    # one strip whenever a class holds the query, and then the smallest
+    for R in ROWS:
+        fits = (qlen <= 32 * R) & (qlen > 32 * (R - 4))
+        assert (got[fits] == R).all()
+    # never more lane-steps than the widest class takes
+    def steps(R):
+        return -(-qlen // (32 * R)) * (R + STEP_OVERHEAD_CELLS)
+    assert (steps(got) <= steps(16)).all()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("R", ROWS)
+def test_lane_model_matches_scan_ref_ragged(R, reverse):
+    """Seeded ragged pairs (homologs, a zero-score pair, length 1, more
+    than one strip) through the lane model at class R and the plain scan."""
+    q, qb, t, qoffs, qlens, toffs, tlens = _resident(20 + R, 14, 70 * R)
+    qb[qoffs[5]:qoffs[6]] = -40                   # a zero-score pair
+    sub = load_substitution_matrix().sub_int
+    jobs = np.stack([qoffs[:-1], qlens, toffs[:-1], tlens,
+                     np.full(len(qlens), -1)]).astype(np.int64)
+    fwd = _plain_jobs(q, qb, t, sub, jobs, False)
+    if reverse:
+        keep = np.nonzero(fwd[0] > 0)[0]
+        jobs = np.stack([jobs[0, keep], fwd[2, keep] + 1, jobs[2, keep],
+                         fwd[1, keep] + 1, fwd[0, keep]]).astype(np.int64)
+        want = _plain_jobs(q, qb, t, sub, jobs, True)
+        assert want[3].all() and len(keep) >= 6
+    else:
+        want = fwd
+        assert (fwd[0] == 0).any() and (qlens > 32 * R).any()
+    got = _model_jobs(q, qb, t, sub, jobs, R, reverse)
+    n_out = 6 if reverse else 3
+    np.testing.assert_array_equal(got[:n_out], want[:n_out])
+    if not reverse:
+        assert (got[3] == 0).all() and (got[4] == -1).all()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("R", ROWS)
+def test_lane_model_matches_scan_ref_edges(R, reverse):
+    """The smoke run's boundary shapes and planted ties (chip_smoke.py::
+    edge_batch): qlen around R and the strip, tlen below and around the
+    warp width, ties across lane and strip boundaries in both directions.
+    Reverse: the same pairs with terminate = their score, and the derived
+    prefix jobs, whose terminate column's max sits in the first strip."""
+    smoke = _chip_smoke()
+    sub = load_substitution_matrix().sub_int
+    q, qb, t, jobs, expect = smoke.edge_batch(R, sub)
+    fwd = _plain_jobs(q, qb, t, sub, jobs, False)
+    for p, want in expect.items():
+        assert tuple(fwd[:3, p]) == want, (p, fwd[:3, p], want)
+    if not reverse:
+        got = _model_jobs(q, qb, t, sub, jobs, R, False)
+        np.testing.assert_array_equal(got[:3], fwd[:3])
+        return
+    whole = jobs.copy()
+    whole[4] = fwd[0]
+    derived = smoke.reverse_jobs(jobs, fwd)
+    multi = derived[1] > 32 * R
+    assert multi.sum() >= 4                       # the hand-down is used
+    for js in (whole, derived):
+        want = _plain_jobs(q, qb, t, sub, js, True)
+        got = _model_jobs(q, qb, t, sub, js, R, True)
+        np.testing.assert_array_equal(got, want)
+    assert want[3].all()
+    # the terminate column's max sits in the first strip of several
+    assert (want[5][multi] < 32 * R).any()
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("R", ROWS)
+def test_edge_batch_exposes_planted_fault(R, fault):
+    """edge_batch's planted ties and gaps (and, in reverse, the jobs
+    derived from them) tell the lane model with one fault planted from the
+    plain scan, at every class: the coverage the kernel's check on the
+    card relies on."""
+    smoke = _chip_smoke()
+    sub = load_substitution_matrix().sub_int
+    q, qb, t, jobs, expect = smoke.edge_batch(R, sub)
+    planted = jobs[:, sorted(expect)]
+    fwd = _plain_jobs(q, qb, t, sub, planted, False)
+    reverse = fault in ("later_row_takes_tie", "strip_cmax_lost")
+    if not reverse:
+        got = _model_jobs(q, qb, t, sub, planted, R, False, fault)
+        assert (got[:3] != fwd[:3]).any()
+        return
+    whole = planted.copy()
+    whole[4] = fwd[0]
+    js = np.concatenate([whole, smoke.reverse_jobs(planted, fwd)], axis=1)
+    want = _plain_jobs(q, qb, t, sub, js, True)
+    got = _model_jobs(q, qb, t, sub, js, R, True, fault)
+    assert (got != want).any()
+
+
+@pytest.mark.parametrize("cell", [8, 16])
+def test_warp_plan_covers_and_bounds(cell):
+    """The sequence kernels' launches: the caller's order, a class per
+    pair, scratch only for multi-strip pairs, disjoint within a launch
+    and within the budget except for a lone pair that alone exceeds it."""
+    from spacedust_tpu_torch.ops.sw_cuda import lane_rows, warp_plan
+    rng = np.random.default_rng(cell)
+    n = 4000
+    jobs = np.stack([rng.integers(0, 10**6, n), rng.integers(1, 3000, n),
+                     rng.integers(0, 10**6, n), rng.integers(1, 3000, n),
+                     np.full(n, -1)]).astype(np.int64)
+    jobs[3, 17] = 90_000
+    jobs[1, 17] = 5000
+    budget = 1 << 19
+    table, launches = warp_plan(jobs, cell, budget)
+    np.testing.assert_array_equal(table[:5], jobs)
+    np.testing.assert_array_equal(table[5], lane_rows(jobs[1]))
+    assert launches[0][0] == 0 and launches[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(launches, launches[1:]))
+    multi = table[1] > 32 * table[5]
+    need = np.where(multi, table[3], 0)
+    for s, e, cols in launches:
+        assert e > s
+        np.testing.assert_array_equal(
+            table[6, s:e][multi[s:e]],
+            (np.cumsum(need[s:e]) - need[s:e])[multi[s:e]])
+        assert cols == need[s:e].sum()
+        assert cols * cell <= budget or e - s == 1
+    assert len(launches) > 8 and (17, 18, 90_000) in launches
+    # one launch within the default bound, and one class when asked
+    table, launches = warp_plan(jobs, cell, rows=8)
+    assert launches == [(0, n, int(np.where(jobs[1] > 256, jobs[3],
+                                            0).sum()))]
+    assert (table[5] == 8).all()
+
+
+def test_dispatch_order_per_engine():
+    """The sequence engine hands a stage to its kernels longest pair
+    first; the structure engine keeps ascending order."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.ops.sw_engine import StructureDeviceDB
+    q, qb, t, qoffs, qlens, toffs, tlens = _resident(6, 30, 90)
+    sub = load_substitution_matrix().sub_int
+    job = (qoffs[:-1], qlens, toffs[:-1], tlens,
+           np.full(len(qlens), -1), np.arange(len(qlens)))
+    seen = {}
+
+    def spy(name, fn):
+        def call(*args):
+            seen[name] = args[-3]
+            return fn(*args)
+        return call
+
+    saved = {n: getattr(sw_cuda, n) for n in ("sw_forward",
+                                              "sw_forward_struct")}
+    try:
+        for n, fn in saved.items():
+            setattr(sw_cuda, n, spy(n, fn))
+        DeviceAlignDB(q, qb, t, sub, device="cpu").run_buckets(
+            [job], GO, GE, reverse=False)
+        StructureDeviceDB(q, q, qb, t, t, sub, sub, device="cpu"
+                          ).run_buckets([job], GO, GE, reverse=False)
+    finally:
+        for n, fn in saved.items():
+            setattr(sw_cuda, n, fn)
+    cells = seen["sw_forward"][1] * seen["sw_forward"][3]
+    assert (np.diff(cells) <= 0).all() and cells[0] > cells[-1]
+    cells = seen["sw_forward_struct"][1] * seen["sw_forward_struct"][3]
+    assert (np.diff(cells) >= 0).all() and cells[0] < cells[-1]
