@@ -20,12 +20,12 @@ the kernels line, the card and the result.
                 int8-wrapping bias, a 9,000 x 9,000 and a 40,000 x 600
                 pair.  All six outputs must be equal (tolerance 0: the DP
                 is integer).  Then, for each class R of query rows per
-                lane that the warp-per-pair body is compiled for, the
-                boundary shapes and planted ties of edge_batch, with every
-                pair forced into that class: forward, reverse on the same
-                pairs (terminate = their score) and reverse on the derived
-                prefixes, and the planted ties must come out where the
-                design puts them;
+                lane that the kernels' body (a warp shares a pair) is
+                compiled for, the boundary shapes and planted ties of
+                edge_batch, with every pair forced into that class:
+                forward, reverse on the same pairs (terminate = their
+                score) and reverse on the derived prefixes, and the planted
+                ties must come out where the design puts them;
   4. small   -- createsetdb + clustersearch --filter-self-match through the
                 CLI on the small synthetic genome set; the result must equal
                 tests/fixtures/torch_port_small.tsv (recorded by the JAX
@@ -40,7 +40,10 @@ the kernels line, the card and the result.
                 seeded ragged batch: lengths 1-2,700, homologs (kept 3Di,
                 remote amino acids), planted ties, zero-score pairs, 3Di
                 bias at -128..127 (the 3Di channel wraps int8), a 9,000 x
-                9,000 and a 40,000 x 600 pair; all six outputs equal;
+                9,000 and a 40,000 x 600 pair; all six outputs equal.  Then
+                every compiled class on edge_batch_struct, the two-channel
+                form of edge_batch (ties planted on the summed score), as
+                in phase 3;
   7. struct-small -- through the CLI on the small structure set:
                 createsetdb of the Foldseek-style flat DB, clustersearch
                 --search-mode 2, then aa2foldseek and --search-mode 1 (which
@@ -59,8 +62,8 @@ the kernels line, the card and the result.
                 least time the card could take for the stage (bound_ms:
                 the larger of its bytes over the memory rate and its
                 integer instructions over the int32 instruction rate).
-                For the two sequence stages also the longest pair alone
-                and what the classes of query rows per lane buy.
+                For each stage also the longest pair alone and what the
+                classes of query rows per lane buy.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object {"kernels": [...]}; the last line is
@@ -291,11 +294,12 @@ def tie_letters(sub: np.ndarray) -> tuple[int, int, list]:
     raise ValueError("no tie letters in this matrix")
 
 
-def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED):
-    """Pairs that stress the warp-per-pair body at `rows` query rows per
-    lane (a strip is 32 * rows rows).  Returns resident (q, bias, t), the
-    (5, n) forward jobs and, for the planted ties, {pair: (score, t_end,
-    q_end)}, the forward result the design must give.
+def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED, go: int = GO):
+    """Pairs that stress the kernels' body at `rows` query rows per lane
+    (a strip is 32 * rows rows), for the letter scores `sub` and the gap
+    open cost `go`.  Returns resident (q, bias, t), the (5, n) forward
+    jobs and, for the planted ties, {pair: (score, t_end, q_end)}, the
+    forward result the design must give.
 
     Grid: qlen in {1, rows, 32 rows - 1, 32 rows, 32 rows + 1, 64 rows,
     64 rows + 1, 96 rows + 7} x tlen in {1, 2, 7, 31, 32, 33, 100}, random
@@ -375,7 +379,7 @@ def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED):
         t = np.concatenate([np.full(3, ft), left, right,
                             np.full(3, ft)]).astype(np.uint8)
         gapped = (int(sub[left, left].sum() + sub[right, right].sum())
-                  - GO - GE * (n_ins - 1))
+                  - go - GE * (n_ins - 1))
         expect[len(qs)] = (gapped, 3 + 60 - 1, start + 60 + n_ins - 1)
         qs.append(q)
         bs.append(np.zeros(len(q), np.int8))
@@ -387,6 +391,38 @@ def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED):
     jobs = np.stack([qoff, qlen, toff, tlen, np.full(len(qs), -1)])
     return (np.concatenate(qs), np.concatenate(bs), np.concatenate(ts),
             np.ascontiguousarray(jobs, dtype=np.int64), expect)
+
+
+# structure mode's edge batch: letter k of edge_batch stands for the token
+# pair (3Di k, amino acid AA_OF[k]), so the two channels never hold the
+# same array
+AA_OF = (np.arange(20) + 7) % 20
+
+
+def edge_batch_struct(rows: int, m3di: np.ndarray, aasc: np.ndarray,
+                      seed: int = SEED):
+    """edge_batch in two channels.  Returns resident (q_ss, q_aa, bias,
+    t_ss, t_aa), the forward jobs and the planted ties' results.
+
+    The batch is edge_batch's on the summed score of the letter pairs
+    (k, AA_OF[k]), m3di[k, l] + aasc[AA_OF[k], AA_OF[l]], at structure
+    mode's gap costs: motifs, fillers and the gapped pairs are chosen on
+    that sum, so ties and gaps sit where edge_batch says.  Outside the
+    planted pairs every fifth amino-acid token of either side is then
+    redrawn from all 21 letters (the 21st included), so that the second
+    channel also varies on its own."""
+    comb = (m3di[:20, :20].astype(np.int32)
+            + aasc[np.ix_(AA_OF, AA_OF)].astype(np.int32))
+    q, b, t, jobs, expect = edge_batch(rows, comb, seed + 100, STRUCT_GO)
+    qaa, taa = AA_OF[q].astype(np.uint8), AA_OF[t].astype(np.uint8)
+    rng = np.random.default_rng(seed + 200 + rows)
+    for p in range(jobs.shape[1]):
+        if p in expect:
+            continue
+        for arr, off, n in ((qaa, *jobs[:2, p]), (taa, *jobs[2:4, p])):
+            hit = rng.integers(0, 5, n) == 0
+            arr[off:off + n][hit] = rng.integers(0, 21, int(hit.sum()))
+    return [q, qaa, b, t, taa], jobs, expect
 
 
 def reverse_jobs(jobs: np.ndarray, fwd: np.ndarray) -> np.ndarray:
@@ -448,25 +484,38 @@ def check_batch(tag: str, resident: list, jobs: np.ndarray, go: int,
               f"kernel {k_ms:.1f} ms, plain {p_ms:.1f} ms")
 
 
-def check_edges(sub: torch.Tensor, errs: dict) -> None:
-    """Each compiled class of the warp-per-pair body on edge_batch, every
+def check_edges(tables: list, errs: dict) -> None:
+    """Each compiled class of the kernels' body on edge_batch (tables:
+    [sub]) or edge_batch_struct (tables: [m3di, aasc], on the card), every
     pair forced into the class (a plan of one class, handed to the
     wrappers' launcher); the planted ties where the design puts them."""
     from spacedust_tpu_torch.ops import sw_cuda
-    from spacedust_tpu_torch.ops.sw import sw_jobs_ref
-    sub_np = sub.cpu().numpy().astype(np.int32)
+    struct = len(tables) == 2
+    tabs = [m.cpu().numpy().astype(np.int32) for m in tables]
+    d_fwd, d_rev, go, tag = (("fwd_struct", "rev_struct", STRUCT_GO,
+                              "kernels-struct") if struct
+                             else ("fwd", "rev", GO, "kernels"))
     for rows in sw_cuda.LANE_ROWS:
-        q, b, t, jobs, expect = edge_batch(rows, sub_np)
-        res = [torch.from_numpy(a).to(sub.device) for a in (q, b, t)] + [sub]
-        got = sw_cuda._launch_warp(
-            False, *res, sw_cuda.warp_plan(jobs, 8, rows=rows), GO, GE)
-        ref = sw_jobs_ref(*res, jobs, GO, GE, False)
-        errs["fwd"] = max(errs["fwd"],
-                          compare(f"edges R={rows} fwd", got, ref))
-        fwd = got.cpu().numpy()
+        if struct:
+            arrays, jobs, expect = edge_batch_struct(rows, *tabs)
+        else:
+            *arrays, jobs, expect = edge_batch(rows, *tabs)
+        res = [torch.from_numpy(a).to(tables[0].device)
+               for a in arrays] + tables
+
+        def both(d, js, what):
+            reverse = d == d_rev
+            got = sw_cuda._launch_warp(reverse, res, sw_cuda.warp_plan(
+                js, sw_cuda.WARP_SCRATCH[reverse], rows=rows), go, GE)
+            ref = plain(d)(*res, js, go, GE)
+            errs[d] = max(errs[d], compare(f"edges R={rows} {what}", got,
+                                           ref))
+            return got
+
+        fwd = both(d_fwd, jobs, d_fwd).cpu().numpy()
         for p, want in expect.items():
             if tuple(fwd[:3, p]) != want:
-                fail(f"edges R={rows}: planted tie {p} gave "
+                fail(f"edges R={rows} {d_fwd}: planted tie {p} gave "
                      f"{tuple(fwd[:3, p])}, the design says {want}")
         whole = jobs.copy()
         whole[4] = fwd[0]
@@ -474,15 +523,11 @@ def check_edges(sub: torch.Tensor, errs: dict) -> None:
         n_multi = int((derived[1] > 32 * rows).sum())
         if n_multi < 4:
             fail(f"edges R={rows}: only {n_multi} multi-strip reverse jobs")
-        for tag, js in (("whole", whole), ("prefix", derived)):
-            got = sw_cuda._launch_warp(
-                True, *res, sw_cuda.warp_plan(js, 16, rows=rows), GO, GE)
-            ref = sw_jobs_ref(*res, js, GO, GE, True)
-            errs["rev"] = max(errs["rev"], compare(
-                f"edges R={rows} rev {tag}", got, ref))
+        both(d_rev, whole, f"{d_rev} whole")
+        got = both(d_rev, derived, f"{d_rev} prefix")
         if not bool(got[3].all()):
             fail(f"edges R={rows}: a prefix job missed its terminate score")
-        print(f"[kernels] edges R={rows}: {jobs.shape[1]} forward, "
+        print(f"[{tag}] edges R={rows}: {jobs.shape[1]} forward, "
               f"{whole.shape[1]} + {derived.shape[1]} reverse pairs "
               f"({n_multi} multi-strip), {len(expect)} planted ties: all "
               f"six outputs equal")
@@ -492,17 +537,19 @@ def check_kernels(sub: torch.Tensor, errs: dict) -> None:
     q, b, t, jobs = kernel_batch()
     Q, B, T = (torch.from_numpy(a).to(sub.device) for a in (q, b, t))
     check_batch("kernels", [Q, B, T, sub], jobs, GO, ("fwd", "rev"), errs)
-    check_edges(sub, errs)
+    check_edges([sub], errs)
 
 
 def check_kernels_struct(dev: torch.device, errs: dict) -> None:
     from spacedust_tpu_torch.search.structure import combined_matrices
     arrays, jobs = kernel_batch_struct()
     m3di, aasc, _ = combined_matrices()
-    resident = [torch.from_numpy(a).to(dev) for a in arrays] + [
-        torch.from_numpy(m.astype(np.int8)).to(dev) for m in (m3di, aasc)]
+    tables = [torch.from_numpy(m.astype(np.int8)).to(dev)
+              for m in (m3di, aasc)]
+    resident = [torch.from_numpy(a).to(dev) for a in arrays] + tables
     check_batch("kernels-struct", resident, jobs, STRUCT_GO,
                 ("fwd_struct", "rev_struct"), errs)
+    check_edges(tables, errs)
 
 
 # ------------------------------------------------------- 4-6. the slices
@@ -688,12 +735,15 @@ def struct_run(work: Path, dev: torch.device, size: str,
              f"{launches}")
     n_self = self_hits_ok(db, tmp)
     tm = res.timings
+    detail = tm["align_detail"]
     hits, clusters = counts(res.tsv)
     print(f"[struct-{size}] {db.size} genes, {len(db.seq_data)} residues; "
           f"createsetdb {t_ingest:.2f} s; clustersearch {t_search:.2f} s = "
-          f"structure_search {tm['structure_search']:.2f} + aggregate "
+          f"structure_search {tm['structure_search']:.2f} (3Di index "
+          f"{detail['index_s']:.2f}, prefilter {detail['prefilter_s']:.2f}, "
+          f"align_all {detail['align_all_s']:.2f}) + aggregate "
           f"{tm['aggregate']:.2f}")
-    print(f"[struct-{size}] align detail {json.dumps(tm['align_detail'])}")
+    print(f"[struct-{size}] align detail {json.dumps(detail)}")
     print(f"[struct-{size}] launches {launches}; {hits} hits / {clusters} "
           f"clusters, canonical sha256 {canonical_sha256(res.tsv)}; "
           f"{n_self} genes of >= 100 aa find themselves with E < 1e-10")
@@ -756,21 +806,21 @@ def event_ms(fn, reps: int = 3) -> float:
 
 
 def stage_detail(d: str, args: tuple) -> None:
-    """What sets a sequence stage's time, and what the classes of query
-    rows per lane buy: the stage's longest pair alone (on one warp: no
-    other work can shorten that), the whole stage with every pair at 16
-    rows a lane, and the stage without its 32 longest pairs at the
-    wrapper's own classes and forced into each compiled class, beside the
-    lane-steps sum(ceil(qlen / 32 R) * (tlen + 31)) of that class (a step
-    costs R cells and an overhead: sw_cuda.STEP_OVERHEAD_CELLS is fitted
-    to these times).  The engine hands a stage over longest pair first."""
+    """What sets a stage's time, and what the classes of query rows per
+    lane buy: the stage's longest pair alone (on one warp: no other work
+    can shorten that), the whole stage with every pair at 16 rows a lane,
+    and the stage without its 32 longest pairs at the wrapper's own
+    classes and forced into each compiled class, beside the lane-steps
+    sum(ceil(qlen / 32 R) * (tlen + 31)) of that class, and the fit of
+    the forced times to "a step costs R cells and an overhead"
+    (sw_cuda.STEP_OVERHEAD_CELLS is taken from these fits).  The engine hands a stage over longest pair first."""
     from spacedust_tpu_torch.ops import sw_cuda
     *resident, jobs, go, ge = args
-    reverse = d == "rev"
+    reverse = d.startswith("rev")
 
     def ms(js, rows=None):
         plan = sw_cuda.warp_plan(js, sw_cuda.WARP_SCRATCH[reverse], rows=rows)
-        return event_ms(lambda: sw_cuda._launch_warp(reverse, *resident,
+        return event_ms(lambda: sw_cuda._launch_warp(reverse, resident,
                                                      plan, go, ge))
 
     rest = jobs[:, 32:]
@@ -779,18 +829,24 @@ def stage_detail(d: str, args: tuple) -> None:
           f"at 16 rows a lane {ms(jobs, 16):.2f} ms; without its 32 longest "
           f"({rest.shape[1]} pairs, {cells(rest) / 1e9:.3f} G cells): own "
           f"classes {ms(rest):.2f} ms")
+    per_step = []
     for rows in sw_cuda.LANE_ROWS:
         steps = int((-(-rest[1] // (32 * rows)) * (rest[3] + 31)).sum())
+        t = ms(rest, rows)
+        per_step.append(t / steps)
         print(f"[timing] {d} stage without its 32 longest, every pair at "
-              f"{rows} rows a lane: {ms(rest, rows):.2f} ms, {steps} "
-              f"lane-steps")
+              f"{rows} rows a lane: {t:.2f} ms, {steps} lane-steps")
+    slope, intercept = np.polyfit(sw_cuda.LANE_ROWS, per_step, 1)
+    print(f"[timing] {d} stage: time a lane-step against rows a lane, "
+          f"least squares: a step costs its rows and "
+          f"{intercept / slope:.1f} cells")
 
 
 def time_stages(stages: dict, launches: dict, errs: dict,
                 card: str) -> list:
     """Kernel (event_ms) against the plain version (host clock, one
-    call) on the main path's largest stages, and stage_detail of the
-    sequence stages.  These launches come after the counts were read."""
+    call) on the main path's largest stages, and stage_detail of each.
+    These launches come after the counts were read."""
     from spacedust_tpu_torch.ops import sw_cuda
     report = []
     print(f"[timing] bound: int32 rate {INT32_PER_S / 1e12:.2f} T "
@@ -830,7 +886,7 @@ def time_stages(stages: dict, launches: dict, errs: dict,
             "plain_gcups": c / p_ms / 1e6}
         if not d.endswith("struct"):
             entry["also_replaces"] = GATHER
-            stage_detail(d, args)
+        stage_detail(d, args)
         report.append(entry)
     return report
 

@@ -1,16 +1,16 @@
 """Hand-written Hopper kernels for the SW score passes, and their wrappers.
 
-`csrc/sw.cu` holds two CUDA DP bodies (see the note at its top).  A warp
-owns a pair in `sw_forward`, which replaces the JAX package's
-`ops/sw_pallas.py::_kernel_rowmax`, and in `sw_reverse`, which replaces
-its `ops/sw_pallas.py::_kernel`; both take over
-`ops/sw_engine.py::panel_gather` as their own load stage.  A thread owns
-a pair in `sw_forward_struct` / `sw_reverse_struct`, which replace the
-structure-mode XLA program `ops/sw_engine.py::_sw_bucket_struct` (two
-score channels, 3Di with its bias and amino acids, each cast to int8
-before the sum).  The source is compiled with nvcc for sm_90a at first
-use into `_build/` beside the package (git-ignored) and bound through a
-plain C interface with ctypes.
+`csrc/sw.cu` holds one CUDA DP body (see the note at its top): a warp
+owns a pair and sweeps it as an anti-diagonal wavefront.  `sw_forward`
+replaces the JAX package's `ops/sw_pallas.py::_kernel_rowmax` and
+`sw_reverse` its `ops/sw_pallas.py::_kernel`; `sw_forward_struct` /
+`sw_reverse_struct` replace the structure-mode XLA program
+`ops/sw_engine.py::_sw_bucket_struct` (two score channels, 3Di with its
+bias and amino acids, each cast to int8 before the sum).  All four take
+over `ops/sw_engine.py::panel_gather` as their own load stage.  The
+source is compiled with nvcc for sm_90a at first use into `_build/`
+beside the package (git-ignored) and bound through a plain C interface
+with ctypes.
 
 The wrappers take the resident device arrays, the substitution matrix and
 a host (5, n) int64 job array (qoff, qlen, toff, tlen, terminate) and
@@ -18,16 +18,14 @@ return a (6, n) int32 tensor (score, t_end, q_end, found, fj, fi) on the
 device of the resident arrays, pair p in column p whatever order the
 kernels take the pairs in.  For CUDA tensors they copy the jobs to the
 card once and launch the kernel on the current stream; nothing is
-synchronised.  The sequence wrappers give each pair one of the kernel's
-compile-time classes of query rows per lane (LANE_ROWS, `lane_rows`) and
-its place in the boundary scratch (`warp_plan`), in one launch unless
-the scratch would pass SCRATCH_BYTES; the structure wrappers launch over
-contiguous chunks that keep to the same bound (`scratch_chunks`).  For
-CPU tensors they run the plain version (`ops/sw.py::sw_jobs_ref` /
-`sw_struct_jobs_ref`).  There is no fallback between the two.  The
-structure wrappers take five resident arrays (3Di and amino-acid tokens
-of the queries with the int8 3Di bias, and of the targets) and the two
-int8 tables in place of (qdata, qbias, tdata, sub).
+synchronised.  They give each pair one of the kernel's compile-time
+classes of query rows per lane (LANE_ROWS, `lane_rows`) and its place in
+the boundary scratch (`warp_plan`), in one launch unless the scratch
+would pass SCRATCH_BYTES.  For CPU tensors they run the plain version
+(`ops/sw.py::sw_jobs_ref` / `sw_struct_jobs_ref`).  There is no fallback
+between the two.  The structure wrappers take five resident arrays (3Di
+and amino-acid tokens of the queries with the int8 3Di bias, and of the
+targets) and the two int8 tables in place of (qdata, qbias, tdata, sub).
 
 FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
 REVERSE_STRUCT_LAUNCHES count kernel launches.
@@ -54,13 +52,16 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SCRATCH_BYTES = 1 << 30        # per-launch DP scratch bound
-# sequence kernels: the compile-time classes of query rows per lane (a
-# strip is 32 lanes x R rows), and what a wavefront step costs beside its
-# R cells (shuffles, the chunk feed, the loop), in cells.  Fitted on an
-# H100 to the times of one stage with every pair forced into each class
-# (chip_smoke.py::stage_detail: time / lane-steps is linear in R, and its
-# intercept over its slope gave 3.2 forward, 4.9 on the far smaller
-# reverse stage).
+# the compile-time classes of query rows per lane (a strip is 32 lanes x R
+# rows), and what a wavefront step costs beside its R cells (shuffles, the
+# chunk feed, the loop), in cells.  Fitted on an H100 to the times of one
+# stage with every pair forced into each class (chip_smoke.py::
+# stage_detail: time / lane-steps against R by least squares, intercept
+# over slope): 3.2-3.4 on the sequence forward stage and 4.8-5.4 on its
+# far smaller reverse stage; 3.0-3.2 on the structure reverse stage and
+# 1.5-1.6 on the structure forward stage, which is not linear in R (a row
+# costs more at 16 rows a lane than at 8).  One constant serves all four
+# kernels.
 LANE_ROWS = (4, 8, 12, 16)
 STEP_OVERHEAD_CELLS = 3
 # bytes of boundary scratch per target column of a multi-strip pair, by
@@ -72,17 +73,20 @@ REVERSE_LAUNCHES = 0
 FORWARD_STRUCT_LAUNCHES = 0
 REVERSE_STRUCT_LAUNCHES = 0
 
+# (reverse?, structure?) -> the C entry point (and wrapper) and its launch
+# counter
+ENTRY = {(False, False): ("sw_forward", "FORWARD_LAUNCHES"),
+         (True, False): ("sw_reverse", "REVERSE_LAUNCHES"),
+         (False, True): ("sw_forward_struct", "FORWARD_STRUCT_LAUNCHES"),
+         (True, True): ("sw_reverse_struct", "REVERSE_STRUCT_LAUNCHES")}
+
 _LIB = None
 _LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    global FORWARD_LAUNCHES, REVERSE_LAUNCHES
-    global FORWARD_STRUCT_LAUNCHES, REVERSE_STRUCT_LAUNCHES
-    FORWARD_LAUNCHES = 0
-    REVERSE_LAUNCHES = 0
-    FORWARD_STRUCT_LAUNCHES = 0
-    REVERSE_STRUCT_LAUNCHES = 0
+    for _name, counter in ENTRY.values():
+        globals()[counter] = 0
 
 
 def _nvcc() -> str:
@@ -141,21 +145,6 @@ def load() -> ctypes.CDLL:
     return _LIB
 
 
-def scratch_chunks(tlen: np.ndarray, bytes_per_cell: int,
-                   budget: int = SCRATCH_BYTES) -> list[tuple[int, int]]:
-    """Split pairs [0, n) into contiguous launches whose scratch,
-    n_launch * max(tlen) * bytes_per_cell, stays within budget."""
-    chunks, s, n = [], 0, len(tlen)
-    while s < n:
-        mx = np.maximum.accumulate(np.maximum(tlen[s:], 1).astype(np.int64))
-        size = np.arange(1, n - s + 1, dtype=np.int64) * mx * bytes_per_cell
-        over = np.nonzero(size > budget)[0]
-        e = s + max(int(over[0]), 1) if len(over) else n
-        chunks.append((s, e))
-        s = e
-    return chunks
-
-
 def lane_rows(qlen: np.ndarray) -> np.ndarray:
     """Per pair, the class of LANE_ROWS that sweeps its query in the
     fewest lane-steps: ceil(qlen / 32R) strips, each step costing R cells
@@ -170,16 +159,17 @@ def lane_rows(qlen: np.ndarray) -> np.ndarray:
 def warp_plan(jobs: np.ndarray, bytes_per_column: int,
               budget: int = SCRATCH_BYTES, rows: int | None = None
               ) -> tuple[np.ndarray, list[tuple[int, int, int]]]:
-    """The sequence kernels' launches for a (5, n) job array.
+    """The kernels' launches for a (5, n) job array.
 
     Returns the (7, n) table the kernels read -- the jobs in the caller's
     order, with row 5 the pair's class (lane_rows, or `rows` for every
-    pair) and row 6 its first column in the launch's boundary scratch --
-    and the launches (start, end, scratch columns) over its columns.
-    The wrappers leave `rows` alone; a check of one class passes it.
-    Only a pair longer than one strip (qlen > 32 * rows) takes scratch,
-    one column per target residue; the pairs are split where a launch's
-    scratch would pass `budget` bytes (a lone pair may exceed it)."""
+    pair) and row 6 its first column in the launch's boundary
+    scratch -- and the launches (start, end, scratch columns) over its
+    columns.  The wrappers leave `rows` alone; a check of one class passes
+    it.  Only a pair longer than one strip (qlen > 32 * rows) takes
+    scratch, one column per target residue; the pairs are split where a
+    launch's scratch would pass `budget` bytes (a lone pair may exceed
+    it)."""
     n = jobs.shape[1]
     table = np.empty((7, n), dtype=np.int64)
     table[:5] = jobs
@@ -234,65 +224,38 @@ def _check(tokens, qbias, tables, jobs, gap_open, gap_extend):
         raise ValueError("the SW kernels need gap_open >= gap_extend")
 
 
-def _launch(fn, name: str, resident: list, jobs: np.ndarray, gap_open: int,
-            gap_extend: int, reverse: bool) -> tuple[torch.Tensor, int]:
-    """Launch the thread-per-pair kernel `fn` over scratch-bounded chunks
-    of the pairs; returns the (6, n) result and the launch count."""
-    dev = resident[0].device
-    n = jobs.shape[1]
-    out = torch.empty((6, n), dtype=torch.int32, device=dev)
-    if n == 0:
-        return out, 0
-    jobs_np = np.ascontiguousarray(jobs)
-    jobs_d = torch.from_numpy(jobs_np).to(dev, non_blocking=False)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in resident]
-    cell = 16 if reverse else 8
-    chunks = scratch_chunks(jobs_np[3], cell)
-    for s, e in chunks:
-        mt = max(int(jobs_np[3, s:e].max()), 1)
-        scratch = torch.empty((e - s) * mt * cell, dtype=torch.uint8,
-                              device=dev)
-        rc = fn(*args, jobs_d.data_ptr() + 8 * s, n, e - s,
-                int(gap_open), int(gap_extend), scratch.data_ptr(),
-                out.data_ptr() + 4 * s, n, stream)
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return out, len(chunks)
-
-
-def _launch_warp(reverse: bool, qdata, qbias, tdata, sub, plan: tuple,
+def _launch_warp(reverse: bool, resident: tuple, plan: tuple,
                  gap_open: int, gap_extend: int) -> torch.Tensor:
-    """Launch the warp-per-pair kernel of the direction over a warp_plan
-    of the jobs (its table and launches), counting the launches; returns
-    the (6, n) result."""
-    global FORWARD_LAUNCHES, REVERSE_LAUNCHES
-    name = "sw_reverse" if reverse else "sw_forward"
+    """Launch the kernel of the direction over a warp_plan of the jobs
+    (its table and launches), counting the launches; returns the (6, n)
+    result.  resident: a wrapper's leading tensors, (qdata, qbias, tdata,
+    sub) or the seven of structure mode, which picks the entry point."""
+    name, counter = ENTRY[reverse, len(resident) == 7]
     fn = getattr(load(), name)
     table, launches = plan
-    dev = qdata.device
+    dev = resident[0].device
     n = table.shape[1]
     out = torch.empty((6, n), dtype=torch.int32, device=dev)
     if n == 0:
         return out
+    # the C interface takes a table as its pointer and its alphabet size
+    args = []
+    for a in resident:
+        args.append(a.data_ptr())
+        if a.dim() == 2:
+            args.append(int(a.shape[0]))
     cell = WARP_SCRATCH[reverse]
     table_d = torch.from_numpy(table).to(dev, non_blocking=False)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for s, e, cols in launches:
         scratch = torch.empty(max(cols, 1) * cell, dtype=torch.uint8,
                               device=dev)
-        rc = fn(qdata.data_ptr(), qbias.data_ptr(), tdata.data_ptr(),
-                sub.data_ptr(), int(sub.shape[0]),
-                table_d.data_ptr() + 8 * s, n, e - s, int(gap_open),
+        rc = fn(*args, table_d.data_ptr() + 8 * s, n, e - s, int(gap_open),
                 int(gap_extend), scratch.data_ptr(), out.data_ptr() + 4 * s,
                 n, stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-        if reverse:
-            REVERSE_LAUNCHES += 1
-        else:
-            FORWARD_LAUNCHES += 1
+        globals()[counter] += 1
     return out
 
 
@@ -310,7 +273,7 @@ def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
     if _device_of(qdata).type == "cpu":
         return sw_jobs_ref(qdata, qbias, tdata, sub, jobs, gap_open,
                            gap_extend, reverse)
-    return _launch_warp(reverse, qdata, qbias, tdata, sub,
+    return _launch_warp(reverse, (qdata, qbias, tdata, sub),
                         warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
                         gap_extend)
 
@@ -318,23 +281,14 @@ def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
 def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
                 jobs: np.ndarray, gap_open: int, gap_extend: int
                 ) -> torch.Tensor:
-    global FORWARD_STRUCT_LAUNCHES, REVERSE_STRUCT_LAUNCHES
     _check((("3Di", qss, tss), ("amino acids", qaa, taa)), qbias,
            (("m3di", m3di), ("aasc", aasc)), jobs, gap_open, gap_extend)
     if _device_of(qss).type == "cpu":
         return sw_struct_jobs_ref(qss, qaa, qbias, tss, taa, m3di, aasc,
                                   jobs, gap_open, gap_extend, reverse)
-    lib = load()
-    name = "sw_reverse_struct" if reverse else "sw_forward_struct"
-    out, k = _launch(getattr(lib, name), name,
-                     [qss, qaa, qbias, tss, taa, m3di, int(m3di.shape[0]),
-                      aasc, int(aasc.shape[0])], jobs,
-                     gap_open, gap_extend, reverse)
-    if reverse:
-        REVERSE_STRUCT_LAUNCHES += k
-    else:
-        FORWARD_STRUCT_LAUNCHES += k
-    return out
+    return _launch_warp(reverse, (qss, qaa, qbias, tss, taa, m3di, aasc),
+                        warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
+                        gap_extend)
 
 
 def sw_forward(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,

@@ -5,12 +5,12 @@ The query tokens, their int8 composition bias and the target tokens are
 copied to the device once, unpadded, and addressed by int64 element
 offsets.  Forward and reverse jobs are buffered per direction and
 dispatched as one stage once DISPATCH_PAIRS pairs are waiting (or at
-flush()): the stage's pairs are sorted by cell count (longest first for
-the sequence kernels, where a warp owns a pair and a launch should end
-on its short pairs), packed into one (5, n) int64 job array (qoff, qlen,
-toff, tlen, terminate) that the wrapper copies to the device once, and
-scored by the `ops/sw_cuda.py` kernels on the current stream (the plain
-version for CPU tensors).
+flush()): the stage's pairs are sorted by cell count, longest first (a
+warp owns a pair and blocks start in order, so a launch ends on its
+short pairs), packed into one (5, n) int64 job array (qoff, qlen, toff,
+tlen, terminate) that the wrapper copies to the device once, and scored
+by the `ops/sw_cuda.py` kernels on the current stream (the plain version
+for CPU tensors).
 Results stay on the device until collect(), which fetches every pending
 stage with one device-to-host copy.
 
@@ -29,8 +29,8 @@ import torch
 
 from . import sw_cuda
 
-# pairs per dispatched stage: enough to fill the card, at a warp per pair
-# (sequence) as at a thread per pair (structure)
+# pairs per dispatched stage: enough to fill the card at a warp per pair
+# (132 SMs x 12-16 warps) many times over, so that a stage's tail is short
 DISPATCH_PAIRS = 1 << 16
 
 
@@ -60,13 +60,8 @@ class DeviceAlignDB:
     live and the SW runs (a CUDA device runs the kernels, the CPU the
     plain version)."""
 
-    # per direction (reverse?): the ops/sw_cuda.py wrapper and its launch
-    # counter, looked up at dispatch
-    KERNELS = {False: ("sw_forward", "FORWARD_LAUNCHES"),
-               True: ("sw_reverse", "REVERSE_LAUNCHES")}
-    # a warp owns a pair and blocks start in order: the longest pairs
-    # first, so that a launch ends on short ones
-    LONGEST_FIRST = True
+    # which of sw_cuda.ENTRY's wrappers score a stage
+    STRUCT = False
 
     def __init__(self, qdata: np.ndarray, qbias: np.ndarray,
                  tdata: np.ndarray, sub: np.ndarray,
@@ -122,15 +117,15 @@ class DeviceAlignDB:
         t0 = time.perf_counter()
         jobs = np.stack([c.astype(np.int64) for c in cols[:5]])
         cells = jobs[1] * jobs[3]
-        order = np.argsort(-cells if self.LONGEST_FIRST else cells,
-                           kind="stable")
+        order = np.argsort(-cells, kind="stable")
         jobs = np.ascontiguousarray(jobs[:, order])
         timed = self.device.type == "cuda"
         if timed:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-        fn_name, counter = self.KERNELS[reverse]
+        # the wrapper and its launch counter, looked up at dispatch
+        fn_name, counter = sw_cuda.ENTRY[reverse, self.STRUCT]
         before = getattr(sw_cuda, counter)
         out = getattr(sw_cuda, fn_name)(*self._resident(), jobs, gap_open,
                                         gap_extend)
@@ -176,11 +171,7 @@ class StructureDeviceDB(DeviceAlignDB):
     targets (same offsets), qbias the int8 3Di composition bias, m3di and
     aasc the (21, 21) tables of the two score channels."""
 
-    KERNELS = {False: ("sw_forward_struct", "FORWARD_STRUCT_LAUNCHES"),
-               True: ("sw_reverse_struct", "REVERSE_STRUCT_LAUNCHES")}
-    # a thread owns a pair: ascending, so a warp's pairs carry similar work
-    # and a launch's scratch chunks (n x max tlen) stay tight
-    LONGEST_FIRST = False
+    STRUCT = True
 
     def __init__(self, qss: np.ndarray, qaa: np.ndarray, qbias: np.ndarray,
                  tss: np.ndarray, taa: np.ndarray, m3di: np.ndarray,

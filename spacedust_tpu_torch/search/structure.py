@@ -24,6 +24,7 @@ approximation.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -215,13 +216,17 @@ def structure_search(query_db: SetDB, target_db: SetDB,
                      ) -> dict[int, list[AlnRecord]]:
     """3Di k-mer prefilter + combined-alphabet gapped alignment; the SW
     passes run on `device`.  `metrics`, if given, receives the SW
-    engine's metrics (StructureDeviceDB.metrics)."""
+    engine's metrics (StructureDeviceDB.metrics) and the host-clock
+    seconds of the three steps: index_s (the 3Di k-mer index), prefilter_s
+    (match_all) and align_all_s (the alignment engine: SW passes,
+    tracebacks and records)."""
     par = params or StructureSearchParams()
     if same_qt_db is None:
         same_qt_db = query_db is target_db
     q_ss = query_db.ss_view()
     t_ss = target_db.ss_view() if target_db is not query_db else q_ss
 
+    t0 = time.perf_counter()
     pref = PrefilterEngine(q_ss, t_ss, sensitivity=par.sensitivity,
                            max_seqs=par.max_seqs, same_qt_db=same_qt_db,
                            comp_bias_correction=par.comp_bias_correction,
@@ -230,8 +235,10 @@ def structure_search(query_db: SetDB, target_db: SetDB,
                            seed_matrix_name="mat3di_bf8_bias",
                            ungapped_matrix_name="mat3di",
                            kmer_thr=par.kmer_thr_3di)
+    t1 = time.perf_counter()
     cands = {qk: [h.seq_id for h in hits]
              for qk, hits in pref.match_all().items()}
+    t2 = time.perf_counter()
 
     aln_par = AlignmentParams(gap_open=par.gap_open,
                               gap_extend=par.gap_extend,
@@ -244,4 +251,6 @@ def structure_search(query_db: SetDB, target_db: SetDB,
     out = eng.align_all(cands)
     if metrics is not None:
         metrics.update(eng._device_db().metrics)
+        metrics.update(index_s=t1 - t0, prefilter_s=t2 - t1,
+                       align_all_s=time.perf_counter() - t2)
     return out

@@ -10,6 +10,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -191,7 +192,14 @@ def test_flatdb_ingest_matches_jax(struct_set):
 
 def test_structure_search_matches_jax(subsets):
     db, jdb = subsets
-    got = structure_search(db, db, device="cpu")
+    metrics: dict = {}
+    t0 = time.perf_counter()
+    got = structure_search(db, db, device="cpu", metrics=metrics)
+    elapsed = time.perf_counter() - t0
+    # the host clock of the three steps, beside the SW engine's metrics
+    split = [metrics[k] for k in ("index_s", "prefilter_s", "align_all_s")]
+    assert min(split) > 0 and sum(split) <= elapsed
+    assert metrics["fwd_pairs"] > 0
     ref = jax_structure(jdb, jdb)
     assert list(got) == list(ref)
     n = 0

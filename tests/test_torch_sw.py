@@ -15,8 +15,10 @@ from spacedust_tpu.ops.sw_engine import DeviceAlignDB as JaxDeviceAlignDB
 from spacedust_tpu.ops.sw_pallas import score_grid, sw_scan_pallas
 from spacedust_tpu.ops.sw_tiled import sw_scan_core
 from spacedust_tpu_torch.ops.sw import (gather_panels, make_profile,
-                                        sw_jobs_ref, sw_scan_ref)
+                                        sw_jobs_ref, sw_scan_ref,
+                                        sw_struct_jobs_ref)
 from spacedust_tpu_torch.ops.sw_engine import DeviceAlignDB
+from spacedust_tpu_torch.search.structure import combined_matrices
 from spacedust_tpu_torch.stats.submat import load_substitution_matrix
 
 GO, GE = 11, 1
@@ -221,34 +223,20 @@ def test_wrapper_cpu_takes_plain_version_and_checks_jobs():
         sw_cuda.sw_forward(Q, QB, T, S, jobs, 1, 2)     # go < ge
 
 
-@pytest.mark.parametrize("cell", [8, 16])
-def test_scratch_chunks_cover_and_bound(cell):
-    """The launch split of a stage: contiguous, covering, and within the
-    scratch budget except for a lone pair that alone exceeds it."""
-    from spacedust_tpu_torch.ops.sw_cuda import scratch_chunks
-    rng = np.random.default_rng(cell)
-    tlen = np.sort(rng.integers(1, 3000, 5000))
-    tlen[-1] = 50_000
-    budget = 1 << 22
-    chunks = scratch_chunks(tlen, cell, budget)
-    assert chunks[0][0] == 0 and chunks[-1][1] == len(tlen)
-    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
-    for s, e in chunks:
-        assert e > s
-        assert (e - s) * tlen[s:e].max() * cell <= budget or e - s == 1
-    assert len(chunks) > 10
-
-
 # ---------------------------------------------------------------------
-# The lane schedule of the warp-per-pair CUDA body (csrc/sw.cu::
-# sw_warp_kernel), modelled in numpy: 32 lanes x R rows, the step loop
+# The lane schedule of the CUDA body (csrc/sw.cu::sw_warp_pair, all four
+# kernels), modelled in numpy: 32 lanes x R rows, the step loop
 # j = s - lane, shuffles as array shifts, the chunk feed of lane 0, the
 # in-place strip boundary, the per-lane forward trackers and their merge,
 # the reverse column-max hand-down.  The kernel is written from it; here
 # it is held against sw_scan_ref.  Nothing here runs the CUDA body: model
-# and kernel meet only on the card (chip_smoke.py --phases kernels, on the
-# same edge_batch).  FAULTS are mistakes planted in the model, one at a
-# time, each of which edge_batch must expose.
+# and kernel meet only on the card (chip_smoke.py --phases kernels,
+# kernels-struct, on the same edge_batch / edge_batch_struct).  FAULTS are
+# mistakes planted in the model, one at a time, each of which the edge
+# batches must expose.  The structure kernels differ in the cell score
+# and in what travels as the target token: both channels' tokens packed
+# into one value, which the model hands down and takes apart as they do
+# (`tokens`, `_struct_cell`).
 LANES = 32
 NEG = -(1 << 30)
 
@@ -271,12 +259,21 @@ FAULTS = {
 }
 
 
-def lane_model(S, go, ge, term, R, reverse, fault=None):
+def lane_model(S, go, ge, term, R, reverse, fault=None, tokens=None):
     """One pair.  S: (qlen, tlen) cell scores, already flipped for the
     reverse pass.  Returns (score, t_end, q_end, found, fj, fi).  fault:
-    one of FAULTS, planted."""
+    one of FAULTS, planted.  tokens: the value that travels down the
+    lanes for each target column (default: the column's index); when
+    given, S is (qlen, a function of (rows, tokens) -> cell scores)."""
     assert fault is None or fault in FAULTS
-    qlen, tlen = S.shape
+    if tokens is None:
+        qlen, tlen = S.shape
+        tokens = np.arange(tlen)
+
+        def cell(srow, tok):
+            return S[srow, tok[:, None]]
+    else:
+        (qlen, cell), tlen = S, len(tokens)
     lane = np.arange(LANES)
     strip = LANES * R
     lb, lj, li = (np.zeros(LANES, np.int64), np.full(LANES, -1),
@@ -300,7 +297,8 @@ def lane_model(S, go, ge, term, R, reverse, fault=None):
         def load_chunk(c0):
             cols = c0 + lane
             ok = cols < tlen
-            tok = np.where(ok, cols, -7)         # a token past tlen is junk
+            # a token past tlen is junk
+            tok = np.where(ok, tokens[np.minimum(cols, tlen - 1)], -7)
             b = np.tile(np.array([0, NEG, -1, 0]), (LANES, 1))
             if not first:
                 b[ok] = bnd[cols[ok]]
@@ -323,8 +321,9 @@ def lane_model(S, go, ge, term, R, reverse, fault=None):
             cin, ciin = _shfl_up(c_o, cb[k, 2]), _shfl_up(ci_o, cb[k, 3])
             j = s - lane
             act = (j >= 0) & (j < tlen)
-            assert (col[act] == j[act]).all()    # the token travelled right
-            sc = S[srow, np.where(act, col, 0)[:, None]]
+            # the token travelled right
+            assert (col[act] == tokens[j[act]]).all()
+            sc = cell(srow, np.where(act, col, tokens[0]))
             F, diag = fin.copy(), diag_up.copy()
             cmax, ci = cin.copy(), ciin.copy()
             newH, newE = H.copy(), E.copy()
@@ -525,11 +524,187 @@ def test_edge_batch_exposes_planted_fault(R, fault):
     assert (got != want).any()
 
 
+# --- the structure kernels on the same schedule ------------------------
+STRUCT_GO = 10
+
+
+def _struct_tables():
+    m3di, aasc, _ = combined_matrices()
+    return m3di.astype(np.int8), aasc.astype(np.int8)
+
+
+def _struct_cell(arrays, tables, job, reverse):
+    """(qlen, cell function) and the packed target tokens of one job, as
+    the structure kernels form them: a column's tokens travel as
+    t_ss | t_aa << 8, and a cell scores int8(m3di[q_ss][t_ss] + bias) +
+    int8(aasc[q_aa][t_aa]) from the two halves."""
+    qss, qaa, qb, tss, taa = arrays
+    m3di, aasc = tables
+    qoff, qlen, toff, tlen = (int(x) for x in job[:4])
+    qs, qa, bb = (a[qoff:qoff + qlen].astype(np.int64)
+                  for a in (qss, qaa, qb))
+    ts, ta = (a[toff:toff + tlen].astype(np.int64) for a in (tss, taa))
+    if reverse:
+        qs, qa, bb, ts, ta = (a[::-1] for a in (qs, qa, bb, ts, ta))
+
+    def cell(srow, tok):
+        t_ss, t_aa = (tok & 0xff)[:, None], (tok >> 8)[:, None]
+        ch1 = (m3di[qs[srow], t_ss] + bb[srow]).astype(np.int8)
+        return ch1.astype(np.int64) + aasc[qa[srow], t_aa]
+
+    return (qlen, cell), ts | ta << 8
+
+
+def _struct_model_jobs(arrays, tables, jobs, R, reverse, fault=None):
+    out = []
+    for p in range(jobs.shape[1]):
+        S, tokens = _struct_cell(arrays, tables, jobs[:, p], reverse)
+        out.append(lane_model(S, STRUCT_GO, GE, int(jobs[4, p]), R, reverse,
+                              fault, tokens))
+    return np.array(out).T
+
+
+def _struct_plain_jobs(arrays, tables, jobs, reverse):
+    qss, qaa, qb, tss, taa = (torch.from_numpy(a) for a in arrays)
+    m3di, aasc = (torch.from_numpy(m) for m in tables)
+    return sw_struct_jobs_ref(qss, qaa, qb, tss, taa, m3di, aasc, jobs,
+                              STRUCT_GO, GE, reverse).numpy()
+
+
+def _struct_resident(seed: int, n: int, max_len: int):
+    """Two-channel resident arrays: the 3Di channel of _resident, amino
+    acids of their own that follow the planted 3Di homologs in part, a
+    zero-score pair and a pair whose 3Di bias wraps int8."""
+    q, qb, t, qoffs, qlens, toffs, tlens = _resident(seed, n, max_len)
+    rng = np.random.default_rng(seed + 1)
+    qaa = rng.integers(0, 21, len(q)).astype(np.uint8)
+    taa = rng.integers(0, 21, len(t)).astype(np.uint8)
+    for p in range(4, n, 2):
+        m = min(qlens[p], tlens[p])
+        keep = rng.integers(0, 100, m) < 40
+        taa[toffs[p]:toffs[p] + m][keep] = qaa[qoffs[p]:qoffs[p] + m][keep]
+    qb[qoffs[5]:qoffs[6]] = -100                  # a zero-score pair
+    qb[qoffs[6]:qoffs[7]] = rng.integers(-128, 128, qlens[6])   # wraps
+    jobs = np.stack([qoffs[:-1], qlens, toffs[:-1], tlens,
+                     np.full(n, -1)]).astype(np.int64)
+    return [q, qaa, qb, t, taa], jobs
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("R", ROWS)
+def test_struct_lane_model_matches_plain_ragged(R, reverse):
+    """Seeded ragged two-channel pairs through the lane model with the
+    structure kernels' cell and packed tokens, at every class they can
+    pick, against sw_struct_jobs_ref."""
+    arrays, jobs = _struct_resident(40 + R, 14, 70 * R)
+    tables = _struct_tables()
+    fwd = _struct_plain_jobs(arrays, tables, jobs, False)
+    if reverse:
+        keep = np.nonzero(fwd[0] > 0)[0]
+        jobs = np.stack([jobs[0, keep], fwd[2, keep] + 1, jobs[2, keep],
+                         fwd[1, keep] + 1, fwd[0, keep]]).astype(np.int64)
+        want = _struct_plain_jobs(arrays, tables, jobs, True)
+        assert want[3].all() and len(keep) >= 6
+    else:
+        want = fwd
+        assert (fwd[0] == 0).any() and (jobs[1] > 32 * R).any()
+    got = _struct_model_jobs(arrays, tables, jobs, R, reverse)
+    n_out = 6 if reverse else 3
+    np.testing.assert_array_equal(got[:n_out], want[:n_out])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("R", ROWS)
+def test_struct_lane_model_matches_plain_edges(R, reverse):
+    """The smoke run's two-channel boundary shapes and ties
+    (chip_smoke.py::edge_batch_struct), as
+    test_lane_model_matches_scan_ref_edges: the ties planted on the
+    summed score come out of the plain version where the design puts
+    them, and the model agrees on every pair."""
+    smoke = _chip_smoke()
+    tables = _struct_tables()
+    arrays, jobs, expect = smoke.edge_batch_struct(R, *tables)
+    assert (arrays[0] != arrays[1]).any() and arrays[1].max() == 20
+    fwd = _struct_plain_jobs(arrays, tables, jobs, False)
+    for p, want in expect.items():
+        assert tuple(fwd[:3, p]) == want, (p, fwd[:3, p], want)
+    if not reverse:
+        got = _struct_model_jobs(arrays, tables, jobs, R, False)
+        np.testing.assert_array_equal(got[:3], fwd[:3])
+        return
+    whole = jobs.copy()
+    whole[4] = fwd[0]
+    derived = smoke.reverse_jobs(jobs, fwd)
+    multi = derived[1] > 32 * R
+    assert multi.sum() >= 4
+    for js in (whole, derived):
+        want = _struct_plain_jobs(arrays, tables, js, True)
+        got = _struct_model_jobs(arrays, tables, js, R, True)
+        np.testing.assert_array_equal(got, want)
+    assert want[3].all()
+    assert (want[5][multi] < 32 * R).any()
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("R", ROWS)
+def test_struct_edge_batch_exposes_planted_fault(R, fault):
+    """edge_batch_struct tells the two-channel lane model with one fault
+    planted from the plain version, at every class."""
+    smoke = _chip_smoke()
+    tables = _struct_tables()
+    arrays, jobs, expect = smoke.edge_batch_struct(R, *tables)
+    planted = jobs[:, sorted(expect)]
+    fwd = _struct_plain_jobs(arrays, tables, planted, False)
+    if fault not in ("later_row_takes_tie", "strip_cmax_lost"):
+        got = _struct_model_jobs(arrays, tables, planted, R, False, fault)
+        assert (got[:3] != fwd[:3]).any()
+        return
+    whole = planted.copy()
+    whole[4] = fwd[0]
+    js = np.concatenate([whole, smoke.reverse_jobs(planted, fwd)], axis=1)
+    want = _struct_plain_jobs(arrays, tables, js, True)
+    got = _struct_model_jobs(arrays, tables, js, R, True, fault)
+    assert (got != want).any()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_struct_packed_tokens_at_alphabet_ends(reverse):
+    """Tokens 0 and 20 only, in both channels and on both sides: the
+    packed hand-down keeps the halves apart (20 << 8 | 0, 0 << 8 | 20,
+    ...), over more than one strip."""
+    rng = np.random.default_rng(77)
+    n, R = 6, 4
+    qlens = rng.integers(100, 300, n)
+    tlens = rng.integers(40, 120, n)
+    qoffs = np.concatenate(([0], np.cumsum(qlens)))
+    toffs = np.concatenate(([0], np.cumsum(tlens)))
+    qss, qaa = (rng.choice([0, 20], qoffs[-1]).astype(np.uint8)
+                for _ in range(2))
+    tss, taa = (rng.choice([0, 20], toffs[-1]).astype(np.uint8)
+                for _ in range(2))
+    arrays = [qss, qaa, rng.integers(-3, 4, qoffs[-1]).astype(np.int8),
+              tss, taa]
+    tables = _struct_tables()
+    jobs = np.stack([qoffs[:-1], qlens, toffs[:-1], tlens,
+                     np.full(n, -1)]).astype(np.int64)
+    packed = {int(v) for p in range(n) for v in _struct_cell(
+        arrays, tables, jobs[:, p], False)[1]}
+    assert packed == {0, 20, 20 << 8, 20 << 8 | 20}
+    fwd = _struct_plain_jobs(arrays, tables, jobs, False)
+    assert (fwd[0] > 0).all() and (qlens > 32 * R).any()
+    if reverse:
+        jobs[4] = fwd[0]
+    want = _struct_plain_jobs(arrays, tables, jobs, reverse)
+    got = _struct_model_jobs(arrays, tables, jobs, R, reverse)
+    n_out = 6 if reverse else 3
+    np.testing.assert_array_equal(got[:n_out], want[:n_out])
+
+
 @pytest.mark.parametrize("cell", [8, 16])
 def test_warp_plan_covers_and_bounds(cell):
-    """The sequence kernels' launches: the caller's order, a class per
-    pair, scratch only for multi-strip pairs, disjoint within a launch
-    and within the budget except for a lone pair that alone exceeds it."""
+    """The kernels' launches: the caller's order, a class per pair,
+    scratch only for multi-strip pairs, disjoint within a launch and
+    within the budget except for a lone pair that alone exceeds it."""
     from spacedust_tpu_torch.ops.sw_cuda import lane_rows, warp_plan
     rng = np.random.default_rng(cell)
     n = 4000
@@ -562,8 +737,7 @@ def test_warp_plan_covers_and_bounds(cell):
 
 
 def test_dispatch_order_per_engine():
-    """The sequence engine hands a stage to its kernels longest pair
-    first; the structure engine keeps ascending order."""
+    """Both engines hand a stage to their kernels longest pair first."""
     from spacedust_tpu_torch.ops import sw_cuda
     from spacedust_tpu_torch.ops.sw_engine import StructureDeviceDB
     q, qb, t, qoffs, qlens, toffs, tlens = _resident(6, 30, 90)
@@ -590,7 +764,6 @@ def test_dispatch_order_per_engine():
     finally:
         for n, fn in saved.items():
             setattr(sw_cuda, n, fn)
-    cells = seen["sw_forward"][1] * seen["sw_forward"][3]
-    assert (np.diff(cells) <= 0).all() and cells[0] > cells[-1]
-    cells = seen["sw_forward_struct"][1] * seen["sw_forward_struct"][3]
-    assert (np.diff(cells) >= 0).all() and cells[0] < cells[-1]
+    for name in saved:
+        cells = seen[name][1] * seen[name][3]
+        assert (np.diff(cells) <= 0).all() and cells[0] > cells[-1]
