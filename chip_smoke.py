@@ -56,14 +56,39 @@ the kernels line, the card and the result.
                 E < 1e-10, and the set of the size that
                 tests/fixtures/torch_port_struct_real.json names must give
                 its hit / cluster counts and sha256;
-  9. timing  -- each kernel against its plain version on the largest stage
+  9. toolkit -- the alignment controls and the module toolkit.  The
+                kernels over explicit targets: sw_forward / sw_reverse on a
+                seeded batch whose targets are masked copies in an array of
+                their own (X runs at the start, in the middle, up to the
+                last column but one, and whole targets), all six outputs
+                equal to the plain version.  Then, through the CLI on the
+                small set and the repeat set (homologs with tandem copies
+                of a segment): `search` with --alt-ali 2 --max-accept 3
+                --max-rejected 2 and with --alt-ali 2 alone,
+                `convertalignments`, and besthitbyset -> mergeresultsbyset
+                -> combinehits -> clusterhits -> summarizeresults over a
+                search with clustersearch's flags; every file must equal its
+                JAX-recorded fixture (tests/fixtures/torch_port_SET_*) byte
+                for byte and the chain's last file clustersearch's TSV.
+                Last, `search --alt-ali 2` on the real-size set with the
+                repeat set's genes beside it in one setDB (6,020 genes),
+                counters reset just before and read just after: without its
+                alternative records the result must be that of `search`
+                alone, line for line; every alternative record passes the
+                E-value gate and lies off the masked ranges of its parent
+                and of the records before it in its chain; at least ten
+                exist; and the masked rounds cost at most 2 launches a
+                direction beyond the main pass;
+ 10. timing  -- each kernel against its plain version on the largest stage
                 the real runs dispatched, with the main path's own resident
-                tensors: equal outputs, milliseconds and GCUPS, beside the
-                least time the card could take for the stage (bound_ms:
-                the larger of its bytes over the memory rate and its
-                integer instructions over the int32 instruction rate).
-                For each stage also the longest pair alone and what the
-                classes of query rows per lane buy.
+                tensors: equal outputs, milliseconds (the launches alone, by
+                the events the wrapper records round them, and the wrapper's
+                whole call with its host planning and job table copy) and
+                GCUPS, beside the least time the card could take for the
+                stage (bound_ms: the larger of its bytes over the memory
+                rate and its integer instructions over the int32
+                instruction rate).  For each stage also the longest pair
+                alone and what the classes of query rows per lane buy.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object {"kernels": [...]}; the last line is
@@ -73,7 +98,9 @@ before it a JSON object {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -91,7 +118,8 @@ TOL = 0                 # integer DP: kernel and plain version agree exactly
 STRUCT_GO = 10          # foldseek's gap costs in structure mode
 STRUCT_REPLACES = "spacedust_tpu/ops/sw_engine.py:608"
 PHASES = ("kernels", "kernels-struct", "small", "real", "struct-small",
-          "struct-real", "timing")
+          "struct-real", "toolkit", "timing")
+ALT_ALI = 2             # --alt-ali of the toolkit phase
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM, and
 # 67 TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x
 # 2 (FMA) x 1.98 GHz.  An SM runs int32 on 64 lanes, one operation an
@@ -585,11 +613,11 @@ def recording(stages: dict, dirs: tuple):
     saved = {d: getattr(sw_cuda, KERNELS[d][0]) for d in dirs}
 
     def recorded(d, fn):
-        def call(*args):
+        def call(*args, **kw):
             if (d not in stages
                     or args[-3].shape[1] > stages[d][-3].shape[1]):
                 stages[d] = args
-            return fn(*args)
+            return fn(*args, **kw)
         return call
 
     for d, fn in saved.items():
@@ -774,6 +802,199 @@ def struct_real(work: Path, dev: torch.device) -> tuple[dict, dict]:
           f".json")
     return launches, stages
 
+# ------------------------------------------------------------- 9. toolkit
+def check_masked_targets(sub: torch.Tensor, errs: dict) -> None:
+    """sw_forward / sw_reverse over explicit targets: the seeded ragged
+    pairs of kernel_batch, each against a masked copy of its target that
+    lies in a second array (in reverse pair order, so no offset is the
+    resident one), with the resident queries."""
+    from spacedust_tpu_torch.constants import X_INDEX
+    from spacedust_tpu_torch.ops import sw_cuda
+    q, b, t, jobs = kernel_batch()
+    jobs = jobs[:, :2000].copy()             # without the two giant pairs
+    resident_toff = jobs[2].copy()
+    copies = []
+    for p in range(jobs.shape[1]):
+        toff, tl = int(jobs[2, p]), int(jobs[3, p])
+        c = t[toff:toff + tl].copy()
+        k = max(tl // 3, 1)
+        lo, hi = ((0, k), (tl // 3, tl // 3 + k), (max(tl - 1 - k, 0), tl - 1),
+                  (0, tl))[p % 4]
+        c[lo:hi] = X_INDEX
+        copies.append(c)
+    order = np.arange(jobs.shape[1])[::-1]
+    lens = jobs[3, order]
+    jobs[2, order] = np.cumsum(lens) - lens
+    tm = np.concatenate([copies[p] for p in order])
+    n_x = int((tm == X_INDEX).sum())
+    if n_x < len(tm) // 4 or (jobs[2] == resident_toff).sum() > 1:
+        fail("the masked target array lost its shape")
+    res = [torch.from_numpy(a).to(sub.device) for a in (q, b, tm)] + [sub]
+    fwd = None
+    for d in ("fwd", "rev"):
+        js = jobs if fwd is None else reverse_jobs(jobs, fwd)
+        got = getattr(sw_cuda, KERNELS[d][0])(*res, js, GO, GE)
+        ref = plain(d)(*res, js, GO, GE)
+        errs[d] = max(errs[d], compare(f"toolkit masked targets {d}", got,
+                                       ref))
+        out = got.cpu().numpy()
+        if fwd is None:
+            fwd = out
+        elif not out[3].all():
+            fail("toolkit: a reverse job over masked targets missed its "
+                 "terminate score")
+        print(f"[toolkit] {d} over explicit masked targets: {js.shape[1]} "
+              f"pairs, {cells(js) / 1e6:.1f} M cells, {n_x} of {len(tm)} "
+              f"target residues masked, all six outputs equal")
+    if int((fwd[0] > 0).sum()) < 500:
+        fail("toolkit: too few masked pairs score above 0")
+
+
+def run_cli(argv: list) -> str:
+    """cli.main(argv), fatal on a non-zero return; returns what it
+    printed (and prints it)."""
+    from spacedust_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    print(buf.getvalue(), end="")
+    if rc != 0:
+        fail(f"{' '.join(argv[:1])} failed: {argv}")
+    return buf.getvalue()
+
+
+def toolkit_set(work: Path, size: str) -> None:
+    """Every command of the toolkit on a recorded set, each file held
+    against its fixture, and the chain against clustersearch."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.workflow.modules import toolkit_commands
+    t0 = time.perf_counter()
+    fa = synth.write_genome_set(work / f"tk_{size}", size)
+    db, out = str(work / f"tk_{size}_db"), work / f"tk_{size}_out"
+    out.mkdir()
+    run_cli(["createsetdb", *map(str, fa), db])
+    before = read_counts()
+    for name, argv in toolkit_commands(db, out):
+        run_cli(argv + (["--device", "cuda"] if argv[0] == "search" else []))
+        fixture = ROOT / "tests" / "fixtures" / f"torch_port_{size}_{name}"
+        if (out / name).read_bytes() != fixture.read_bytes():
+            fail(f"toolkit {size}: {argv[0]} wrote a {name} that differs "
+                 f"from {fixture.name}")
+    launched = {d: n - before[d] for d, n in read_counts().items()}
+    tsv = out / "clustersearch.tsv"
+    run_cli(["clustersearch", db, db, str(tsv), "--filter-self-match",
+             "--device", "cuda"])
+    if tsv.read_bytes() != (out / "chain_result.tsv").read_bytes():
+        fail(f"toolkit {size}: the chain's result differs from "
+             f"clustersearch's TSV")
+    print(f"[toolkit] {size}: 9 files equal to the JAX fixtures, the chain "
+          f"equal to clustersearch ({counts(tsv.read_text())[0]} hits); "
+          f"launches of the three searches {launched} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def toolkit_real(work: Path) -> dict:
+    """`search --alt-ali 2` at real size, held to its invariants; returns
+    the launch counts of that run."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.ops import sw_cuda
+    fa = (synth.write_genome_set(work / "tk_real", "real")
+          + synth.write_genome_set(work / "tk_real_repeats", "repeats"))
+    db = str(work / "tk_real_db")
+    run_cli(["createsetdb", *map(str, fa), db])
+    runs = {}
+    for tag, flags in (("base", []), ("alt", ["--alt-ali", str(ALT_ALI)])):
+        out = work / f"tk_real_{tag}.tsv"
+        sw_cuda.reset_counts()
+        t0 = time.perf_counter()
+        text = run_cli(["search", db, db, str(out), *flags, "--device",
+                        "cuda"])
+        torch.cuda.synchronize()
+        detail = next(json.loads(ln.split("detail: ", 1)[1])
+                      for ln in text.splitlines() if "detail: " in ln)
+        runs[tag] = (out.read_text().splitlines(), read_counts(), detail,
+                     time.perf_counter() - t0)
+    base, base_launches, _, t_base = runs["base"]
+    lines, launches, detail, t_alt = runs["alt"]
+
+    # without its alternative records the result is the plain search's
+    left = collections.Counter(base)
+    kept, alts = [], []
+    for ln in lines:
+        if left[ln] > 0:
+            left[ln] -= 1
+            kept.append(ln)
+        else:
+            alts.append(ln)
+    if kept != base:
+        fail("toolkit real: --alt-ali changed or reordered the records of "
+             "the search without it")
+    if len(alts) < 10:
+        fail(f"toolkit real: only {len(alts)} alternative records")
+    # each chain: the parent first (it is in the plain search), then the
+    # alternative records; a record lies off every range masked before it
+    by_pair = collections.defaultdict(list)
+    for ln in base:
+        c = ln.split("\t")
+        by_pair[c[0], c[1]].append((int(c[8]), int(c[9])))
+    chain_len = collections.Counter()
+    for ln in alts:
+        c = ln.split("\t")
+        key, evalue = (c[0], c[1]), float(c[4])
+        tstart, tend = int(c[8]), int(c[9])
+        if key not in by_pair or c[0] == c[1]:
+            fail(f"toolkit real: alternative record without a parent: {ln}")
+        if not evalue <= 1e-3:
+            fail(f"toolkit real: alternative record past the E-value gate: "
+                 f"{ln}")
+        for lo, hi in by_pair[key]:
+            if tstart < hi and tend >= lo:
+                fail(f"toolkit real: alternative record {ln} overlaps the "
+                     f"masked range [{lo}, {hi})")
+        chain_len[key] += 1
+    for key, n in chain_len.items():
+        if n > ALT_ALI:
+            fail(f"toolkit real: {n} alternative records for {key}")
+        # the records of a chain lie off one another as well
+        spans = sorted((int(c[8]), int(c[9])) for c in
+                       (ln.split("\t") for ln in alts)
+                       if (c[0], c[1]) == key)
+        if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+            fail(f"toolkit real: the alternative records of {key} overlap")
+    extra = {d: launches[d] - base_launches[d] for d in ("fwd", "rev")}
+    alt = detail["alt_detail"]
+    if not all(1 <= extra[d] <= ALT_ALI for d in extra):
+        fail(f"toolkit real: the masked rounds launched {extra} beyond the "
+             f"main pass ({base_launches}), not 1 to {ALT_ALI} a direction")
+    if (alt["fwd_launches"], alt["rev_launches"]) != (extra["fwd"],
+                                                      extra["rev"]):
+        fail(f"toolkit real: the engine counted {alt['fwd_launches']} + "
+             f"{alt['rev_launches']} launches in the rounds, the wrappers "
+             f"{extra}")
+    print(f"[toolkit] real + repeats, search --alt-ali {ALT_ALI}: "
+          f"{len(base)} records + {len(alts)} alternative in "
+          f"{len(chain_len)} chains ({t_alt:.2f} s; without the flag "
+          f"{t_base:.2f} s); invariants hold")
+    print(f"[toolkit] masked rounds: launches {launches} (main pass alone "
+          f"{base_launches}); pairs a round {alt['round_pairs']}; forward "
+          f"{alt['fwd_pairs']} pairs / {alt['fwd_cells']} cells, kernel "
+          f"{alt['fwd_kernel_ms']:.3f} ms (wrapper "
+          f"{alt['fwd_wrapper_ms']:.3f}); reverse {alt['rev_pairs']} pairs "
+          f"/ {alt['rev_cells']} cells, kernel {alt['rev_kernel_ms']:.3f} ms "
+          f"(wrapper {alt['rev_wrapper_ms']:.3f}); stage seconds: prefilter "
+          f"{detail['prefilter_s']:.2f}, align {detail['align_s']:.2f} (of "
+          f"it the rounds {alt['rounds_s']:.2f}); main pass kernel "
+          f"{detail['align_detail']['fwd_kernel_ms']:.2f} + "
+          f"{detail['align_detail']['rev_kernel_ms']:.2f} ms")
+    return launches
+
+
+def toolkit_phase(work: Path, sub: torch.Tensor, errs: dict) -> dict:
+    check_masked_targets(sub, errs)
+    for size in ("small", "repeats"):
+        toolkit_set(work, size)
+    return toolkit_real(work)
+
 
 def bound_ms(d: str, js: np.ndarray) -> tuple[float, str]:
     """The least milliseconds the card could take for stage js of
@@ -803,6 +1024,18 @@ def event_ms(fn, reps: int = 3) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def launch_ms(fn, args: tuple, reps: int = 3) -> float:
+    """Milliseconds of a wrapper's launches alone, by the events it
+    records round them (after its job table is on the card), over reps
+    calls after a warm one."""
+    fn(*args)
+    events: list = []
+    for _ in range(reps):
+        fn(*args, events=events)
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in events) / reps
 
 
 def stage_detail(d: str, args: tuple) -> None:
@@ -844,8 +1077,9 @@ def stage_detail(d: str, args: tuple) -> None:
 
 def time_stages(stages: dict, launches: dict, errs: dict,
                 card: str) -> list:
-    """Kernel (event_ms) against the plain version (host clock, one
-    call) on the main path's largest stages, and stage_detail of each.
+    """Kernel (launch_ms: the launches alone; event_ms: the wrapper's
+    whole call) against the plain version (host clock, one call) on the
+    main path's largest stages, and stage_detail of each.
     These launches come after the counts were read."""
     from spacedust_tpu_torch.ops import sw_cuda
     report = []
@@ -860,7 +1094,8 @@ def time_stages(stages: dict, launches: dict, errs: dict,
         js = args[-3]
         fn = getattr(sw_cuda, name)
         got = fn(*args)
-        k_ms = event_ms(lambda: fn(*args))
+        w_ms = event_ms(lambda: fn(*args))
+        k_ms = launch_ms(fn, args)
         t0 = time.perf_counter()
         ref = plain(d)(*args)
         torch.cuda.synchronize()
@@ -870,7 +1105,9 @@ def time_stages(stages: dict, launches: dict, errs: dict,
         b_ms, b_by = bound_ms(d, js)
         print(f"[timing] {name}, main path's largest {d} stage: "
               f"{js.shape[1]} pairs, {c / 1e9:.3f} G cells; kernel "
-              f"{k_ms:.2f} ms = {c / k_ms / 1e6:.2f} GCUPS; plain "
+              f"(launches alone) {k_ms:.2f} ms = {c / k_ms / 1e6:.2f} GCUPS; "
+              f"wrapper (planning, job table copy, launches) {w_ms:.2f} ms; "
+              f"plain "
               f"{p_ms:.2f} ms = {c / p_ms / 1e6:.3f} GCUPS; bound "
               f"{b_ms:.2f} ms by {b_by} ({b_ms / k_ms:.1%} of it "
               f"reached); equal; {card}")
@@ -878,7 +1115,8 @@ def time_stages(stages: dict, launches: dict, errs: dict,
             "name": name, "route": "cuda",
             "source": "spacedust_tpu_torch/csrc/sw.cu",
             "replaces": replaces, "launches": launches[d],
-            "max_abs_err": errs[d], "ms": k_ms, "plain_ms": p_ms,
+            "max_abs_err": errs[d], "ms": k_ms, "wrapper_ms": w_ms,
+            "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes a batched Smith-Waterman
             "library_ms": None, "share_of_bound": b_ms / k_ms,
@@ -952,6 +1190,8 @@ def main(argv: list | None = None) -> int:
             launches.update({d: s_launches[d]
                              for d in ("fwd_struct", "rev_struct")})
             stages.update(s_stages)
+        if "toolkit" in phases:
+            tk_launches = toolkit_phase(Path(tmp), sub, errs)
     report = (time_stages(stages, launches, errs, card)
               if "timing" in phases else [])
     torch.cuda.synchronize()
@@ -961,6 +1201,11 @@ def main(argv: list | None = None) -> int:
         return 0
     if len(report) != len(KERNELS):
         fail(f"timed {len(report)} of {len(KERNELS)} kernels")
+    for entry, d in zip(report, KERNELS):
+        # the toolkit's own path: search --alt-ali at real size
+        entry["launches_toolkit"] = tk_launches[d]
+        if not d.endswith("struct") and tk_launches[d] <= 0:
+            fail(f"the toolkit's search did not launch {entry['name']}")
 
     print(json.dumps({"kernels": report}))
     print(card_line())

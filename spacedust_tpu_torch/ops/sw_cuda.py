@@ -28,7 +28,11 @@ and amino-acid tokens of the queries with the int8 3Di bias, and of the
 targets) and the two int8 tables in place of (qdata, qbias, tdata, sub).
 
 FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
-REVERSE_STRUCT_LAUNCHES count kernel launches.
+REVERSE_STRUCT_LAUNCHES count kernel launches.  A caller that wants the
+kernels' own time passes a list as `events`: the launcher appends one
+(start, end) pair of CUDA events recorded round its launches, after the
+job table is on the card, so that neither the host planning nor that
+copy lies between them (nothing is appended for CPU tensors).
 """
 
 from __future__ import annotations
@@ -225,11 +229,14 @@ def _check(tokens, qbias, tables, jobs, gap_open, gap_extend):
 
 
 def _launch_warp(reverse: bool, resident: tuple, plan: tuple,
-                 gap_open: int, gap_extend: int) -> torch.Tensor:
+                 gap_open: int, gap_extend: int,
+                 events: list | None = None) -> torch.Tensor:
     """Launch the kernel of the direction over a warp_plan of the jobs
     (its table and launches), counting the launches; returns the (6, n)
     result.  resident: a wrapper's leading tensors, (qdata, qbias, tdata,
-    sub) or the seven of structure mode, which picks the entry point."""
+    sub) or the seven of structure mode, which picks the entry point.
+    events: if a list, gets the (start, end) CUDA events recorded round
+    the launches."""
     name, counter = ENTRY[reverse, len(resident) == 7]
     fn = getattr(load(), name)
     table, launches = plan
@@ -247,6 +254,10 @@ def _launch_warp(reverse: bool, resident: tuple, plan: tuple,
     cell = WARP_SCRATCH[reverse]
     table_d = torch.from_numpy(table).to(dev, non_blocking=False)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if events is not None:
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
     for s, e, cols in launches:
         scratch = torch.empty(max(cols, 1) * cell, dtype=torch.uint8,
                               device=dev)
@@ -256,6 +267,9 @@ def _launch_warp(reverse: bool, resident: tuple, plan: tuple,
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
         globals()[counter] += 1
+    if events is not None:
+        ev[1].record()
+        events.append(ev)
     return out
 
 
@@ -267,7 +281,8 @@ def _device_of(t: torch.Tensor) -> torch.device:
 
 
 def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
-              gap_open: int, gap_extend: int) -> torch.Tensor:
+              gap_open: int, gap_extend: int,
+              events: list | None = None) -> torch.Tensor:
     _check((("tokens", qdata, tdata),), qbias, (("sub", sub),), jobs,
            gap_open, gap_extend)
     if _device_of(qdata).type == "cpu":
@@ -275,12 +290,12 @@ def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
                            gap_extend, reverse)
     return _launch_warp(reverse, (qdata, qbias, tdata, sub),
                         warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
-                        gap_extend)
+                        gap_extend, events)
 
 
 def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
-                jobs: np.ndarray, gap_open: int, gap_extend: int
-                ) -> torch.Tensor:
+                jobs: np.ndarray, gap_open: int, gap_extend: int,
+                events: list | None = None) -> torch.Tensor:
     _check((("3Di", qss, tss), ("amino acids", qaa, taa)), qbias,
            (("m3di", m3di), ("aasc", aasc)), jobs, gap_open, gap_extend)
     if _device_of(qss).type == "cpu":
@@ -288,38 +303,38 @@ def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
                                   jobs, gap_open, gap_extend, reverse)
     return _launch_warp(reverse, (qss, qaa, qbias, tss, taa, m3di, aasc),
                         warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
-                        gap_extend)
+                        gap_extend, events)
 
 
 def sw_forward(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
-               gap_extend: int) -> torch.Tensor:
+               gap_extend: int, events: list | None = None) -> torch.Tensor:
     """Forward pass: (score, t_end, q_end) in rows 0-2 of the (6, n)
     result; rows 3-5 hold the (0, -1, 0) placeholders."""
     return _run_warp(False, qdata, qbias, tdata, sub, jobs, gap_open,
-                     gap_extend)
+                     gap_extend, events)
 
 
 def sw_reverse(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
-               gap_extend: int) -> torch.Tensor:
+               gap_extend: int, events: list | None = None) -> torch.Tensor:
     """Reverse pass on the flipped prefixes: all six outputs, with
     (found, fj, fi) at the terminate score in flipped coordinates."""
     return _run_warp(True, qdata, qbias, tdata, sub, jobs, gap_open,
-                     gap_extend)
+                     gap_extend, events)
 
 
 def sw_forward_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
-                      jobs: np.ndarray, gap_open: int,
-                      gap_extend: int) -> torch.Tensor:
+                      jobs: np.ndarray, gap_open: int, gap_extend: int,
+                      events: list | None = None) -> torch.Tensor:
     """Structure-mode forward pass: as sw_forward, with the cell score
     int8(m3di[q_ss][t_ss] + bias_i) + int8(aasc[q_aa][t_aa])."""
     return _run_struct(False, qss, qaa, qbias, tss, taa, m3di, aasc, jobs,
-                       gap_open, gap_extend)
+                       gap_open, gap_extend, events)
 
 
 def sw_reverse_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
-                      jobs: np.ndarray, gap_open: int,
-                      gap_extend: int) -> torch.Tensor:
+                      jobs: np.ndarray, gap_open: int, gap_extend: int,
+                      events: list | None = None) -> torch.Tensor:
     """Structure-mode reverse pass: as sw_reverse, with the two-channel
     cell score of sw_forward_struct."""
     return _run_struct(True, qss, qaa, qbias, tss, taa, m3di, aasc, jobs,
-                       gap_open, gap_extend)
+                       gap_open, gap_extend, events)

@@ -12,7 +12,15 @@ tlen, terminate) that the wrapper copies to the device once, and scored
 by the `ops/sw_cuda.py` kernels on the current stream (the plain version
 for CPU tensors).
 Results stay on the device until collect(), which fetches every pending
-stage with one device-to-host copy.
+stage with one device-to-host copy.  Two times are kept a direction, both
+by CUDA events: `*_kernel_ms`, recorded by the wrapper round its launches
+alone, and `*_wrapper_ms`, round the whole wrapper call (host planning,
+the job table's copy and the launches).
+
+`DeviceAlignDB.with_targets(tdata)` gives an engine over another target
+array that shares the resident query tensors: the alternative-alignment
+rounds score the resident queries against masked copies of their targets
+through the same kernels.
 
 `StructureDeviceDB` is the port of `StructureDeviceDB` (the resident side
 of `_sw_bucket_struct`): five resident arrays (3Di and amino-acid tokens
@@ -22,6 +30,7 @@ enqueue/flush/collect/run_buckets contract, and the structure kernels.
 
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
@@ -84,11 +93,25 @@ class DeviceAlignDB:
                         "fwd_launches": 0, "rev_launches": 0,
                         "fwd_pairs": 0, "rev_pairs": 0,
                         "fwd_cells": 0, "rev_cells": 0,
-                        "fwd_kernel_ms": 0.0, "rev_kernel_ms": 0.0}
+                        "fwd_kernel_ms": 0.0, "rev_kernel_ms": 0.0,
+                        "fwd_wrapper_ms": 0.0, "rev_wrapper_ms": 0.0}
 
     def _resident(self) -> tuple:
         """The wrappers' leading arguments."""
         return (self.qdata, self.qbias, self.tdata, self.sub)
+
+    def with_targets(self, tdata: np.ndarray) -> "DeviceAlignDB":
+        """An engine over the target tokens `tdata` (uploaded now) that
+        shares this one's resident query tokens, bias and matrix, with a
+        buffer and metrics of its own."""
+        if self.STRUCT:
+            raise NotImplementedError(
+                "with_targets serves the sequence engine only")
+        _check_tokens("target", tdata, self.sub.shape[0])
+        view = copy.copy(self)
+        view.tdata = _upload(tdata, np.uint8, self.device)
+        view._init_state()
+        return view
 
     def enqueue(self, jobs, gap_open: int, gap_extend: int,
                 reverse: bool):
@@ -120,6 +143,9 @@ class DeviceAlignDB:
         order = np.argsort(-cells, kind="stable")
         jobs = np.ascontiguousarray(jobs[:, order])
         timed = self.device.type == "cuda"
+        # (start, end) event pairs: first the wrapper's whole call, then
+        # what the wrapper records round its launches
+        events: list = []
         if timed:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
@@ -128,9 +154,10 @@ class DeviceAlignDB:
         fn_name, counter = sw_cuda.ENTRY[reverse, self.STRUCT]
         before = getattr(sw_cuda, counter)
         out = getattr(sw_cuda, fn_name)(*self._resident(), jobs, gap_open,
-                                        gap_extend)
+                                        gap_extend, events=events)
         if timed:
             ev[1].record()
+            events.insert(0, ev)
         d = "rev" if reverse else "fwd"
         m = self.metrics
         m["n_batches"] += 1
@@ -138,7 +165,7 @@ class DeviceAlignDB:
         m[f"{d}_pairs"] += jobs.shape[1]
         m[f"{d}_cells"] += int(cells.sum())
         m["dispatch_s"] += time.perf_counter() - t0
-        return (cols[5][order], out, ev if timed else None, d)
+        return (cols[5][order], out, events, d)
 
     def collect(self, pending):
         """Fetch every pending stage with ONE device-to-host copy.
@@ -150,9 +177,10 @@ class DeviceAlignDB:
         flat = torch.cat([o for _, o, _, _ in pending], dim=1).cpu().numpy()
         self.metrics["fetch_s"] += time.perf_counter() - t1
         out, col = [], 0
-        for pos, o, ev, d in pending:
-            if ev is not None:
-                self.metrics[f"{d}_kernel_ms"] += ev[0].elapsed_time(ev[1])
+        for pos, o, events, d in pending:
+            for k, ev in enumerate(events):
+                self.metrics[f"{d}_wrapper_ms" if k == 0
+                             else f"{d}_kernel_ms"] += ev[0].elapsed_time(ev[1])
             n = o.shape[1]
             out.append((pos, tuple(flat[i, col:col + n] for i in range(6))))
             col += n

@@ -13,8 +13,13 @@ Alignment.cpp:248-540, Matcher.cpp:60-142):
     output-equivalent to the reference's in-kernel returns
   * reverse SW -> (qStart, tStart) via terminate-column semantics
   * banded traceback -> CIGAR; seqId = identical/alnLen (SEQ_ID_ALN_LEN)
-  * checkCriteria + Matcher::compareHits sort (eval asc, bit score desc,
-    tLen asc, tKey asc)
+  * checkCriteria, then the per-query accept / reject state machine of
+    --max-accept / --max-rejected in prefilter order
+  * --alt-ali: alternative alignments against X-masked copies of the
+    accepted targets (computeAlternativeAlignment), in rounds on the
+    device
+  * Matcher::compareHits sort (eval asc, bit score desc, tLen asc,
+    tKey asc)
 
 Every pair goes through the engine, at any length: there is no length
 cap and no separate host SW path.  A subclass may replace the scoring
@@ -22,19 +27,19 @@ through three hooks (the structure search, search/structure.py, does):
 `_device_db` (the resident engine), `evaluer` (the E-value statistics),
 and the optional per-key `_identity_record` / per-pair `_traceback`,
 which, when set, take the place of the batched identity and traceback
-paths of the sequence search.  Only the default accept path is
-ported: --max-accept / --max-rejected and --alt-ali raise
-NotImplementedError (ROADMAP A12); profile queries are not ported yet
+paths of the sequence search.  Profile queries are not ported yet
 (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..constants import X_INDEX
 from ..db.setdb import SetDB
 from ..native import banded_align_batch, comp_bias_batch
 from ..ops.sw_engine import DeviceAlignDB
@@ -46,6 +51,14 @@ COV_MODE_BIDIRECTIONAL = 0
 COV_MODE_QUERY = 2
 COV_MODE_TARGET = 1
 _INT_MAX = 2147483647
+
+
+def _ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The concatenated index ranges [starts[k], starts[k] + lens[k])."""
+    lens = np.asarray(lens, dtype=np.int64)
+    first = np.cumsum(lens) - lens
+    return (np.repeat(np.asarray(starts, dtype=np.int64) - first, lens)
+            + np.arange(int(lens.sum()), dtype=np.int64))
 
 
 def _cov_vec(start: np.ndarray, end: np.ndarray, length: np.ndarray
@@ -113,14 +126,6 @@ class AlignmentEngine:
         self.qdb = query_db
         self.tdb = target_db
         self.par = params or AlignmentParams()
-        if (self.par.max_accept != _INT_MAX
-                or self.par.max_rejected != _INT_MAX):
-            raise NotImplementedError(
-                "--max-accept/--max-rejected are not ported yet "
-                "(ROADMAP A12)")
-        if self.par.alt_alignments > 0:
-            raise NotImplementedError(
-                "--alt-ali is not ported yet (ROADMAP A12)")
         self.device = torch.device(device)
         self.matrix = matrix or load_substitution_matrix()
         self.evaluer = EvalueComputation(target_db.total_residues,
@@ -130,6 +135,10 @@ class AlignmentEngine:
         self._qbias_arr: np.ndarray | None = None
         self._ident_raws: np.ndarray | None = None
         self._dev: DeviceAlignDB | None = None
+        # what the --alt-ali rounds did: chains in each round, their
+        # host-clock seconds, and the masked-target engines' metrics
+        # summed over the rounds
+        self.alt_metrics: dict = {"round_pairs": [], "rounds_s": 0.0}
 
     # ------------------------------------------------------------------
     def _qbias_all(self) -> np.ndarray:
@@ -273,24 +282,32 @@ class AlignmentEngine:
                  self.tdb.lengths[tk], np.full(len(qk), -1, np.int64),
                  positions)]
 
-    def _reverse_jobs(self, survivors):
+    def _reverse_jobs(self, survivors, toffs: np.ndarray | None = None):
         """Reverse jobs for survivors: reversed prefixes [0..q_end] x
         [0..t_end], terminate = forward score; positions are survivor
-        indices."""
+        indices.  toffs: each survivor's target offset where the targets
+        are not the resident ones."""
         n = len(survivors)
         qk = np.fromiter((s[0] for s in survivors), np.int64, n)
         tk = np.fromiter((s[1] for s in survivors), np.int64, n)
         term = np.fromiter((s[2] for s in survivors), np.int64, n)
         ql = np.fromiter((s[3] + 1 for s in survivors), np.int64, n)
         tl = np.fromiter((s[4] + 1 for s in survivors), np.int64, n)
-        return [(self.qdb.offsets[qk], ql, self.tdb.offsets[tk], tl, term,
+        return [(self.qdb.offsets[qk], ql,
+                 self.tdb.offsets[tk] if toffs is None else toffs, tl, term,
                  np.arange(n, dtype=np.int64))]
 
     @staticmethod
-    def _decode_reverse(collected, survivors, out) -> None:
+    def _decode_reverse(collected, survivors, out, strict: bool = True
+                        ) -> None:
+        """Start points (q_start, t_start) into out.  A pair whose
+        terminate score was not found raises, or with strict=False keeps
+        its None."""
         for pos, (_s, _gj, _gi, found, fj, fi) in collected:
             for bi, sidx in enumerate(pos):
                 if not found[bi]:
+                    if not strict:
+                        continue
                     raise RuntimeError(
                         "forward/backward SW scores differ for "
                         f"q={survivors[sidx][0]} t={survivors[sidx][1]}")
@@ -319,10 +336,14 @@ class AlignmentEngine:
             idents.append(int((qseq[qp[is_m]] == tseq[tp[is_m]]).sum()))
         return ops_list, idents
 
-    def _finish_pairs(self, survivors, starts) -> list["AlnRecord | None"]:
+    def _finish_pairs(self, survivors, starts, targets: tuple | None = None
+                      ) -> list["AlnRecord | None"]:
         """Stage 3: vectorized coverage gate and one batched native
         traceback call for all survivors (OpenMP over pairs), or one
-        `_traceback` call per pair when the hook is set."""
+        `_traceback` call per pair when the hook is set.  targets:
+        (tdata, toffs, rows) to trace against the token array tdata, where
+        survivor i's target starts at toffs[rows[i]], instead of the
+        resident targets; such records carry no precompressed CIGAR."""
         n = len(survivors)
         if n == 0:
             return []
@@ -350,16 +371,21 @@ class AlignmentEngine:
                 t_end[sel], score[sel])
             cigars = [None] * len(sel)
         else:
+            tdata, toffs, trow = (
+                (self.tdb.seq_data, self.tdb.offsets[:-1], tk)
+                if targets is None else targets)
             ops_list, idents, cigars = banded_align_batch(
                 np.ascontiguousarray(self.qdb.seq_data, dtype=np.uint8),
                 np.ascontiguousarray(self.qdb.offsets[:-1], dtype=np.int64),
-                np.ascontiguousarray(self.tdb.seq_data, dtype=np.uint8),
-                np.ascontiguousarray(self.tdb.offsets[:-1], dtype=np.int64),
+                np.ascontiguousarray(tdata, dtype=np.uint8),
+                np.ascontiguousarray(toffs, dtype=np.int64),
                 np.ascontiguousarray(self._qbias_all(), dtype=np.int8),
                 self.matrix.sub_int.astype(np.int8),
-                qk[sel], tk[sel], q_start[sel], q_end[sel],
+                qk[sel], trow[sel], q_start[sel], q_end[sel],
                 t_start[sel], t_end[sel], score[sel],
                 par.gap_open, par.gap_extend)
+            if targets is not None:
+                cigars = [None] * len(sel)
         bits = (self.evaluer.compute_bit_score(score[sel])
                 + 0.5).astype(np.int64)
         for bi, si in enumerate(sel):
@@ -380,6 +406,95 @@ class AlignmentEngine:
                 raw_score=int(score[si]), qcov=float(qcov[si]),
                 tcov=float(tcov[si]), cigar=cigars[bi])
         return recs
+
+    # ------------------------------------------------------------------
+    def _compute_alt_alignments(self, accepted: dict[int, list[AlnRecord]]
+                                ) -> None:
+        """computeAlternativeAlignment (Alignment.cpp:569-601): per
+        accepted non-identity hit, X-mask the aligned target region
+        [tstart, tend) (the end column is NOT masked: a quirk of the
+        reference that is kept) and re-align up to --alt-ali times,
+        masking each new hit's region too and stopping a hit's chain at
+        its first failure.
+
+        The chains of all queries advance together, a round at a time: a
+        round writes the masked copies of the chains still alive into one
+        token array and runs one forward stage over it, the E-value and
+        end-coverage gates, one reverse stage (a terminate score that is
+        not found ends the chain) and one batched traceback.  The new
+        records are appended parent by parent, each parent's in round
+        order, as a loop over the parents would append them: the stable
+        sort that follows keeps that order among ties."""
+        if self._traceback is not None:
+            raise NotImplementedError(
+                "--alt-ali serves the sequence search only")
+        par = self.par
+        t0 = time.perf_counter()
+        go, ge = par.gap_open, par.gap_extend
+        skip_self = par.include_identity or self.same_qt_db
+        chains = [(qk, rec) for qk, out in accepted.items() for rec in out
+                  if not (rec.tkey == qk and skip_self)]
+        if not chains:
+            return
+        n = len(chains)
+        cqk = np.fromiter((c[0] for c in chains), np.int64, n)
+        ctk = np.fromiter((c[1].tkey for c in chains), np.int64, n)
+        new: list[list[AlnRecord]] = [[] for _ in chains]
+        alive = np.arange(n, dtype=np.int64)      # chain of each copy
+        tlen = self.tdb.lengths[ctk].astype(np.int64)
+        moff = np.cumsum(tlen) - tlen             # the copies' offsets
+        masked = np.asarray(self.tdb.seq_data, dtype=np.uint8)[
+            _ranges(self.tdb.offsets[ctk], tlen)]
+        lo = np.fromiter((c[1].tstart for c in chains), np.int64, n)
+        hi = np.fromiter((c[1].tend for c in chains), np.int64, n)
+        m = self.alt_metrics
+        for _round in range(par.alt_alignments):
+            masked[_ranges(moff + lo, np.maximum(hi - lo, 0))] = X_INDEX
+            k = len(alive)
+            qk, tk = cqk[alive], ctk[alive]
+            m["round_pairs"].append(k)
+            dev = self._device_db().with_targets(masked)
+            score = np.zeros(k, np.int64)
+            q_end = np.zeros(k, np.int64)
+            t_end = np.full(k, -1, np.int64)
+            fwd = [(self.qdb.offsets[qk], self.qdb.lengths[qk], moff, tlen,
+                    np.full(k, -1, np.int64), np.arange(k, dtype=np.int64))]
+            for pos, (s, te, qe, _f, _fj, _fi) in dev.run_buckets(
+                    fwd, go, ge, reverse=False):
+                score[pos], t_end[pos], q_end[pos] = s, te, qe
+            survivors, surv_of_pair = self._survivor_filter_arrays(
+                qk, tk, score, q_end, t_end)
+            rows = np.fromiter(surv_of_pair, np.int64, len(survivors))
+            starts: list = [None] * len(survivors)
+            if survivors:
+                self._decode_reverse(
+                    dev.run_buckets(self._reverse_jobs(survivors, moff[rows]),
+                                    go, ge, reverse=True),
+                    survivors, starts, strict=False)
+            found = [i for i, st in enumerate(starts) if st is not None]
+            rows = rows[found]
+            recs = self._finish_pairs([survivors[i] for i in found],
+                                      [starts[i] for i in found],
+                                      targets=(masked, moff, rows))
+            for key, val in dev.metrics.items():
+                m[key] = m.get(key, 0) + val
+            keep = [i for i, rec in enumerate(recs) if rec is not None]
+            if not keep:
+                break
+            rows = rows[keep]
+            for row, i in zip(rows.tolist(), keep):
+                new[alive[row]].append(recs[i])
+            # the chains that go on, their copies packed anew
+            lo = np.fromiter((recs[i].tstart for i in keep), np.int64,
+                             len(keep))
+            hi = np.fromiter((recs[i].tend for i in keep), np.int64,
+                             len(keep))
+            masked = masked[_ranges(moff[rows], tlen[rows])]
+            alive, tlen = alive[rows], tlen[rows]
+            moff = np.cumsum(tlen) - tlen
+        for (qk, _rec), recs in zip(chains, new):
+            accepted[qk].extend(recs)
+        m["rounds_s"] += time.perf_counter() - t0
 
 
 class _AlignStream:
@@ -421,8 +536,18 @@ class _AlignStream:
 
     def _accept(self, surv_of_pair: dict[int, int],
                 recs) -> dict[int, list[AlnRecord]]:
-        """Accept stage (no --max-accept/--max-rejected state machine):
-        only kept candidates run Python, in candidate order per query."""
+        """Accept stage.  With --max-accept / --max-rejected unset only
+        kept candidates run Python, in candidate order per query.
+        Otherwise every candidate steps its query's state machine in
+        prefilter order, across the fragments: a query stops at
+        max_accept acceptances or max_rejected consecutive rejections (an
+        acceptance resets that count), where a candidate that failed the
+        coverage pre-check, the survivor filter or checkCriteria is a
+        rejection and an identity hit an acceptance.  Then the --alt-ali
+        rounds and the compareHits sort."""
+        par = self.eng.par
+        limited = (par.max_accept < _INT_MAX or par.max_rejected < _INT_MAX)
+        state: dict[int, list[int]] = {}     # qk -> [passed, rejected]
         surv_idx = np.full(max(self._n_pairs, 1), -1, np.int64)
         for pi, si in surv_of_pair.items():
             surv_idx[pi] = si
@@ -439,10 +564,22 @@ class _AlignStream:
             ok = si >= 0
             ok[ok] = recs_ok[si[ok]]
             keep = keep_ident | ok
-            for ci in np.nonzero(keep)[0]:
+            for ci in (range(len(aqk)) if limited else np.nonzero(keep)[0]):
                 qk = int(aqk[ci])
+                if limited:
+                    st = state.setdefault(qk, [0, 0])
+                    if (st[0] >= par.max_accept
+                            or st[1] >= par.max_rejected):
+                        continue
+                    if not keep[ci]:
+                        st[1] += 1
+                        continue
+                    st[0] += 1
+                    st[1] = 0
                 accepted[qk].append(ident_recs[qk] if keep_ident[ci]
                                     else recs[si[ci]])
+        if par.alt_alignments > 0:
+            self.eng._compute_alt_alignments(accepted)
         for qk in accepted:
             accepted[qk].sort(key=lambda r: (r.evalue, -r.score, r.tlen,
                                              r.tkey))

@@ -49,6 +49,8 @@ COMBINED_ALPHA = ALPHA * ALPHA
 # vendored, and the naive ungapped-KA K applied to these gapped
 # combined-alphabet scores understates E by orders of magnitude.
 STRUCT_K = 300.0
+# query profiles the structure engine keeps for its tracebacks
+PROFILE_CACHE = 4
 
 
 @lru_cache(maxsize=1)
@@ -132,6 +134,7 @@ class StructureAlignmentEngine(AlignmentEngine):
         self.m3di, self.aa_scaled, gumbel = combined_matrices()
         self.evaluer = EvalueComputation(target_db.total_residues, gumbel)
         self._ss_bias_arr: np.ndarray | None = None
+        # the last PROFILE_CACHE queries' (L, 441) profiles, oldest first
         self._prof_cache: dict[int, np.ndarray] = {}
 
     def _ss_bias_all(self) -> np.ndarray:
@@ -175,8 +178,12 @@ class StructureAlignmentEngine(AlignmentEngine):
 
     def _combined_profile(self, qk: int) -> np.ndarray:
         """(L, 441) int32: profile[i, ss*21+aa] = 3Di + bias + scaled-AA
-        score (bias = 3Di composition correction, foldseek semantics)."""
+        score (bias = 3Di composition correction, foldseek semantics).
+        Only the tracebacks read it, and they come grouped by query, so
+        the last few profiles are kept: 1,764 bytes a residue each."""
         if qk not in self._prof_cache:
+            if len(self._prof_cache) >= PROFILE_CACHE:
+                del self._prof_cache[next(iter(self._prof_cache))]
             qss = self.qdb.ss_sequence(qk).astype(np.int64)
             qaa = self.qdb.sequence(qk).astype(np.int64)
             p3 = (self.m3di[qss]
@@ -187,11 +194,17 @@ class StructureAlignmentEngine(AlignmentEngine):
         return self._prof_cache[qk]
 
     def _identity_record(self, qk: int) -> AlnRecord:
-        cp = self._combined_profile(qk)
-        sym = self._target_symbols(qk).astype(np.int64)
-        L = len(sym)
+        # the combined profile's entries at the symbols of target qk,
+        # without building the profile
+        qss = self.qdb.ss_sequence(qk).astype(np.int64)
+        qaa = self.qdb.sequence(qk).astype(np.int64)
+        tss = self.tdb.ss_sequence(qk).astype(np.int64)
+        taa = self.tdb.sequence(qk).astype(np.int64)
+        L = len(tss)
+        diag = (self.m3di[qss, tss].astype(np.int64) + self._ss_bias(qk)
+                + self.aa_scaled[qaa, taa])
         # short accumulation (scoreIdentical): wraps past ~3,100 aa
-        raw = int(np.int16(cp[np.arange(L), sym].astype(np.int64).sum()))
+        raw = int(np.int16(diag.sum()))
         evalue = float(self.evaluer.compute_evalue(raw, L))
         bit = int(self.evaluer.compute_bit_score(raw) + 0.5)
         return AlnRecord(tkey=qk, score=bit, seq_id=1.0, evalue=evalue,

@@ -21,6 +21,17 @@ Per genome set:
 Run as `python -m spacedust_tpu_torch.synth OUT_DIR [--size real|small]
 [--seed N]`; it writes genome_a.faa and genome_b.faa.
 
+The repeat sets (`--size repeats`, `repeats_tiny`) are a generator of
+their own on its own stream of the seed (make_repeat_genomes), for the
+alternative alignments of `--alt-ali`, which arise only where a target
+holds a domain more than once: the first two thirds of genome B's genes
+are homologs of genome A's at the same position (one conserved
+neighbourhood), and every second of them carries a tandem copy of its
+first or last 60-150 aa, every fourth two copies.  `repeats` (60 + 60 genes)
+draws lengths from the histogram and mutates with indels; `repeats_tiny`
+(36 + 36) keeps to the gene lengths 120 and 180, a 60 aa segment and
+substitutions only, so that its pairs have few distinct shapes.
+
 Structure mode (`--struct`) writes, from its own stream of the same
 seed, a Foldseek-style flat DB of the same two genome sizes (`genomes`,
 `genomes_h` with Prodigal headers, the `genomes_ss` 3Di sidecar,
@@ -50,7 +61,12 @@ import numpy as np
 from .constants import AA_ORDER
 
 SEED = 20261016
-SIZES = {"real": (4300, 1600), "half": (2150, 800), "small": (150, 150)}
+SIZES = {"real": (4300, 1600), "half": (2150, 800), "small": (150, 150),
+         "repeats": (60, 60), "repeats_tiny": (36, 36)}
+# the repeat sets: gene lengths and the repeated segment's length (None:
+# the histogram, at least 120 aa, and 60-150 aa)
+REPEAT_SIZES = {"repeats": (None, None), "repeats_tiny": ((120, 180), 60)}
+REPEAT_STREAM = 5       # the repeat sets' RNG stream of a seed
 
 # length histogram: (lo, hi, weight per mille), lo inclusive, hi exclusive
 _LEN_BINS = ((30, 100, 80), (100, 150, 90), (150, 200, 110),
@@ -179,6 +195,47 @@ def make_genomes(sizes: tuple[int, int], seed: int = SEED):
     return genomes
 
 
+def make_repeat_genomes(size: str, seed: int = SEED):
+    """Two genomes as lists of (protein, strand) for a key of
+    REPEAT_SIZES: homologs with tandem copies of a segment."""
+    g = _Gen(seed, REPEAT_STREAM)
+    lengths, seg_len = REPEAT_SIZES[size]
+    na, nb = SIZES[size]
+
+    def gene() -> list:
+        n = (int(lengths[int(g.ints(0, len(lengths)))]) if lengths
+             else max(g.length(), 120))
+        return [g.protein(n), 1 if g.ints(0, 2) else -1]
+
+    def variant(seq: np.ndarray, lo: int, hi: int) -> np.ndarray:
+        ident = int(g.ints(lo, hi))
+        if not lengths:
+            return g.mutate(seq, ident)
+        out = seq.copy()
+        sub = g.ints(0, 100, len(seq)) >= ident
+        out[sub] = g.residues(int(sub.sum()))
+        return out
+
+    genomes = [[gene() for _ in range(n)] for n in (na, nb)]
+    for k in range(min(na, nb) * 2 // 3):
+        prot, strand = genomes[0][k]
+        hom = variant(prot, 50, 96)
+        copies = 0 if k % 2 else (2 if k % 4 == 0 else 1)
+        if copies:
+            n_seg = seg_len or int(g.ints(60, 151))
+            n_seg = min(n_seg, len(hom) // 2)
+            # at an end of the gene: inside it, one alignment with a gap
+            # would span both copies and leave nothing to find
+            start = len(hom) - n_seg if k % 8 < 4 else 0
+            seg = hom[start:start + n_seg]
+            hom = np.concatenate(
+                [hom[:start + n_seg]]
+                + [variant(seg, 70, 96) for _ in range(copies)]
+                + [hom[start + n_seg:]])
+        genomes[1][k] = [hom, strand]
+    return genomes
+
+
 def _headers(contig: str, genes) -> list[str]:
     """Prodigal-style headers `contig_i # start # end # strand # ...` of
     genes (protein, strand, ...) laid out along one contig."""
@@ -205,14 +262,19 @@ def write_fasta(path: Path, contig: str, genes) -> None:
 
 def write_genome_set(out_dir: str | Path, size: str = "real",
                      seed: int = SEED) -> list[Path]:
-    """Write genome_a.faa / genome_b.faa for `size` ("real" or "small");
+    """Write genome_a.faa / genome_b.faa for `size` (a key of SIZES);
     returns their paths."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     paths = []
-    for tag, genes in zip("ab", make_genomes(SIZES[size], seed)):
+    genomes = (make_repeat_genomes(size, seed) if size in REPEAT_SIZES
+               else make_genomes(SIZES[size], seed))
+    for tag, genes in zip("ab", genomes):
         p = out / f"genome_{tag}.faa"
-        write_fasta(p, f"SYN{tag.upper()}_000001.1", genes)
+        # the repeat sets name their contigs apart, so that one setDB can
+        # hold a repeat set beside another set
+        prefix = "REP" if size in REPEAT_SIZES else "SYN"
+        write_fasta(p, f"{prefix}{tag.upper()}_000001.1", genes)
         paths.append(p)
     return paths
 

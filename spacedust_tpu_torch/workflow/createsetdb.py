@@ -5,7 +5,7 @@ list into file names (with --file-include/--file-exclude regex), then
 runs the amino-acid (Prodigal headers) path.  A single input with a
 `.dbtype` file is a pre-built MMseqs2/Foldseek DB (with its `_ss` 3Di
 sidecar, if any) and goes through db/flatdb_ingest.py.  The nucleotide
-(GFF) input is not ported yet (ROADMAP A11) and raises.
+(GFF) input is not ported yet (ROADMAP A11b) and raises.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def create_setdb(inputs: list[str], out_path: str | None = None,
                   for f in files[:1])
     if gff_dir is not None or is_nucl:
         raise NotImplementedError(
-            "nucleotide (GFF) input is not ported yet (ROADMAP A11)")
+            "nucleotide (GFF) input is not ported yet (ROADMAP A11b)")
     db = create_setdb_from_fastas(files)
     if out_path is not None:
         db.save(out_path)

@@ -20,7 +20,10 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 for name in ("spacedust_tpu_torch.search.structure",
-             "spacedust_tpu_torch.workflow.aa2foldseek"):
+             "spacedust_tpu_torch.workflow.aa2foldseek",
+             "spacedust_tpu_torch.search.convert",
+             "spacedust_tpu_torch.workflow.modules",
+             "spacedust_tpu_torch.cli"):
     assert name in names and name in sys.modules, name
 leaked = sorted(m for m in sys.modules
                 if m == "spacedust_tpu" or m.startswith("spacedust_tpu.")

@@ -270,3 +270,26 @@ def test_unported_options_still_raise(subsets):
         with pytest.raises(NotImplementedError):
             cluster_search(db, db, ClusterSearchParams(search_mode=2, **kw),
                            device="cpu")
+
+
+def test_profile_cache_is_bounded(subsets):
+    """The structure engine keeps the last few (L, 441) query profiles for
+    its tracebacks and builds none for the identity records."""
+    from spacedust_tpu_torch.search.alignment import AlignmentParams
+    from spacedust_tpu_torch.search.structure import (
+        PROFILE_CACHE, StructureAlignmentEngine)
+    db, _ = subsets
+    eng = StructureAlignmentEngine(db, db, AlignmentParams(gap_open=10),
+                                   same_qt_db=True, device="cpu")
+    keys = list(range(PROFILE_CACHE + 3))
+    want = [eng._combined_profile(k).copy() for k in keys]
+    assert list(eng._prof_cache) == keys[-PROFILE_CACHE:]
+    for k in reversed(keys):             # rebuilt after eviction: the same
+        np.testing.assert_array_equal(eng._combined_profile(k), want[k])
+    eng._prof_cache.clear()
+    rec = eng._identity_record(0)
+    assert not eng._prof_cache
+    sym = eng._target_symbols(0).astype(np.int64)
+    raw = int(np.int16(want[0][np.arange(len(sym)), sym].astype(
+        np.int64).sum()))
+    assert rec.raw_score == raw and rec.backtrace == "M" * len(sym)

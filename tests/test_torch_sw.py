@@ -747,9 +747,9 @@ def test_dispatch_order_per_engine():
     seen = {}
 
     def spy(name, fn):
-        def call(*args):
+        def call(*args, **kw):
             seen[name] = args[-3]
-            return fn(*args)
+            return fn(*args, **kw)
         return call
 
     saved = {n: getattr(sw_cuda, n) for n in ("sw_forward",

@@ -15,6 +15,17 @@ package on the CPU:
                                         --search-mode 2 counts and sha256 of
                                         the structure set at SIZE (default
                                         real; any key of synth.SIZES)
+  tests/fixtures/torch_port_SET_<file>  the module toolkit on SET (small or
+                                        repeats): every file that
+                                        workflow/modules.py::toolkit_commands
+                                        writes, through the JAX package's CLI
+                                        (`search` with --alt-ali 2
+                                        --max-accept 3 --max-rejected 2 and
+                                        with --alt-ali 2 alone, its m8, and
+                                        the workflow chain module by module;
+                                        combinehits through the library, see
+                                        jax_combinehits)
+  tests/fixtures/torch_port_repeats.tsv result TSV of the repeat set
 
 Every run is `clustersearch --filter-self-match` of a two-genome set
 against itself, as written by `spacedust_tpu_torch.synth` at its default
@@ -22,7 +33,13 @@ seed (the structure sets through a pre-built flat DB, as `createsetdb`
 ingests them).  Usage:
 
   JAX_PLATFORMS=cpu python tools/record_torch_port_fixtures.py \
-      [small|real|struct_small|struct_small_mode1|struct_real[:SIZE]]...
+      [small|real|struct_small|struct_small_mode1|struct_real[:SIZE]|
+       repeats|toolkit:small|toolkit:repeats]...
+
+The --alt-ali runs align one masked pair a call and compile for every
+(query length, target length) they meet: toolkit:repeats took 22 s and
+toolkit:small 55 s on a CPU (search_controls.tsv, the first to compile,
+15 s and 40 s of that).
 """
 
 from __future__ import annotations
@@ -42,8 +59,10 @@ from spacedust_tpu.workflow.aa2foldseek import (  # noqa: E402
     StructureRef, aa2foldseek)
 from spacedust_tpu.workflow.clustersearch import (  # noqa: E402
     ClusterSearchParams, cluster_search)
+from spacedust_tpu import cli as jax_cli  # noqa: E402
 from spacedust_tpu_torch import synth  # noqa: E402
 from spacedust_tpu_torch.cluster.summarize import canonical_sha256  # noqa: E402
+from spacedust_tpu_torch.workflow.modules import toolkit_commands  # noqa: E402
 
 FIXTURES = ROOT / "tests" / "fixtures"
 
@@ -69,6 +88,43 @@ def run(size: str, search_mode: int | None = None) -> str:
         return res.tsv
 
 
+def jax_combinehits(argv: list[str]) -> None:
+    """combinehits of the JAX package through its library.  Its CLI
+    cannot chain mergeresultsbyset into combinehits: the merged file's
+    lines lead with the gene key, and cmd_combinehits groups them by that
+    column where combine_hits wants them by query set (ROADMAP C8)."""
+    from spacedust_tpu.cluster.aggregate import (combine_hits,
+                                                 merge_results_by_set)
+    from spacedust_tpu.db.setdb import SetDB
+    _cmd, qdb_path, _tdb, merged_tsv, out, *flags = argv
+    assert flags == ["--filter-self-match"], flags
+    qdb = SetDB.load(qdb_path)
+    # the lines of a merged file in file order are those of the best-hit
+    # file it was merged from, so merging them again restores the sets
+    merged = merge_results_by_set(jax_cli._read_prefixed_tsv(merged_tsv),
+                                  qdb)
+    jax_cli._write_matches(out, combine_hits(merged, qdb, qdb,
+                                             filter_self_match=True))
+
+
+def toolkit(size: str) -> None:
+    """The module toolkit on the set `size` through the JAX CLI."""
+    with tempfile.TemporaryDirectory() as d:
+        db = str(Path(d) / "db")
+        fastas = [str(p) for p in synth.write_genome_set(d, size)]
+        assert jax_cli.main(["createsetdb", *fastas, db]) == 0
+        for name, argv in toolkit_commands(db, d):
+            t0 = time.time()
+            if argv[0] == "combinehits":
+                jax_combinehits(argv)
+            else:
+                assert jax_cli.main(argv) == 0, argv
+            print(f"toolkit:{size} {name}: {time.time() - t0:.1f} s",
+                  file=sys.stderr)
+            (FIXTURES / f"torch_port_{size}_{name}").write_bytes(
+                (Path(d) / name).read_bytes())
+
+
 def summary(tsv: str, size: str) -> dict:
     lines = tsv.splitlines()
     return {"seed": synth.SEED, "sizes": list(synth.SIZES[size]),
@@ -80,8 +136,10 @@ def summary(tsv: str, size: str) -> dict:
 def main(argv: list[str]) -> int:
     for target in argv or ["small", "real"]:
         name, _, size = target.partition(":")
-        if name == "small":
-            (FIXTURES / "torch_port_small.tsv").write_text(run("small"))
+        if name in ("small", "repeats"):
+            (FIXTURES / f"torch_port_{name}.tsv").write_text(run(name))
+        elif name == "toolkit":
+            toolkit(size)
         elif name == "real":
             rec = summary(run("real"), "real")
             (FIXTURES / "torch_port_real.json").write_text(
