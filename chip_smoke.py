@@ -47,7 +47,8 @@ the kernels line, the card and the result.
   7. struct-small -- through the CLI on the small structure set:
                 createsetdb of the Foldseek-style flat DB, clustersearch
                 --search-mode 2, then aa2foldseek and --search-mode 1 (which
-                must launch all four kernels); both results must equal
+                must launch the sequence and the structure kernels); both
+                results must equal
                 tests/fixtures/torch_port_struct_small{,_mode1}.tsv;
   8. struct-real -- --search-mode 2 through cluster_search_to_file on the
                 real-size structure set (4,300 + 1,600 genes), counters reset
@@ -79,7 +80,32 @@ the kernels line, the card and the result.
                 and of the records before it in its chain; at least ten
                 exist; and the masked rounds cost at most 2 launches a
                 direction beyond the main pass;
- 10. timing  -- each kernel against its plain version on the largest stage
+ 10. kernels-prof -- sw_forward_prof / sw_reverse_prof against their
+                plain version (ops/sw.py::sw_prof_jobs_ref) on a seeded
+                ragged batch: lengths 1-3,000, homologs (profiles drawn
+                round the query's substitution rows), planted ties,
+                zero-score pairs, profile values at -32 and 31, a 9,000 x
+                9,000 and a 40,000 x 600 pair; all six outputs equal.  Then
+                every compiled class on edge_batch_prof (edge_batch's pairs
+                as profile rows, noise off the planted pairs), as in
+                phase 3;
+ 11. profile-small -- through the CLI on the small set: createsetdb,
+                clusterdb (and --single-step-clustering 0), each ClusterDB
+                equal to the JAX-recorded directory
+                tests/fixtures/torch_port_small_clu{,_cascade} (clusters,
+                every array, the clu_aln lines), then clustersearch
+                --filter-self-match --profile-cluster-search --cluster-db
+                over the port's directory and over the JAX-written one: both
+                TSVs equal tests/fixtures/torch_port_small_profile.tsv byte
+                for byte, and the prof kernels and K1/K2 launch;
+ 12. profile-real -- clusterdb and the profile cluster search through
+                cluster_db / cluster_search_to_file on the real-size set,
+                counters reset just before and read just after (both prof
+                kernels and K1/K2 must launch), held to invariants: every
+                key in exactly one cluster, every representative's clu_aln
+                holding its self alignment, every representative of >= 100
+                aa finding its own profile with E < 1e-10;
+ 13. timing  -- each kernel against its plain version on the largest stage
                 the real runs dispatched, with the main path's own resident
                 tensors: equal outputs, milliseconds (the launches alone, by
                 the events the wrapper records round them, and the wrapper's
@@ -117,8 +143,9 @@ SEED = 0
 TOL = 0                 # integer DP: kernel and plain version agree exactly
 STRUCT_GO = 10          # foldseek's gap costs in structure mode
 STRUCT_REPLACES = "spacedust_tpu/ops/sw_engine.py:608"
-PHASES = ("kernels", "kernels-struct", "small", "real", "struct-small",
-          "struct-real", "toolkit", "timing")
+PHASES = ("kernels", "kernels-struct", "kernels-prof", "small", "real",
+          "struct-small", "struct-real", "toolkit", "profile-small",
+          "profile-real", "timing")
 ALT_ALI = 2             # --alt-ali of the toolkit phase
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM, and
 # 67 TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x
@@ -131,9 +158,12 @@ INT32_PER_S = 67e12 / 4
 # (max-plus-relu, max), F (add, max-plus), column max = 10; the reverse
 # cell's tracker is compare, max, select in place of the column max = 12;
 # the second channel of the structure cell adds its lookup address and its
-# sum.  What a body spends beside these (a mask for rows past qlen,
-# register moves, shuffles) is its own cost and stands outside the bound.
-CELL_INT32 = {"fwd": 10, "rev": 12, "fwd_struct": 12, "rev_struct": 14}
+# sum.  The profile cell reads its score from the query's profile row: no
+# bias and no int8 wrap, so 10 - 2 = 8 forward and 12 - 2 = 10 reverse.
+# What a body spends beside these (a mask for rows past qlen, register
+# moves, shuffles) is its own cost and stands outside the bound.
+CELL_INT32 = {"fwd": 10, "rev": 12, "fwd_struct": 12, "rev_struct": 14,
+              "fwd_prof": 8, "rev_prof": 10}
 # direction -> (wrapper, replaced TPU kernel / device program, launch
 # counter)
 KERNELS = {
@@ -144,7 +174,12 @@ KERNELS = {
     "fwd_struct": ("sw_forward_struct", STRUCT_REPLACES,
                    "FORWARD_STRUCT_LAUNCHES"),
     "rev_struct": ("sw_reverse_struct", STRUCT_REPLACES,
-                   "REVERSE_STRUCT_LAUNCHES")}
+                   "REVERSE_STRUCT_LAUNCHES"),
+    "fwd_prof": ("sw_forward_prof", "spacedust_tpu/ops/sw.py:125",
+                 "FORWARD_PROF_LAUNCHES"),
+    "rev_prof": ("sw_reverse_prof", "spacedust_tpu/ops/sw.py:137",
+                 "REVERSE_PROF_LAUNCHES")}
+PROF_COLS = 21          # profile columns a residue (20 amino acids and X)
 GATHER = "spacedust_tpu/ops/sw_engine.py:82"     # fused into the kernels
 
 
@@ -453,6 +488,81 @@ def edge_batch_struct(rows: int, m3di: np.ndarray, aasc: np.ndarray,
     return [q, qaa, b, t, taa], jobs, expect
 
 
+def kernel_batch_prof(sub: np.ndarray, seed: int = SEED):
+    """Resident profile rows (flat, PROF_COLS a residue) and target tokens
+    and a (5, n) forward job array: 2,000 ragged pairs of 1-3,000 residues
+    (homologs, whose profiles are the query's substitution rows with noise
+    and a mutated query segment as the target; planted ties, a motif twice
+    in the target; zero-score pairs, every value -32; length-1 pairs;
+    rows at the extremes -32 and 31), then a 9,000 x 9,000 and a 40,000 x
+    600 homolog pair."""
+    rng = np.random.default_rng(seed + 2)
+    n = 2000
+    ql = np.minimum(np.exp(rng.uniform(0, np.log(3000), n)), 3000)
+    tl = np.minimum(np.exp(rng.uniform(0, np.log(3000), n)), 3000)
+    ql, tl = ql.astype(np.int64), tl.astype(np.int64)
+    ql[:8] = 1
+    tl[8:16] = 1
+    ql[16:20] = tl[16:20] = 1
+
+    def profile(q):
+        prof = sub[q].astype(np.int32) + rng.integers(-3, 4, (len(q),
+                                                              PROF_COLS))
+        return np.clip(prof, -32, 31).astype(np.int8)
+
+    ps, ts = [], []
+    for p in range(n):
+        q = rng.integers(0, 21, ql[p]).astype(np.uint8)
+        prof = profile(q)
+        kind = p % 8
+        if kind in (0, 1, 2) and ql[p] > 20:          # homolog
+            lo = int(rng.integers(0, ql[p] // 2))
+            t = _mutate(rng, q[lo:lo + int(tl[p])], int(rng.integers(5, 60)))
+        elif kind == 3 and ql[p] > 24:                # tie: motif twice
+            m = q[:min(int(ql[p]) // 2, 40)]
+            gap = rng.integers(0, 20, int(rng.integers(0, 30)))
+            t = np.concatenate([m, gap.astype(np.uint8), m])
+        else:
+            t = rng.integers(0, 21, tl[p]).astype(np.uint8)
+        if kind == 4:
+            prof[:] = -32                             # every cell < 0
+        elif kind == 5:                               # the extremes
+            prof = np.where(rng.integers(0, 2, prof.shape) == 1, 31,
+                            -32).astype(np.int8)
+        ps.append(prof)
+        ts.append(t)
+    for qlen, tlen in ((9000, 9000), (40000, 600)):
+        q = rng.integers(0, 20, qlen).astype(np.uint8)
+        lo = (qlen - tlen) // 2
+        ps.append(profile(q))
+        ts.append(_mutate(rng, q[lo:lo + tlen], 25)[:tlen])
+    qlen = np.array([len(x) for x in ps], np.int64)
+    tlen = np.array([len(t) for t in ts], np.int64)
+    qoff = np.concatenate(([0], np.cumsum(qlen)[:-1]))
+    toff = np.concatenate(([0], np.cumsum(tlen)[:-1]))
+    jobs = np.stack([qoff, qlen, toff, tlen, np.full(len(ps), -1)])
+    return ([np.concatenate(ps).reshape(-1), np.concatenate(ts)],
+            np.ascontiguousarray(jobs, dtype=np.int64))
+
+
+def edge_batch_prof(rows: int, sub: np.ndarray, seed: int = SEED):
+    """edge_batch as profile rows: residue i of a query becomes the row
+    sub[q_i] + bias_i (cast to int8).  Off the planted pairs every row
+    also gets noise in -3..3 on all 21 values, so that the cell is not
+    the sequence cell in disguise.  Returns resident (profile rows,
+    targets), the forward jobs and the planted ties' results."""
+    q, b, t, jobs, expect = edge_batch(rows, sub, seed + 300)
+    prof = (sub[q].astype(np.int32) + b[:, None]).astype(np.int8)
+    rng = np.random.default_rng(seed + 400 + rows)
+    for p in range(jobs.shape[1]):
+        if p in expect:
+            continue
+        off, n = jobs[:2, p]
+        noise = rng.integers(-3, 4, (n, PROF_COLS))
+        prof[off:off + n] = (prof[off:off + n] + noise).astype(np.int8)
+    return [prof.reshape(-1), t], jobs, expect
+
+
 def reverse_jobs(jobs: np.ndarray, fwd: np.ndarray) -> np.ndarray:
     """Reverse-pass jobs for the pairs with a positive forward score:
     prefixes [0..q_end] x [0..t_end], terminate = the forward score."""
@@ -474,8 +584,10 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> int:
 def plain(d: str):
     """The plain version of direction d's kernel, with the wrapper's
     arguments."""
-    from spacedust_tpu_torch.ops.sw import sw_jobs_ref, sw_struct_jobs_ref
-    ref = sw_struct_jobs_ref if d.endswith("struct") else sw_jobs_ref
+    from spacedust_tpu_torch.ops.sw import (sw_jobs_ref, sw_prof_jobs_ref,
+                                            sw_struct_jobs_ref)
+    ref = (sw_struct_jobs_ref if d.endswith("struct")
+           else sw_prof_jobs_ref if d.endswith("prof") else sw_jobs_ref)
     return lambda *args: ref(*args, reverse=d.startswith("rev"))
 
 
@@ -512,24 +624,29 @@ def check_batch(tag: str, resident: list, jobs: np.ndarray, go: int,
               f"kernel {k_ms:.1f} ms, plain {p_ms:.1f} ms")
 
 
-def check_edges(tables: list, errs: dict) -> None:
-    """Each compiled class of the kernels' body on edge_batch (tables:
-    [sub]) or edge_batch_struct (tables: [m3di, aasc], on the card), every
-    pair forced into the class (a plan of one class, handed to the
-    wrappers' launcher); the planted ties where the design puts them."""
+def check_edges(tables: list, errs: dict, cell: str = "seq") -> None:
+    """Each compiled class of the kernels' body on edge_batch (cell "seq",
+    tables: [sub]), edge_batch_struct ("struct", tables: [m3di, aasc]) or
+    edge_batch_prof ("prof", tables: [sub], from which the profile rows
+    are made), on the card, every pair forced into the class (a plan of
+    one class, handed to the wrappers' launcher); the planted ties where
+    the design puts them."""
     from spacedust_tpu_torch.ops import sw_cuda
-    struct = len(tables) == 2
     tabs = [m.cpu().numpy().astype(np.int32) for m in tables]
-    d_fwd, d_rev, go, tag = (("fwd_struct", "rev_struct", STRUCT_GO,
-                              "kernels-struct") if struct
-                             else ("fwd", "rev", GO, "kernels"))
+    d_fwd, d_rev, go, tag = {
+        "seq": ("fwd", "rev", GO, "kernels"),
+        "struct": ("fwd_struct", "rev_struct", STRUCT_GO, "kernels-struct"),
+        "prof": ("fwd_prof", "rev_prof", GO, "kernels-prof")}[cell]
     for rows in sw_cuda.LANE_ROWS:
-        if struct:
+        if cell == "struct":
             arrays, jobs, expect = edge_batch_struct(rows, *tabs)
+        elif cell == "prof":
+            arrays, jobs, expect = edge_batch_prof(rows, *tabs)
         else:
             *arrays, jobs, expect = edge_batch(rows, *tabs)
-        res = [torch.from_numpy(a).to(tables[0].device)
-               for a in arrays] + tables
+        res = [torch.from_numpy(a).to(tables[0].device) for a in arrays]
+        if cell != "prof":
+            res += tables
 
         def both(d, js, what):
             reverse = d == d_rev
@@ -568,6 +685,14 @@ def check_kernels(sub: torch.Tensor, errs: dict) -> None:
     check_edges([sub], errs)
 
 
+def check_kernels_prof(sub: torch.Tensor, errs: dict) -> None:
+    arrays, jobs = kernel_batch_prof(sub.cpu().numpy().astype(np.int32))
+    resident = [torch.from_numpy(a).to(sub.device) for a in arrays]
+    check_batch("kernels-prof", resident, jobs, GO, ("fwd_prof", "rev_prof"),
+                errs)
+    check_edges([sub], errs, cell="prof")
+
+
 def check_kernels_struct(dev: torch.device, errs: dict) -> None:
     from spacedust_tpu_torch.search.structure import combined_matrices
     arrays, jobs = kernel_batch_struct()
@@ -577,7 +702,7 @@ def check_kernels_struct(dev: torch.device, errs: dict) -> None:
     resident = [torch.from_numpy(a).to(dev) for a in arrays] + tables
     check_batch("kernels-struct", resident, jobs, STRUCT_GO,
                 ("fwd_struct", "rev_struct"), errs)
-    check_edges(tables, errs)
+    check_edges(tables, errs, cell="struct")
 
 
 # ------------------------------------------------------- 4-6. the slices
@@ -700,7 +825,8 @@ def struct_small(work: Path) -> None:
                      "--device", "cuda"]) != 0:
             fail(f"clustersearch --search-mode {mode} (struct-small) failed")
         launched = {d: n - before[d] for d, n in read_counts().items()}
-        need = KERNELS if mode == 1 else ("fwd_struct", "rev_struct")
+        need = (("fwd", "rev", "fwd_struct", "rev_struct") if mode == 1
+                else ("fwd_struct", "rev_struct"))
         if any(launched[d] <= 0 for d in need):
             fail(f"--search-mode {mode} did not launch {list(need)}: "
                  f"{launched}")
@@ -715,14 +841,18 @@ def struct_small(work: Path) -> None:
               f"launches {launched} ({time.perf_counter() - t0:.1f} s)")
 
 
-def self_hits_ok(db, tmp: Path) -> int:
-    """Every gene of >= 100 aa finds itself with E < 1e-10 in the result
-    checkpoint (the per-query alignment records); returns the count."""
+def self_hits_ok(db, tmp: Path, among=None) -> int:
+    """Every gene of >= 100 aa (of `among`, default all) finds itself with
+    E < 1e-10 in the result checkpoint (the per-query alignment records);
+    returns the count."""
     from spacedust_tpu_torch.db.mmseqs_io import FlatDB
     res = FlatDB.open(next(tmp.glob("*/result.index")).with_suffix(""))
     keys = set(res.keys())
     missing = []
-    for k in np.nonzero(db.lengths >= 100)[0].tolist():
+    long = np.nonzero(db.lengths >= 100)[0]
+    if among is not None:
+        long = np.intersect1d(long, np.asarray(among, dtype=np.int64))
+    for k in long.tolist():
         lines = res.lines(k) if k in keys else []
         if not any(int(c[0]) == k and float(c[3]) < 1e-10
                    for c in (ln.split("\t") for ln in lines)):
@@ -730,7 +860,7 @@ def self_hits_ok(db, tmp: Path) -> int:
     if missing:
         fail(f"{len(missing)} genes of >= 100 aa lack a self hit with "
              f"E < 1e-10 (first: {missing[:5]})")
-    return int((db.lengths >= 100).sum())
+    return len(long)
 
 
 def struct_run(work: Path, dev: torch.device, size: str,
@@ -996,15 +1126,146 @@ def toolkit_phase(work: Path, sub: torch.Tensor, errs: dict) -> dict:
     return toolkit_real(work)
 
 
+# ------------------------------------------------- 11-12. profile search
+def cdb_differs(got, want) -> str | None:
+    """Where two ClusterDBs differ (None when they are equal): clusters,
+    representatives, every array with its dtype, the clu_aln lines."""
+    if got.clusters != want.clusters or got.rep_keys != want.rep_keys:
+        return "clusters"
+    for name in ("pssms", "aln_profiles", "consensus", "query_seqs"):
+        a, b = getattr(got, name), getattr(want, name)
+        for k in want.rep_keys:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                return f"{name} of representative {k}"
+    for k in want.rep_keys:
+        if ([r.line() for r in got.clu_aln[k]]
+                != [r.line() for r in want.clu_aln[k]]):
+            return f"clu_aln of representative {k}"
+    return None
+
+
+def profile_small(work: Path) -> None:
+    """clusterdb (both clusterings) and the profile cluster search through
+    the CLI on the small set, against the JAX-recorded fixtures."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.workflow.clusterdb import ClusterDB
+    fixtures = ROOT / "tests" / "fixtures"
+    t0 = time.perf_counter()
+    fa = synth.write_genome_set(work / "prof_small", "small")
+    db = str(work / "prof_small_db")
+    run_cli(["createsetdb", *map(str, fa), db])
+    before = read_counts()
+    for out, flags, name in (
+            (db + "_clu", [], "torch_port_small_clu"),
+            (str(work / "prof_small_cascade"),
+             ["--single-step-clustering", "0"],
+             "torch_port_small_clu_cascade")):
+        run_cli(["clusterdb", db, out, *flags, "--device", "cuda"])
+        where = cdb_differs(ClusterDB.load(out), ClusterDB.load(fixtures
+                                                                 / name))
+        if where:
+            fail(f"profile-small: clusterdb {flags} differs from {name} in "
+                 f"{where}")
+    want = (fixtures / "torch_port_small_profile.tsv").read_bytes()
+    for cdir in (db + "_clu", fixtures / "torch_port_small_clu"):
+        out = work / "prof_small.tsv"
+        run_cli(["clustersearch", db, db, str(out), "--filter-self-match",
+                 "--profile-cluster-search", "--cluster-db", str(cdir),
+                 "--device", "cuda"])
+        if out.read_bytes() != want:
+            fail(f"profile-small: the TSV over {cdir} differs from "
+                 f"torch_port_small_profile.tsv")
+    launched = {d: n - before[d] for d, n in read_counts().items()}
+    if any(launched[d] <= 0 for d in ("fwd", "rev", "fwd_prof", "rev_prof")):
+        fail(f"profile-small did not launch K1/K2 and both prof kernels: "
+             f"{launched}")
+    print(f"[profile-small] clusterdb (both clusterings) equal to the JAX "
+          f"directories; the profile search over the port's and over the "
+          f"JAX-written ClusterDB equal to the JAX TSV "
+          f"({counts(want.decode())[0]} hits); launches {launched} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def profile_real(work: Path, dev: torch.device) -> tuple[dict, dict]:
+    """clusterdb and the profile cluster search at real size, held to
+    invariants.  Returns the launch counts of the run and the largest
+    profile stages."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.cluster.summarize import canonical_sha256
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.workflow.clusterdb import cluster_db
+    from spacedust_tpu_torch.workflow.clustersearch import (
+        ClusterSearchParams, cluster_search_to_file)
+    from spacedust_tpu_torch.workflow.createsetdb import create_setdb
+    fa = synth.write_genome_set(work / "prof_real", "real")
+    db = create_setdb([str(p) for p in fa], str(work / "prof_real_db"))
+    tmp = work / "prof_real_tmp"
+    stages: dict = {}
+    with recording(stages, ("fwd_prof", "rev_prof")):
+        sw_cuda.reset_counts()
+        t0 = time.perf_counter()
+        cm: dict = {}
+        cdb = cluster_db(db, device=dev, metrics=cm)
+        torch.cuda.synchronize()
+        t_cdb = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = cluster_search_to_file(
+            db, db, str(work / "prof_real.tsv"), str(tmp),
+            params=ClusterSearchParams(filter_self_match=True,
+                                       profile_cluster_search=True),
+            target_cluster_db=cdb, device=dev)
+        torch.cuda.synchronize()
+        t_search = time.perf_counter() - t0
+        launches = read_counts()
+    if any(launches[d] <= 0 for d in ("fwd", "rev", "fwd_prof", "rev_prof")):
+        fail(f"profile-real did not launch K1/K2 and both prof kernels: "
+             f"{launches}")
+    keys = sorted(k for ms in cdb.clusters.values() for k in ms)
+    if keys != list(range(db.size)) or sorted(cdb.clusters) != cdb.rep_keys:
+        fail("profile-real: the clusters do not hold every key exactly once")
+    no_self = [r for r in cdb.rep_keys
+               if not any(a.tkey == r for a in cdb.clu_aln[r])]
+    if no_self:
+        fail(f"profile-real: {len(no_self)} representatives lack their self "
+             f"alignment in clu_aln (first: {no_self[:5]})")
+    n_self = self_hits_ok(db, tmp, among=cdb.rep_keys)
+    tm = res.timings
+    pd = tm["profile_detail"]
+    ad = pd["align_detail"]
+    hits, clusters = counts(res.tsv)
+    sizes = collections.Counter(len(v) for v in cdb.clusters.values())
+    print(f"[profile-real] {db.size} genes, {len(db.seq_data)} residues; "
+          f"clusterdb {t_cdb:.2f} s = clustering {cm['cluster_s']:.2f} "
+          f"(prefilter {cm['prefilter_s']:.2f}, align {cm['align_s']:.2f}) + "
+          f"profiles {cm['profiles_s']:.2f} + clu_aln {cm['clu_aln_s']:.2f}; "
+          f"{len(cdb.rep_keys)} clusters, {sum(n for k, n in sizes.items() if k > 1)} "
+          f"with several members (largest {max(sizes)})")
+    print(f"[profile-real] profile cluster search {t_search:.2f} s = "
+          f"profile index {pd['index_s']:.2f} + match {pd['match_s']:.2f} "
+          f"+ align {pd['align_s']:.2f} + swap {pd['swap_s']:.2f} + expand "
+          f"{tm['expandaln']:.2f} + aggregate {tm['aggregate']:.2f}")
+    print(f"[profile-real] profile align detail {json.dumps(ad)}")
+    print(f"[profile-real] clustering align detail "
+          f"{json.dumps(cm['cluster_align_detail'])}")
+    print(f"[profile-real] launches {launches}; {hits} hits / {clusters} "
+          f"clusters, canonical sha256 {canonical_sha256(res.tsv)}; every "
+          f"key in one cluster, every clu_aln with its self alignment, "
+          f"{n_self} representatives of >= 100 aa find their own profile "
+          f"with E < 1e-10; no JAX fixture at this size (its numpy profile "
+          f"index would hold ~1.2e9 postings)")
+    return launches, stages
+
+
 def bound_ms(d: str, js: np.ndarray) -> tuple[float, str]:
     """The least milliseconds the card could take for stage js of
     direction d, and what sets it.  Bytes: every token and bias byte of
     the stage's pairs read once (one byte a query residue and channel,
-    one for its bias, one a target residue and channel), 40 bytes of job
-    and 24 of result a pair.  Operations: CELL_INT32 instructions a
-    cell."""
+    one for its bias, one a target residue and channel; a profile query
+    residue is its PROF_COLS-byte row), 40 bytes of job and 24 of result a
+    pair.  Operations: CELL_INT32 instructions a cell."""
     channels = 2 if d.endswith("struct") else 1
-    nbytes = (int(js[1].sum()) * (channels + 1) + int(js[3].sum()) * channels
+    per_query = PROF_COLS if d.endswith("prof") else channels + 1
+    nbytes = (int(js[1].sum()) * per_query + int(js[3].sum()) * channels
               + 64 * js.shape[1])
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     by_ops = 1e3 * cells(js) * CELL_INT32[d] / INT32_PER_S
@@ -1138,8 +1399,10 @@ def parse_phases(argv: list) -> tuple:
     unknown = [x for x in names if x not in PHASES]
     if unknown or not names:
         ap.error(f"unknown phases {unknown}; choose from {PHASES}")
-    if "timing" in names and not {"real", "struct-real"} & set(names):
-        ap.error("timing times the stages that real / struct-real dispatch")
+    if "timing" in names and not ({"real", "struct-real", "profile-real"}
+                                  & set(names)):
+        ap.error("timing times the stages that real / struct-real / "
+                 "profile-real dispatch")
     return tuple(x for x in PHASES if x in names)
 
 
@@ -1178,6 +1441,8 @@ def main(argv: list | None = None) -> int:
         check_kernels(sub, errs)
     if "kernels-struct" in phases:
         check_kernels_struct(dev, errs)
+    if "kernels-prof" in phases:
+        check_kernels_prof(sub, errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "small" in phases:
             small_slice(Path(tmp))
@@ -1192,6 +1457,13 @@ def main(argv: list | None = None) -> int:
             stages.update(s_stages)
         if "toolkit" in phases:
             tk_launches = toolkit_phase(Path(tmp), sub, errs)
+        if "profile-small" in phases:
+            profile_small(Path(tmp))
+        if "profile-real" in phases:
+            p_launches, p_stages = profile_real(Path(tmp), dev)
+            launches.update({d: p_launches[d]
+                             for d in ("fwd_prof", "rev_prof")})
+            stages.update(p_stages)
     report = (time_stages(stages, launches, errs, card)
               if "timing" in phases else [])
     torch.cuda.synchronize()
@@ -1204,8 +1476,10 @@ def main(argv: list | None = None) -> int:
     for entry, d in zip(report, KERNELS):
         # the toolkit's own path: search --alt-ali at real size
         entry["launches_toolkit"] = tk_launches[d]
-        if not d.endswith("struct") and tk_launches[d] <= 0:
+        if d in ("fwd", "rev") and tk_launches[d] <= 0:
             fail(f"the toolkit's search did not launch {entry['name']}")
+        # the profile path: clusterdb and the profile search at real size
+        entry["launches_profile"] = p_launches[d]
 
     print(json.dumps({"kernels": report}))
     print(card_line())

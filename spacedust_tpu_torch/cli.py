@@ -1,13 +1,14 @@
 """Command-line interface: the reference's commands
 (src/spacedust.cpp:26-120) with its flag names, plus `--device` for where
-the SW passes run: `createsetdb`, `clustersearch`, `aa2foldseek`, the
-module stages `besthitbyset`, `mergeresultsbyset`, `combinehits`,
-`clusterhits` and `summarizeresults`, and the inherited `search` and
+the SW passes run: `createsetdb`, `clusterdb`, `clustersearch` (with
+`--profile-cluster-search [--cluster-db DIR]`), `aa2foldseek`, the module
+stages `besthitbyset`, `mergeresultsbyset`, `combinehits`, `clusterhits`
+and `summarizeresults`, and the inherited `search` and
 `convertalignments`.
 
 A flag or command whose code path is not ported yet is registered and
 fails when the arguments are parsed, naming its ROADMAP item (NOT_PORTED,
-`gff2db`, `clusterdb`).
+`gff2db`).
 
 Run as `python -m spacedust_tpu_torch <command> ...`.
 """
@@ -29,15 +30,13 @@ from .db.setdb import SetDB
 # pass (they switch the feature off in the reference too).
 NOT_PORTED = {
     "split_memory_limit": (0, "A7"),
-    "profile_cluster_search": (False, "A10"),
-    "cluster_db": (None, "A10"),
     "multihost": (1, "A8"),
     "multihost_local_devices": (1, "A8"),
     "gff_dir": (None, "A11b"),
     "gff_type": ("CDS", "A11b"),
     "translation_table": (1, "A11b"),
-    "num_iterations": (1, "A10"),
-    "e_profile": (0.1, "A10"),
+    "num_iterations": (1, "A10b"),
+    "e_profile": (0.1, "A10b"),
     "search_type": (1, "A11b"),
 }
 _ABOVE = {"split_memory_limit", "multihost", "num_iterations", "search_type"}
@@ -124,8 +123,12 @@ def _add_clustersearch_args(p: argparse.ArgumentParser) -> None:
                    help="aa2foldseek output dir of the query/target "
                         "(search-mode 1; default <db>_foldseek)")
     p.add_argument("--profile-cluster-search", action="store_true",
-                   help="not ported yet (ROADMAP A10)")
-    p.add_argument("--cluster-db", help="not ported yet (ROADMAP A10)")
+                   help="search the target's cluster-representative "
+                        "profiles, then expand the hits to the members")
+    p.add_argument("--cluster-db",
+                   help="clusterdb dir of the target (profile cluster "
+                        "search; default <target_db>_clu, built there "
+                        "when absent)")
     p.add_argument("--multihost", type=int, default=0,
                    help="N > 1 is not ported yet (ROADMAP A8)")
     p.add_argument("--multihost-local-devices", type=int, default=1,
@@ -203,6 +206,11 @@ def cmd_clustersearch(argv: list[str]) -> int:
     _check_max_seq_len(qdb, a.max_seq_len)
     if tdb is not qdb:
         _check_max_seq_len(tdb, a.max_seq_len)
+    cdb = None
+    if a.profile_cluster_search:
+        from .workflow.clusterdb import cluster_db_cached
+        cdb = cluster_db_cached(tdb, a.cluster_db or (a.target_db + "_clu"),
+                                device=device)
     qmap = tmap = None
     if a.search_mode == 1:
         from .workflow.aa2foldseek import load_mapping
@@ -212,6 +220,7 @@ def cmd_clustersearch(argv: list[str]) -> int:
                 else load_mapping(a.target_db.rstrip("/") + "_foldseek"))
     t0 = time.time()
     res = cluster_search_to_file(qdb, tdb, a.output, a.tmp_dir, params=params,
+                                 target_cluster_db=cdb,
                                  query_mapping=qmap, target_mapping=tmap,
                                  device=device)
     if res.seq_to_clu:
@@ -229,6 +238,39 @@ def cmd_clustersearch(argv: list[str]) -> int:
     for k, v in res.timings.items():
         if isinstance(v, float):
             print(f"  {k}: {v:.2f}s")
+    print(f"  detail: {json.dumps(res.timings)}")
+    return 0
+
+
+def cmd_clusterdb(argv: list[str]) -> int:
+    from .cluster.seqcluster import SeqClusterParams
+    from .workflow.clusterdb import ClusterDBParams, cluster_db
+    p = argparse.ArgumentParser(prog="spacedust clusterdb")
+    p.add_argument("in_db")
+    p.add_argument("out_dir", nargs="?",
+                   help="output dir (default <in_db>_clu)")
+    _device_arg(p)
+    p.add_argument("--min-seq-id", type=float, default=0.7)
+    p.add_argument("-c", "--cov-thr", type=float, default=0.8)
+    p.add_argument("--cov-mode", type=int, default=0)
+    p.add_argument("--cluster-mode", type=int, default=0)
+    p.add_argument("-s", "--sensitivity", type=float, default=4.0)
+    p.add_argument("--single-step-clustering", type=int, default=1,
+                   help="0: cascaded clustering (linclust pass + "
+                        "sensitivity ramp), 1: one direct round")
+    a = p.parse_args(argv)
+    device = _device(a)
+    db = SetDB.load(a.in_db)
+    par = ClusterDBParams(cluster=SeqClusterParams(
+        seq_id_thr=a.min_seq_id, cov_thr=a.cov_thr, cov_mode=a.cov_mode,
+        sensitivity=a.sensitivity, mode=a.cluster_mode),
+        single_step_clustering=bool(a.single_step_clustering))
+    detail: dict = {}
+    cdb = cluster_db(db, par, device=device, metrics=detail)
+    out = a.out_dir or (a.in_db + "_clu")
+    cdb.save(out)
+    print(f"clusterdb: {db.size} seqs -> {len(cdb.rep_keys)} clusters -> {out}")
+    print(f"  detail: {json.dumps(detail)}")
     return 0
 
 
@@ -472,9 +514,9 @@ def cmd_search(argv: list[str]) -> int:
     p.add_argument("--max-seq-len", type=int, default=65535)
     p.add_argument("--num-iterations", type=int, default=1,
                    help="more than 1 (iterative profile search) is not "
-                        "ported yet (ROADMAP A10)")
+                        "ported yet (ROADMAP A10b)")
     p.add_argument("--e-profile", type=float, default=0.1,
-                   help="not ported yet (ROADMAP A10)")
+                   help="not ported yet (ROADMAP A10b)")
     p.add_argument("--format-mode", type=int, default=0,
                    help="0: key-prefixed alignment TSV, 4: BLAST-tab "
                         "with column headers, 1: BLAST-tab")
@@ -536,7 +578,7 @@ COMMANDS = {
     "createsetdb": cmd_createsetdb,
     "gff2db": _not_ported_command("gff2db", "A11b"),
     "aa2foldseek": cmd_aa2foldseek,
-    "clusterdb": _not_ported_command("clusterdb", "A10"),
+    "clusterdb": cmd_clusterdb,
     "clustersearch": cmd_clustersearch,
     "besthitbyset": cmd_besthitbyset,
     "combinehits": cmd_combinehits,

@@ -32,7 +32,17 @@
 //   s = int8(m3di[q_ss_i][t_ss_j] + bias3di_i) + int8(aa[q_aa_i][t_aa_j]),
 // with both 21x21 tables in shared memory; sw_forward_struct /
 // sw_reverse_struct are the same DP otherwise, and the same body
-// (kStruct).
+// (kStructCell).
+//
+// Profile queries (spacedust_tpu/ops/sw.py::sw_forward_from_profiles /
+// sw_reverse_from_profiles, the XLA scan ops/sw_tiled.py::sw_scan_core
+// over explicit (B, 21, Lq) profiles): the cell score is read from a
+// per-position int8 profile of 21 columns (20 amino acids and X),
+//   s = prof[q_i][t_j],
+// with no bias and no wrap (the values are int8 already); the query side
+// is one resident int8 array (sum of query lengths, 21), row-major, at
+// the token arrays' offsets.  sw_forward_prof / sw_reverse_prof are the
+// same DP otherwise, and the same body (kProfCell).
 //
 // One DP body (sw_warp_pair): a warp owns a pair.
 // What bounds the DP on this card is the integer instruction rate, not
@@ -40,11 +50,12 @@
 // instructions (the lookup's address, the int8 wrap's add and sign
 // extension, add and max-plus for each of E, H and F, the column max; 12
 // with the reverse tracker; the second channel adds its lookup's address
-// and the sum) beside one shared-memory load a channel, so 132 SMs x
-// 64 int32 lanes set the ceiling.  This body spends 13.5 a cell at R = 16
-// in the sequence kernels: the mask that holds rows past qlen at 0 (a
-// compare and a select), the moves of the H history and a step's
-// shuffles come on top.
+// and the sum; the profile cell drops the address and the wrap: 8 and 10)
+// beside one shared-memory load a channel, so 132 SMs x 64 int32 lanes
+// set the ceiling.  This body spends 13.5 a cell at R = 16 in the
+// sequence kernels: the mask that holds rows past qlen at 0 (a compare
+// and a select), the moves of the H history and a step's shuffles come on
+// top.
 // The card reaches it only when every lane works, so the design is about
 // keeping lanes busy whatever the stage holds: one giant pair, a few
 // thousand reverse pairs, or 900,000 short ones.
@@ -75,10 +86,22 @@
 //     stage lasts no less than its longest pair takes on a lone warp
 //     (~22 ms for 5,917 x 5,496 on an H100 80GB HBM3 at 700 W).
 //   * Registers: a row costs a lane 4 of them in the sequence kernels
-//     (token, bias, H, E) and 5 in structure mode (the second token).  The
-//     sequence kernels keep 4 blocks of 4 warps an SM (at most 128
-//     registers a thread); the structure kernels take 3 (at most 168), so
-//     that R = 16 holds its rows without spilling.
+//     (token, bias, H, E), 5 in structure mode (the second token) and 2 in
+//     the profile kernels (H, E).  The sequence and profile kernels keep 4
+//     blocks of 4 warps an SM (at most 128 registers a thread); the
+//     structure kernels take 3 (at most 168), so that R = 16 holds its rows
+//     without spilling.
+//   * Profile rows live in shared memory, not in registers: at each strip's
+//     start a lane copies its R rows (flipped for the reverse pass) into
+//     its own slots of its warp's region, token-major (a token's 32 * R
+//     rows are contiguous), so the lane that owns a row is the only one to
+//     write or read it and no synchronisation is needed.  A column's cell
+//     reads lane l's row r at byte l * R + r of the token's rows: lanes
+//     R / 4 words apart, which is conflict-free for R = 4 and 12.  For
+//     R = 8 and 16 (2- and 4-way conflicts) the R / 4 words of a lane's
+//     block are rotated by l * (R / 4) / 32, which puts the 32 lanes in 32
+//     banks.  A warp's region holds 21 x 32 x 16 bytes (10.5 KB, 42 KB a
+//     block).
 //   * F_i = max(F_{i-1} - ge, Hb_{i-1} - go) with Hb the cell before F
 //     joins it: equal to the textbook max(F - ge, H - go) when go >= ge
 //     (the wrapper checks it) and one instruction shorter on the chain
@@ -105,9 +128,16 @@ namespace {
 
 constexpr int kAlphaPad = 32;  // score table row pitch in shared memory
 constexpr int kTable = kAlphaPad * kAlphaPad;
+constexpr int kProfCols = 21;   // profile columns: 20 amino acids and X
+constexpr int kMaxRows = 16;    // the largest class of rows a lane
+constexpr int kProfRegion = kProfCols * 32 * kMaxRows;  // bytes a warp
 constexpr int kNeg = -(1 << 30);
 constexpr int kWarps = 4;              // pairs per block
 constexpr unsigned kFull = 0xffffffffu;
+
+// where a cell's score comes from: a 21x21 table with the query's bias
+// (sequence), two tables (structure), a per-position profile (profile)
+enum Cell { kSeqCell, kStructCell, kProfCell };
 
 // Structure mode's second score channel: the tokens it reads (at the
 // offsets of the first channel's) and its table, which takes no bias.
@@ -132,8 +162,9 @@ template <> struct Boundary<true> { using type = int4; };
 
 // One pair on the calling warp, R query rows a lane; writes the pair's six
 // outputs at out[. * out_stride].  s_tab: the first channel's table, then
-// (kStruct) the second's.
-template <bool kReverse, bool kStruct, int R>
+// (kStructCell) the second's; kProfCell: the warp's profile region, and
+// qdata the resident int8 profile rows.
+template <bool kReverse, int kCell, int R>
 __device__ __forceinline__ void sw_warp_pair(
     const int8_t* s_tab, const uint8_t* __restrict__ qdata,
     const int8_t* __restrict__ qbias, const uint8_t* __restrict__ tdata,
@@ -141,7 +172,20 @@ __device__ __forceinline__ void sw_warp_pair(
     int64_t qoff, int qlen, int64_t toff, int tlen, int term, int go,
     int ge, typename Boundary<kReverse>::type* __restrict__ bnd,
     int32_t* __restrict__ out, int64_t out_stride) {
+  constexpr bool kStruct = kCell == kStructCell;
+  constexpr bool kProf = kCell == kProfCell;
   const int lane = threadIdx.x & 31;
+  // kProf: this lane's slots in the warp's region; row r of the lane sits
+  // at byte goff[r / 4] + r % 4 of its block (see the note at the top)
+  int8_t* const s_lane = const_cast<int8_t*>(s_tab) + lane * R;
+  constexpr int kWords = R / 4;
+  int goff[kProf ? kWords : 1];
+  if constexpr (kProf) {
+#pragma unroll
+    for (int g = 0; g < kWords; ++g)
+      goff[g] = (kWords % 2 == 0) ? 4 * ((g + (lane * kWords >> 5)) % kWords)
+                                  : 4 * g;
+  }
 
   int lb = 0, lj = -1, li = 0;         // forward: this lane's best so far
   int best = 0, bj = -1, bi = 0;       // reverse: lane 31, last strip
@@ -152,14 +196,22 @@ __device__ __forceinline__ void sw_warp_pair(
     const bool last = (qlen - i0 <= 32 * R);
     const int r0 = i0 + lane * R;      // this lane's first row
     const int nvalid = min(max(qlen - r0, 0), R);
-    int qt[R], qt2[kStruct ? R : 1], qb[R], Hr[R], Er[R];
+    int qt[kProf ? 1 : R], qt2[kStruct ? R : 1], qb[kProf ? 1 : R];
+    int Hr[R], Er[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = min(r0 + r, qlen - 1);
       const int64_t qi = kReverse ? qoff + qlen - 1 - i : qoff + i;
-      qt[r] = qdata[qi];
-      if constexpr (kStruct) qt2[r] = qdata2[qi];
-      qb[r] = qbias[qi];
+      if constexpr (kProf) {
+        const int8_t* row = reinterpret_cast<const int8_t*>(qdata) +
+                            qi * kProfCols;
+        int8_t* slot = s_lane + goff[r >> 2] + (r & 3);
+        for (int t = 0; t < kProfCols; ++t) slot[t * 32 * R] = row[t];
+      } else {
+        qt[r] = qdata[qi];
+        if constexpr (kStruct) qt2[r] = qdata2[qi];
+        qb[r] = qbias[qi];
+      }
       Hr[r] = 0;
       Er[r] = kNeg;
     }
@@ -223,7 +275,8 @@ __device__ __forceinline__ void sw_warp_pair(
       const int j = s - lane;
       if (static_cast<unsigned>(j) < static_cast<unsigned>(tlen)) {
         const int8_t* col =
-            s_tab + (kStruct ? tok & 0xff : tok) * kAlphaPad;
+            kProf ? s_lane + tok * (32 * R)
+                  : s_tab + (kStruct ? tok & 0xff : tok) * kAlphaPad;
         const int8_t* col2 =
             kStruct ? s_tab + kTable + (tok >> 8) * kAlphaPad : nullptr;
         int F = fin;
@@ -233,8 +286,13 @@ __device__ __forceinline__ void sw_warp_pair(
         int m = 0;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          int sc = static_cast<int8_t>(col[qt[r]] + qb[r]);
-          if constexpr (kStruct) sc += col2[qt2[r]];
+          int sc;
+          if constexpr (kProf) {
+            sc = col[goff[r >> 2] + (r & 3)];
+          } else {
+            sc = static_cast<int8_t>(col[qt[r]] + qb[r]);
+            if constexpr (kStruct) sc += col2[qt2[r]];
+          }
           const int e = __viaddmax_s32(Er[r], -ge, Hr[r] - go);
           const int hb = __viaddmax_s32_relu(diag, sc, e);
           // rows past qlen are held at H = 0
@@ -305,8 +363,8 @@ __device__ __forceinline__ void sw_warp_pair(
 // jobs rows: qoff, qlen, toff, tlen, terminate, rows (the pair's class R),
 // soff (its first boundary column in `scratch`; read only when
 // qlen > 32 * R).
-template <bool kReverse, bool kStruct>
-__global__ void __launch_bounds__(32 * kWarps, kStruct ? 3 : 4)
+template <bool kReverse, int kCell>
+__global__ void __launch_bounds__(32 * kWarps, kCell == kStructCell ? 3 : 4)
 sw_warp_kernel(const uint8_t* __restrict__ qdata,
                const int8_t* __restrict__ qbias,
                const uint8_t* __restrict__ tdata,
@@ -314,10 +372,14 @@ sw_warp_kernel(const uint8_t* __restrict__ qdata,
                const int64_t* __restrict__ jobs, int64_t job_stride, int n,
                int go, int ge, void* __restrict__ scratch,
                int32_t* __restrict__ out, int64_t out_stride) {
-  __shared__ int8_t s_tab[(kStruct ? 2 : 1) * kTable];
-  load_table(s_tab, sub, alpha);
-  if constexpr (kStruct) load_table(s_tab + kTable, ch2.sub, ch2.alpha);
-  __syncthreads();
+  constexpr bool kStruct = kCell == kStructCell;
+  __shared__ int8_t s_tab[kCell == kProfCell ? kWarps * kProfRegion
+                                             : (kStruct ? 2 : 1) * kTable];
+  if constexpr (kCell != kProfCell) {
+    load_table(s_tab, sub, alpha);
+    if constexpr (kStruct) load_table(s_tab + kTable, ch2.sub, ch2.alpha);
+    __syncthreads();
+  }
 
   const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (p >= n) return;                  // the whole warp leaves
@@ -330,9 +392,11 @@ sw_warp_kernel(const uint8_t* __restrict__ qdata,
   auto* bnd = static_cast<typename Boundary<kReverse>::type*>(scratch) +
               (qlen > 32 * rows ? jobs[6 * job_stride + p] : 0);
   // warp-uniform: the wrapper writes one of these classes
+  const int8_t* s_warp =
+      kCell == kProfCell ? s_tab + (threadIdx.x >> 5) * kProfRegion : s_tab;
   auto run = [&](auto r) {
-    sw_warp_pair<kReverse, kStruct, decltype(r)::value>(
-        s_tab, qdata, qbias, tdata, ch2.qdata, ch2.tdata, qoff, qlen, toff,
+    sw_warp_pair<kReverse, kCell, decltype(r)::value>(
+        s_warp, qdata, qbias, tdata, ch2.qdata, ch2.tdata, qoff, qlen, toff,
         tlen, term, go, ge, bnd, out + p, out_stride);
   };
   switch (rows) {
@@ -343,7 +407,7 @@ sw_warp_kernel(const uint8_t* __restrict__ qdata,
   }
 }
 
-template <bool kReverse, bool kStruct>
+template <bool kReverse, int kCell>
 int launch_warp(const void* qdata, const void* qbias, const void* tdata,
                 const void* sub, int alpha, const Second& ch2,
                 const void* jobs, long long job_stride, int n, int go,
@@ -353,8 +417,8 @@ int launch_warp(const void* qdata, const void* qbias, const void* tdata,
   if (alpha > kAlphaPad || ch2.alpha > kAlphaPad)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + kWarps - 1) / kWarps;
-  sw_warp_kernel<kReverse, kStruct><<<blocks, 32 * kWarps, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
+  sw_warp_kernel<kReverse, kCell><<<blocks, 32 * kWarps, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(qdata), static_cast<const int8_t*>(qbias),
       static_cast<const uint8_t*>(tdata), static_cast<const int8_t*>(sub),
       alpha, ch2, static_cast<const int64_t*>(jobs), job_stride, n, go, ge,
@@ -379,18 +443,20 @@ int load_kernel(K* kernel) {
 
 extern "C" {
 
-// Loads the four kernels onto the current device (CUDA loads a kernel at
+// Loads the six kernels onto the current device (CUDA loads a kernel at
 // its first use otherwise, inside whatever times that launch).  Returns
 // the first CUDA error, or 0.
 int sw_load() {
-  int rc = load_kernel(sw_warp_kernel<false, false>);
-  if (rc == 0) rc = load_kernel(sw_warp_kernel<true, false>);
-  if (rc == 0) rc = load_kernel(sw_warp_kernel<false, true>);
-  if (rc == 0) rc = load_kernel(sw_warp_kernel<true, true>);
+  int rc = load_kernel(sw_warp_kernel<false, kSeqCell>);
+  if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kSeqCell>);
+  if (rc == 0) rc = load_kernel(sw_warp_kernel<false, kStructCell>);
+  if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kStructCell>);
+  if (rc == 0) rc = load_kernel(sw_warp_kernel<false, kProfCell>);
+  if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kProfCell>);
   return rc;
 }
 
-// All four entry points.  jobs: int64 rows (qoff, qlen, toff, tlen,
+// All six entry points.  jobs: int64 rows (qoff, qlen, toff, tlen,
 // terminate, rows, soff), row stride job_stride, n pairs from the pointer
 // on; rows is the pair's class (4, 8, 12 or 16 query rows a lane); out:
 // int32 rows (score, t_end, q_end, found, fj, fi), row stride out_stride,
@@ -401,18 +467,18 @@ int sw_forward(const void* qdata, const void* qbias, const void* tdata,
                const void* sub, int alpha, const void* jobs,
                long long job_stride, int n, int go, int ge, void* scratch,
                void* out, long long out_stride, void* stream) {
-  return launch_warp<false, false>(qdata, qbias, tdata, sub, alpha,
-                                   Second{}, jobs, job_stride, n, go, ge,
-                                   scratch, out, out_stride, stream);
+  return launch_warp<false, kSeqCell>(qdata, qbias, tdata, sub, alpha,
+                                      Second{}, jobs, job_stride, n, go, ge,
+                                      scratch, out, out_stride, stream);
 }
 
 int sw_reverse(const void* qdata, const void* qbias, const void* tdata,
                const void* sub, int alpha, const void* jobs,
                long long job_stride, int n, int go, int ge, void* scratch,
                void* out, long long out_stride, void* stream) {
-  return launch_warp<true, false>(qdata, qbias, tdata, sub, alpha, Second{},
-                                  jobs, job_stride, n, go, ge, scratch, out,
-                                  out_stride, stream);
+  return launch_warp<true, kSeqCell>(qdata, qbias, tdata, sub, alpha,
+                                     Second{}, jobs, job_stride, n, go, ge,
+                                     scratch, out, out_stride, stream);
 }
 
 // Structure mode: 3Di tokens (qss, tss) scored by m3di with the query's
@@ -424,10 +490,10 @@ int sw_forward_struct(const void* qss, const void* qaa, const void* qbias,
                       const void* jobs, long long job_stride, int n, int go,
                       int ge, void* scratch, void* out, long long out_stride,
                       void* stream) {
-  return launch_warp<false, true>(qss, qbias, tss, m3di, alpha,
-                                  second(qaa, taa, aasc, alpha2), jobs,
-                                  job_stride, n, go, ge, scratch, out,
-                                  out_stride, stream);
+  return launch_warp<false, kStructCell>(qss, qbias, tss, m3di, alpha,
+                                         second(qaa, taa, aasc, alpha2),
+                                         jobs, job_stride, n, go, ge,
+                                         scratch, out, out_stride, stream);
 }
 
 int sw_reverse_struct(const void* qss, const void* qaa, const void* qbias,
@@ -436,10 +502,33 @@ int sw_reverse_struct(const void* qss, const void* qaa, const void* qbias,
                       const void* jobs, long long job_stride, int n, int go,
                       int ge, void* scratch, void* out, long long out_stride,
                       void* stream) {
-  return launch_warp<true, true>(qss, qbias, tss, m3di, alpha,
-                                 second(qaa, taa, aasc, alpha2), jobs,
-                                 job_stride, n, go, ge, scratch, out,
-                                 out_stride, stream);
+  return launch_warp<true, kStructCell>(qss, qbias, tss, m3di, alpha,
+                                        second(qaa, taa, aasc, alpha2),
+                                        jobs, job_stride, n, go, ge,
+                                        scratch, out, out_stride, stream);
+}
+
+// Profile queries: qprof holds the queries' int8 profile rows (21 columns
+// a residue, row-major, query element offsets index its rows), tdata the
+// target tokens (0-20).
+int sw_forward_prof(const void* qprof, const void* tdata, const void* jobs,
+                    long long job_stride, int n, int go, int ge,
+                    void* scratch, void* out, long long out_stride,
+                    void* stream) {
+  return launch_warp<false, kProfCell>(qprof, nullptr, tdata, nullptr,
+                                       kProfCols, Second{}, jobs, job_stride,
+                                       n, go, ge, scratch, out, out_stride,
+                                       stream);
+}
+
+int sw_reverse_prof(const void* qprof, const void* tdata, const void* jobs,
+                    long long job_stride, int n, int go, int ge,
+                    void* scratch, void* out, long long out_stride,
+                    void* stream) {
+  return launch_warp<true, kProfCell>(qprof, nullptr, tdata, nullptr,
+                                      kProfCols, Second{}, jobs, job_stride,
+                                      n, go, ge, scratch, out, out_stride,
+                                      stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,15 @@
 """Native (C++/OpenMP) host engines: k-mer index and prefilter, tantan
-masking, composition bias, banded traceback, clusterhits.
+masking, composition bias, banded traceback, clusterhits, and the
+profile helpers (global PSSM bias correction, target-profile k-mer
+postings).
 
-The sources are the JAX package's, copied; `banded_sw.cpp` here writes
-its compressed CIGARs without the one-byte overrun of the original.  The
+The sources are the JAX package's, copied, but for `profile_native.cpp`,
+which is the port's own (the JAX package runs those two as numpy loops,
+search/profile.py and search/profilesearch.py); `banded_sw.cpp` here writes its compressed
+CIGARs without the one-byte overrun of the original.  The
 shared library is compiled with g++ at first use into the package's
 `_build/` directory (content-hashed, git-ignored).  Only the symbols the
-clustersearch paths call are bound.
+port's paths call are bound.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import numpy as np
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
 _SOURCES = ["banded_sw.cpp", "tantan.cpp", "simd_helpers.cpp",
-            "prefilter_engine.cpp", "clusterhits_engine.cpp"]
+            "prefilter_engine.cpp", "clusterhits_engine.cpp",
+            "profile_native.cpp"]
 _LIB = None
 _LOCK = threading.Lock()
 
@@ -120,6 +125,26 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P(i32), P(i32), P(i32), P(i32), P(i32), P(i32), P(i32),
         ctypes.c_int, ctypes.c_int, P(i64), ctypes.c_char_p, P(i32), P(i32),
         ctypes.c_char_p, P(i32)]
+    lib.banded_align_profile.restype = ctypes.c_int
+    lib.banded_align_profile.argtypes = [
+        P(ctypes.c_uint8),                # t
+        ctypes.c_int, ctypes.c_int,       # q_len, t_len
+        P(ctypes.c_int8),                 # prof [aa][qpos]
+        ctypes.c_int, ctypes.c_int,       # prof_qlen, query_start
+        ctypes.c_int,                     # score
+        ctypes.c_int, ctypes.c_int,       # gap_open, gap_extend
+        ctypes.c_int,                     # band_width
+        ctypes.c_char_p, ctypes.c_int]    # out, cap
+    lib.global_aa_bias_correction.restype = None
+    lib.global_aa_bias_correction.argtypes = [
+        P(ctypes.c_int8), P(ctypes.c_float), i64, P(ctypes.c_int8)]
+    lib.profile_kmer_postings.restype = ctypes.c_int
+    lib.profile_kmer_postings.argtypes = [
+        P(ctypes.c_int16), P(i64), ctypes.c_int, P(i32), ctypes.c_int,
+        ctypes.c_int, P(ctypes.c_uint8), P(i64), P(i64), P(i32)]
+    lib.w_contrib_rcp.restype = None
+    lib.w_contrib_rcp.argtypes = [P(i32), P(i32), ctypes.c_int,
+                                  P(ctypes.c_float)]
     lib.banded_align_profile_u16.restype = ctypes.c_int
     lib.banded_align_profile_u16.argtypes = [
         P(ctypes.c_uint16),               # t (wide symbols)
@@ -356,6 +381,85 @@ def banded_align_batch(qdata, qoffs, tdata, toffs, bias_data, mat_int8,
     cigs = [craw[2 * int(out_offs[i]):2 * int(out_offs[i])
                  + int(out_clen[i])].decode("ascii") for i in range(n)]
     return ops, out_ident, cigs
+
+
+def banded_align_profile(t: np.ndarray, q_len: int, prof_aa_qpos: np.ndarray,
+                         query_start: int, score: int,
+                         gap_open: int = 11, gap_extend: int = 1) -> str:
+    """Profile-query CIGAR: prof_aa_qpos is the (alpha, full_query_len)
+    int8 alignment profile; the rectangle is [query_start, query_start+q_len)
+    x [0, len(t)).  Returns the expanded ops string."""
+    t = np.ascontiguousarray(t, dtype=np.uint8)
+    prof = np.ascontiguousarray(prof_aa_qpos, dtype=np.int8)
+    cap = q_len + len(t) + 8
+    buf = ctypes.create_string_buffer(cap)
+    n = get_lib().banded_align_profile(
+        _ptr(t, ctypes.c_uint8), q_len, len(t), _ptr(prof, ctypes.c_int8),
+        prof.shape[1], query_start, int(score), gap_open, gap_extend,
+        abs(len(t) - q_len) + 1, buf, cap)
+    if n < 0:
+        raise RuntimeError(f"banded_align_profile failed: {n}")
+    return buf.raw[:n].decode("ascii")
+
+
+def w_contrib_rcp(n: np.ndarray, naa: np.ndarray) -> np.ndarray:
+    """Hardware-exact approximate-reciprocal weight contributions
+    (PSSMCalculator.cpp:505-517). n: (ncol, 24) int32, naa: (ncol,) int32."""
+    n = np.ascontiguousarray(n, dtype=np.int32)
+    naa = np.ascontiguousarray(naa, dtype=np.int32)
+    out = np.empty((n.shape[0], 24), dtype=np.float32)
+    get_lib().w_contrib_rcp(_ptr(n, ctypes.c_int32), _ptr(naa, ctypes.c_int32),
+                            n.shape[0], _ptr(out, ctypes.c_float))
+    return out
+
+
+def global_aa_bias_correction(pssm: np.ndarray, p_null: np.ndarray
+                              ) -> np.ndarray:
+    """The corrected (L, 20) int8 PSSM of search/profile.py::
+    global_aa_bias_correction (profile_native.cpp), given the int8 PSSM
+    and its (L,) float32 background-weighted row sums p_null."""
+    pssm = np.ascontiguousarray(pssm, dtype=np.int8)
+    p_null = np.ascontiguousarray(p_null, dtype=np.float32)
+    if pssm.ndim != 2 or pssm.shape[1] != 20 or p_null.shape != pssm.shape[:1]:
+        raise ValueError("global_aa_bias_correction: bad shapes")
+    out = np.empty_like(pssm)
+    get_lib().global_aa_bias_correction(
+        _ptr(pssm, ctypes.c_int8), _ptr(p_null, ctypes.c_float),
+        pssm.shape[0], _ptr(out, ctypes.c_int8))
+    return out
+
+
+def profile_kmer_postings(pssm: np.ndarray, offs: np.ndarray,
+                          pattern: np.ndarray, thr: int, want: np.ndarray
+                          ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Target-profile k-mer postings (profile_native.cpp): pssm is the
+    (offs[-1], 20) int16 rows of the profiles, profile q's from offs[q]
+    on; want the (20^k,) uint8 table of the k-mers to post.  Returns
+    (counts per profile, packed k-mers int64, first windows int32), the
+    postings profile after profile, each profile's k-mers ascending."""
+    pssm = np.ascontiguousarray(pssm, dtype=np.int16)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    pattern = np.ascontiguousarray(pattern, dtype=np.int32)
+    want = np.ascontiguousarray(want, dtype=np.uint8)
+    n = len(offs) - 1
+    if want.shape != (20 ** len(pattern),) or pssm.shape != (offs[-1], 20):
+        raise ValueError("profile_kmer_postings: bad shapes")
+    lib = get_lib()
+    counts = np.zeros(n, dtype=np.int64)
+    args = (_ptr(pssm, ctypes.c_int16), _ptr(offs, ctypes.c_int64), n,
+            _ptr(pattern, ctypes.c_int32), len(pattern), int(thr),
+            _ptr(want, ctypes.c_uint8), _ptr(counts, ctypes.c_int64))
+    null64 = ctypes.POINTER(ctypes.c_int64)()
+    null32 = ctypes.POINTER(ctypes.c_int32)()
+    if lib.profile_kmer_postings(*args, null64, null32) != 0:
+        raise RuntimeError("profile_kmer_postings failed")
+    total = int(counts.sum())
+    kmer = np.empty(total, dtype=np.int64)
+    pos = np.empty(total, dtype=np.int32)
+    if lib.profile_kmer_postings(*args, _ptr(kmer, ctypes.c_int64),
+                                 _ptr(pos, ctypes.c_int32)) != 0:
+        raise RuntimeError("profile_kmer_postings failed")
+    return counts, kmer, pos
 
 
 def banded_align_profile_u16(tsym: np.ndarray, q_len: int,

@@ -30,6 +30,12 @@ package's `ops/sw_engine.py::_sw_bucket_struct`) adds a second channel:
 int8(prof[t_j]) + int8(prof2[t2_j]), each profile cast to int8 on its own
 (3Di: m3di + the 3Di bias; amino acids: the scaled table, no bias).
 
+Profile queries (`sw_prof_jobs_ref`, the plain version of the JAX
+package's `ops/sw.py::sw_forward_from_profiles` /
+`sw_reverse_from_profiles`) read each job's explicit (A, Lq) profile out
+of the queries' resident int8 profile rows (PROF_COLS a residue, flipped
+for the reverse pass) and score it as `sw_scan_ref` scores any profile.
+
 These run wherever their tensors are.  The CPU tests hold them against
 the JAX package; on the card they are the yardstick `chip_smoke.py`
 holds the kernels of `ops/sw_cuda.py` against.
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 NEG = -(1 << 30)
+PROF_COLS = 21           # profile columns a residue: 20 amino acids and X
 # (pairs x query rows) per plain-version batch: bounds the (B, A, Lq)
 # profile and the (B, Lq) DP state.  On CUDA a column step's dozen small
 # ops cost their launches, not their bytes, until a batch is this large.
@@ -48,16 +55,14 @@ REF_CELLS = 1 << 20
 REF_CELLS_CUDA = 1 << 23
 
 
-def gather_panels(qdata: torch.Tensor, qbias: torch.Tensor,
-                  tdata: torch.Tensor, qoff: torch.Tensor, qlen: torch.Tensor,
-                  toff: torch.Tensor, tlen: torch.Tensor, Lq: int, Lt: int,
-                  reverse: bool):
-    """(B, Lq) query tokens, (B, Lq) bias and (B, Lt) target tokens, all
-    int32, read from the resident arrays at per-pair element offsets.
-    reverse=True reads the flipped prefixes q[qoff+qlen-1-i],
-    t[toff+tlen-1-j].  Positions past a pair's length are clamped into
-    the pair (the DP's validity masks make them unreachable)."""
-    dev = qdata.device
+def panel_index(qoff: torch.Tensor, qlen: torch.Tensor, toff: torch.Tensor,
+                tlen: torch.Tensor, Lq: int, Lt: int, reverse: bool):
+    """(B, Lq) query and (B, Lt) target element indices of per-pair
+    panels at the given offsets.  reverse=True reads the flipped prefixes
+    q[qoff+qlen-1-i], t[toff+tlen-1-j].  Positions past a pair's length
+    are clamped into the pair (the DP's validity masks make them
+    unreachable)."""
+    dev = qoff.device
     iq = torch.arange(Lq, device=dev, dtype=torch.int64)[None, :]
     it = torch.arange(Lt, device=dev, dtype=torch.int64)[None, :]
     ql = qlen.to(torch.int64)[:, None]
@@ -68,8 +73,18 @@ def gather_panels(qdata: torch.Tensor, qbias: torch.Tensor,
     else:
         qsel = torch.minimum(iq, ql - 1).clamp(min=0)
         tsel = torch.minimum(it, tl - 1).clamp(min=0)
-    q_idx = qoff.to(torch.int64)[:, None] + qsel
-    t_idx = toff.to(torch.int64)[:, None] + tsel
+    return (qoff.to(torch.int64)[:, None] + qsel,
+            toff.to(torch.int64)[:, None] + tsel)
+
+
+def gather_panels(qdata: torch.Tensor, qbias: torch.Tensor,
+                  tdata: torch.Tensor, qoff: torch.Tensor, qlen: torch.Tensor,
+                  toff: torch.Tensor, tlen: torch.Tensor, Lq: int, Lt: int,
+                  reverse: bool):
+    """(B, Lq) query tokens, (B, Lq) bias and (B, Lt) target tokens, all
+    int32, read from the resident arrays at per-pair element offsets
+    (panel_index)."""
+    q_idx, t_idx = panel_index(qoff, qlen, toff, tlen, Lq, Lt, reverse)
     return (qdata[q_idx].to(torch.int32), qbias[q_idx].to(torch.int32),
             tdata[t_idx].to(torch.int32))
 
@@ -238,3 +253,22 @@ def sw_struct_jobs_ref(qss: torch.Tensor, qaa: torch.Tensor,
                            gap_open, gap_extend, j[4],
                            prof2=make_profile(qa, None, aasc), tseq2=ta)
     return _jobs_ref(qss.device, jobs, scan)
+
+
+def sw_prof_jobs_ref(qprof: torch.Tensor, tdata: torch.Tensor,
+                     jobs: np.ndarray, gap_open: int, gap_extend: int,
+                     reverse: bool) -> torch.Tensor:
+    """Plain version of the profile-query kernels (`sw_forward_prof` /
+    `sw_reverse_prof`): jobs and result as sw_jobs_ref; qprof holds the
+    queries' int8 profile rows, PROF_COLS values a residue (flat), at the
+    jobs' query element offsets.  Each job's (A, Lq) profile is cut out
+    of it (flipped for reverse) and scanned without bias, cast through
+    int8 as every profile is."""
+    rows = qprof.reshape(-1, PROF_COLS)
+
+    def scan(j, Lq, Lt):
+        q_idx, t_idx = panel_index(j[0], j[1], j[2], j[3], Lq, Lt, reverse)
+        prof = rows[q_idx].to(torch.int32).permute(0, 2, 1).contiguous()
+        return sw_scan_ref(prof, tdata[t_idx].to(torch.int32), j[1], j[3],
+                           gap_open, gap_extend, j[4])
+    return _jobs_ref(qprof.device, jobs, scan)

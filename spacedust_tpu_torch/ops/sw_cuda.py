@@ -6,8 +6,11 @@ replaces the JAX package's `ops/sw_pallas.py::_kernel_rowmax` and
 `sw_reverse` its `ops/sw_pallas.py::_kernel`; `sw_forward_struct` /
 `sw_reverse_struct` replace the structure-mode XLA program
 `ops/sw_engine.py::_sw_bucket_struct` (two score channels, 3Di with its
-bias and amino acids, each cast to int8 before the sum).  All four take
-over `ops/sw_engine.py::panel_gather` as their own load stage.  The
+bias and amino acids, each cast to int8 before the sum);
+`sw_forward_prof` / `sw_reverse_prof` replace the profile-query programs
+`ops/sw.py::sw_forward_from_profiles` / `sw_reverse_from_profiles` (the
+cell score read from a per-position int8 profile of 21 columns).  All six
+take over `ops/sw_engine.py::panel_gather` as their own load stage.  The
 source is compiled with nvcc for sm_90a at first use into `_build/`
 beside the package (git-ignored) and bound through a plain C interface
 with ctypes.
@@ -22,13 +25,17 @@ synchronised.  They give each pair one of the kernel's compile-time
 classes of query rows per lane (LANE_ROWS, `lane_rows`) and its place in
 the boundary scratch (`warp_plan`), in one launch unless the scratch
 would pass SCRATCH_BYTES.  For CPU tensors they run the plain version
-(`ops/sw.py::sw_jobs_ref` / `sw_struct_jobs_ref`).  There is no fallback
-between the two.  The structure wrappers take five resident arrays (3Di
-and amino-acid tokens of the queries with the int8 3Di bias, and of the
-targets) and the two int8 tables in place of (qdata, qbias, tdata, sub).
+(`ops/sw.py::sw_jobs_ref` / `sw_struct_jobs_ref` / `sw_prof_jobs_ref`).
+There is no fallback between the two.  The structure wrappers take five
+resident arrays (3Di and amino-acid tokens of the queries with the int8
+3Di bias, and of the targets) and the two int8 tables in place of (qdata,
+qbias, tdata, sub); the profile wrappers take two, the queries' profile
+rows as one flat int8 array (21 values a residue, row-major, at the
+element offsets of the jobs) and the target tokens.
 
 FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
-REVERSE_STRUCT_LAUNCHES count kernel launches.  A caller that wants the
+REVERSE_STRUCT_LAUNCHES / FORWARD_PROF_LAUNCHES / REVERSE_PROF_LAUNCHES
+count kernel launches.  A caller that wants the
 kernels' own time passes a list as `events`: the launcher appends one
 (start, end) pair of CUDA events recorded round its launches, after the
 job table is on the card, so that neither the host planning nor that
@@ -48,7 +55,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .sw import sw_jobs_ref, sw_struct_jobs_ref
+from .sw import (PROF_COLS, sw_jobs_ref, sw_prof_jobs_ref,
+                 sw_struct_jobs_ref)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "sw.cu"
@@ -64,8 +72,8 @@ SCRATCH_BYTES = 1 << 30        # per-launch DP scratch bound
 # over slope): 3.2-3.4 on the sequence forward stage and 4.8-5.4 on its
 # far smaller reverse stage; 3.0-3.2 on the structure reverse stage and
 # 1.5-1.6 on the structure forward stage, which is not linear in R (a row
-# costs more at 16 rows a lane than at 8).  One constant serves all four
-# kernels.
+# costs more at 16 rows a lane than at 8).  One constant serves all six
+# kernels (the profile kernels' fit is printed by the same phase).
 LANE_ROWS = (4, 8, 12, 16)
 STEP_OVERHEAD_CELLS = 3
 # bytes of boundary scratch per target column of a multi-strip pair, by
@@ -76,13 +84,19 @@ FORWARD_LAUNCHES = 0
 REVERSE_LAUNCHES = 0
 FORWARD_STRUCT_LAUNCHES = 0
 REVERSE_STRUCT_LAUNCHES = 0
+FORWARD_PROF_LAUNCHES = 0
+REVERSE_PROF_LAUNCHES = 0
 
-# (reverse?, structure?) -> the C entry point (and wrapper) and its launch
-# counter
-ENTRY = {(False, False): ("sw_forward", "FORWARD_LAUNCHES"),
-         (True, False): ("sw_reverse", "REVERSE_LAUNCHES"),
-         (False, True): ("sw_forward_struct", "FORWARD_STRUCT_LAUNCHES"),
-         (True, True): ("sw_reverse_struct", "REVERSE_STRUCT_LAUNCHES")}
+# (reverse?, cell) -> the C entry point (and wrapper) and its launch
+# counter; the cell is "seq", "struct" or "prof"
+ENTRY = {(False, "seq"): ("sw_forward", "FORWARD_LAUNCHES"),
+         (True, "seq"): ("sw_reverse", "REVERSE_LAUNCHES"),
+         (False, "struct"): ("sw_forward_struct", "FORWARD_STRUCT_LAUNCHES"),
+         (True, "struct"): ("sw_reverse_struct", "REVERSE_STRUCT_LAUNCHES"),
+         (False, "prof"): ("sw_forward_prof", "FORWARD_PROF_LAUNCHES"),
+         (True, "prof"): ("sw_reverse_prof", "REVERSE_PROF_LAUNCHES")}
+# a wrapper's count of leading resident tensors -> its cell
+CELL_OF_RESIDENT = {4: "seq", 7: "struct", 2: "prof"}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -140,6 +154,9 @@ def load() -> ctypes.CDLL:
                 fn.restype = i
                 fn.argtypes = [p, p, p, p, p, p, i, p, i,
                                p, ll, i, i, i, p, p, ll, p]
+            for fn in (lib.sw_forward_prof, lib.sw_reverse_prof):
+                fn.restype = i
+                fn.argtypes = [p, p, p, ll, i, i, i, p, p, ll, p]
             lib.sw_load.restype = i
             rc = lib.sw_load()
             if rc != 0:
@@ -192,27 +209,27 @@ def warp_plan(jobs: np.ndarray, bytes_per_column: int,
     return table, launches
 
 
-def _check(tokens, qbias, tables, jobs, gap_open, gap_extend):
-    """tokens: ((name, query tokens, target tokens), ...) per channel;
-    tables: ((name, table), ...)."""
-    dev = qbias.device
-    named = [("qbias", qbias, torch.int8)]
-    for name, q, t in tokens:
-        named += [(f"query {name}", q, torch.uint8),
-                  (f"target {name}", t, torch.uint8)]
-    named += [(name, tab, torch.int8) for name, tab in tables]
-    for name, t, dt in named:
+def _check(named, tables, qlen_all: int, tlen_all: int, jobs: np.ndarray,
+           gap_open: int, gap_extend: int) -> None:
+    """named: ((name, tensor, dtype, length), ...) of the resident arrays,
+    each of which must hold `length` elements on the first one's device;
+    tables: ((name, table), ...); the jobs must lie inside qlen_all query
+    and tlen_all target elements."""
+    dev = named[0][1].device
+    for name, t, dt, n in named:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on {dev}")
+        if t.dim() != 1 or len(t) != n:
+            raise ValueError(f"{name}: the resident arrays of a side must "
+                             "have one length")
     for name, tab in tables:
+        if (tab.device != dev or tab.dtype != torch.int8
+                or not tab.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous {torch.int8} tensor "
+                             f"on {dev}")
         if tab.dim() != 2 or tab.shape[0] != tab.shape[1] or tab.shape[0] > 32:
             raise ValueError(f"{name} must be a square matrix of at most 32 "
                              "letters")
-    qlen_all = len(qbias)
-    for name, q, t in tokens:
-        if len(q) != qlen_all or len(t) != len(tokens[0][2]):
-            raise ValueError(f"{name}: the resident arrays of a side must "
-                             "have one length")
     if jobs.dtype != np.int64 or jobs.ndim != 2 or jobs.shape[0] != 5:
         raise ValueError("jobs must be a (5, n) int64 array")
     qoff, qlen, toff, tlen = jobs[:4]
@@ -220,8 +237,7 @@ def _check(tokens, qbias, tables, jobs, gap_open, gap_extend):
             (qlen >= 1).all() and (tlen >= 1).all()
             and (qlen < 2**31).all() and (tlen < 2**31).all()
             and (qoff >= 0).all() and (qoff + qlen <= qlen_all).all()
-            and (toff >= 0).all()
-            and (toff + tlen <= len(tokens[0][2])).all()):
+            and (toff >= 0).all() and (toff + tlen <= tlen_all).all()):
         raise ValueError("SW jobs need 1 <= length < 2**31 and offsets "
                          "inside the resident arrays")
     if gap_open < gap_extend:
@@ -234,10 +250,11 @@ def _launch_warp(reverse: bool, resident: tuple, plan: tuple,
     """Launch the kernel of the direction over a warp_plan of the jobs
     (its table and launches), counting the launches; returns the (6, n)
     result.  resident: a wrapper's leading tensors, (qdata, qbias, tdata,
-    sub) or the seven of structure mode, which picks the entry point.
+    sub), the seven of structure mode or the two of profile queries, which
+    picks the entry point.
     events: if a list, gets the (start, end) CUDA events recorded round
     the launches."""
-    name, counter = ENTRY[reverse, len(resident) == 7]
+    name, counter = ENTRY[reverse, CELL_OF_RESIDENT[len(resident)]]
     fn = getattr(load(), name)
     table, launches = plan
     dev = resident[0].device
@@ -283,8 +300,11 @@ def _device_of(t: torch.Tensor) -> torch.device:
 def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
               gap_open: int, gap_extend: int,
               events: list | None = None) -> torch.Tensor:
-    _check((("tokens", qdata, tdata),), qbias, (("sub", sub),), jobs,
-           gap_open, gap_extend)
+    nq, nt = len(qbias), len(tdata)
+    _check((("qbias", qbias, torch.int8, nq),
+            ("query tokens", qdata, torch.uint8, nq),
+            ("target tokens", tdata, torch.uint8, nt)),
+           (("sub", sub),), nq, nt, jobs, gap_open, gap_extend)
     if _device_of(qdata).type == "cpu":
         return sw_jobs_ref(qdata, qbias, tdata, sub, jobs, gap_open,
                            gap_extend, reverse)
@@ -296,12 +316,35 @@ def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
 def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
                 jobs: np.ndarray, gap_open: int, gap_extend: int,
                 events: list | None = None) -> torch.Tensor:
-    _check((("3Di", qss, tss), ("amino acids", qaa, taa)), qbias,
-           (("m3di", m3di), ("aasc", aasc)), jobs, gap_open, gap_extend)
+    nq, nt = len(qbias), len(tss)
+    _check((("qbias", qbias, torch.int8, nq),
+            ("query 3Di", qss, torch.uint8, nq),
+            ("target 3Di", tss, torch.uint8, nt),
+            ("query amino acids", qaa, torch.uint8, nq),
+            ("target amino acids", taa, torch.uint8, nt)),
+           (("m3di", m3di), ("aasc", aasc)), nq, nt, jobs, gap_open,
+           gap_extend)
     if _device_of(qss).type == "cpu":
         return sw_struct_jobs_ref(qss, qaa, qbias, tss, taa, m3di, aasc,
                                   jobs, gap_open, gap_extend, reverse)
     return _launch_warp(reverse, (qss, qaa, qbias, tss, taa, m3di, aasc),
+                        warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
+                        gap_extend, events)
+
+
+def _run_prof(reverse: bool, qprof, tdata, jobs: np.ndarray, gap_open: int,
+              gap_extend: int, events: list | None = None) -> torch.Tensor:
+    if len(qprof) % PROF_COLS:
+        raise ValueError(f"query profiles: need {PROF_COLS} int8 values a "
+                         "residue")
+    nq, nt = len(qprof) // PROF_COLS, len(tdata)
+    _check((("query profiles", qprof, torch.int8, nq * PROF_COLS),
+            ("target tokens", tdata, torch.uint8, nt)), (), nq, nt, jobs,
+           gap_open, gap_extend)
+    if _device_of(qprof).type == "cpu":
+        return sw_prof_jobs_ref(qprof, tdata, jobs, gap_open, gap_extend,
+                                reverse)
+    return _launch_warp(reverse, (qprof, tdata),
                         warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
                         gap_extend, events)
 
@@ -338,3 +381,20 @@ def sw_reverse_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
     cell score of sw_forward_struct."""
     return _run_struct(True, qss, qaa, qbias, tss, taa, m3di, aasc, jobs,
                        gap_open, gap_extend, events)
+
+
+def sw_forward_prof(qprof, tdata, jobs: np.ndarray, gap_open: int,
+                    gap_extend: int, events: list | None = None
+                    ) -> torch.Tensor:
+    """Profile-query forward pass: as sw_forward, with the cell score
+    prof[q_i][t_j] read from the queries' int8 profile rows `qprof` (21
+    values a residue, flat, at the jobs' query element offsets)."""
+    return _run_prof(False, qprof, tdata, jobs, gap_open, gap_extend, events)
+
+
+def sw_reverse_prof(qprof, tdata, jobs: np.ndarray, gap_open: int,
+                    gap_extend: int, events: list | None = None
+                    ) -> torch.Tensor:
+    """Profile-query reverse pass: as sw_reverse, with the profile cell of
+    sw_forward_prof (flipped rows qoff + qlen - 1 - i)."""
+    return _run_prof(True, qprof, tdata, jobs, gap_open, gap_extend, events)

@@ -26,6 +26,13 @@ through the same kernels.
 of `_sw_bucket_struct`): five resident arrays (3Di and amino-acid tokens
 of both sides and the int8 3Di bias) and two int8 tables, the same
 enqueue/flush/collect/run_buckets contract, and the structure kernels.
+
+`ProfileDeviceDB` is the resident side of the profile-query search (the
+JAX package scores those pairs with `ops/sw.py::sw_forward_from_profiles`
+/ `sw_reverse_from_profiles` on per-batch explicit profiles): the
+queries' int8 alignment profiles as one (sum of query lengths, 21)
+array at the token arrays' offsets, the target tokens, and the profile
+kernels.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from . import sw_cuda
+from .sw import PROF_COLS
 
 # pairs per dispatched stage: enough to fill the card at a warp per pair
 # (132 SMs x 12-16 warps) many times over, so that a stage's tail is short
@@ -70,7 +78,7 @@ class DeviceAlignDB:
     plain version)."""
 
     # which of sw_cuda.ENTRY's wrappers score a stage
-    STRUCT = False
+    CELL = "seq"
 
     def __init__(self, qdata: np.ndarray, qbias: np.ndarray,
                  tdata: np.ndarray, sub: np.ndarray,
@@ -100,14 +108,17 @@ class DeviceAlignDB:
         """The wrappers' leading arguments."""
         return (self.qdata, self.qbias, self.tdata, self.sub)
 
+    def _target_alphabet(self) -> int:
+        return self.sub.shape[0]
+
     def with_targets(self, tdata: np.ndarray) -> "DeviceAlignDB":
         """An engine over the target tokens `tdata` (uploaded now) that
-        shares this one's resident query tokens, bias and matrix, with a
+        shares this one's resident query arrays (and matrix), with a
         buffer and metrics of its own."""
-        if self.STRUCT:
+        if self.CELL == "struct":
             raise NotImplementedError(
-                "with_targets serves the sequence engine only")
-        _check_tokens("target", tdata, self.sub.shape[0])
+                "with_targets serves one target channel only")
+        _check_tokens("target", tdata, self._target_alphabet())
         view = copy.copy(self)
         view.tdata = _upload(tdata, np.uint8, self.device)
         view._init_state()
@@ -151,7 +162,7 @@ class DeviceAlignDB:
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
         # the wrapper and its launch counter, looked up at dispatch
-        fn_name, counter = sw_cuda.ENTRY[reverse, self.STRUCT]
+        fn_name, counter = sw_cuda.ENTRY[reverse, self.CELL]
         before = getattr(sw_cuda, counter)
         out = getattr(sw_cuda, fn_name)(*self._resident(), jobs, gap_open,
                                         gap_extend, events=events)
@@ -199,7 +210,7 @@ class StructureDeviceDB(DeviceAlignDB):
     targets (same offsets), qbias the int8 3Di composition bias, m3di and
     aasc the (21, 21) tables of the two score channels."""
 
-    STRUCT = True
+    CELL = "struct"
 
     def __init__(self, qss: np.ndarray, qaa: np.ndarray, qbias: np.ndarray,
                  tss: np.ndarray, taa: np.ndarray, m3di: np.ndarray,
@@ -220,3 +231,31 @@ class StructureDeviceDB(DeviceAlignDB):
     def _resident(self) -> tuple:
         return (self.qss, self.qaa, self.qbias, self.tss, self.taa,
                 self.m3di, self.aasc)
+
+
+class ProfileDeviceDB(DeviceAlignDB):
+    """Resident arrays of profile queries: qprof, the queries' int8
+    alignment profiles as a (n, PROF_COLS) array whose row k belongs to
+    query element k (the same offsets as the query tokens), and tdata,
+    the uint8 target tokens (0-20).  The profile kernels score the
+    stages; there is no bias."""
+
+    CELL = "prof"
+
+    def __init__(self, qprof: np.ndarray, tdata: np.ndarray,
+                 device: torch.device | str):
+        self.device = _device(device)
+        if qprof.dtype != np.int8 or qprof.ndim != 2 \
+                or qprof.shape[1] != PROF_COLS:
+            raise ValueError(f"query profiles must be an int8 (n, "
+                             f"{PROF_COLS}) array")
+        _check_tokens("target", tdata, PROF_COLS)
+        self.qprof = _upload(qprof.reshape(-1), np.int8, self.device)
+        self.tdata = _upload(tdata, np.uint8, self.device)
+        self._init_state()
+
+    def _target_alphabet(self) -> int:
+        return PROF_COLS
+
+    def _resident(self) -> tuple:
+        return (self.qprof, self.tdata)

@@ -27,8 +27,16 @@ through three hooks (the structure search, search/structure.py, does):
 `_device_db` (the resident engine), `evaluer` (the E-value statistics),
 and the optional per-key `_identity_record` / per-pair `_traceback`,
 which, when set, take the place of the batched identity and traceback
-paths of the sequence search.  Profile queries are not ported yet
-(ROADMAP A10).
+paths of the sequence search.
+
+Profile queries (`query_profiles`, the target-profile search of
+search/profilesearch.py) are scored per position from their (L, 21) int8
+alignment profiles with no composition bias: the SW passes run on the
+profile kernels (ops/sw_engine.py::ProfileDeviceDB), the traceback is one
+banded profile alignment per pair, and identities are counted against the
+profile's stored query residues (`query_profile_seqs`).  Their identity
+records (a profile query against itself) are not ported yet (ROADMAP
+A10b).
 """
 
 from __future__ import annotations
@@ -41,8 +49,10 @@ import torch
 
 from ..constants import X_INDEX
 from ..db.setdb import SetDB
-from ..native import banded_align_batch, comp_bias_batch
-from ..ops.sw_engine import DeviceAlignDB
+from ..native import (banded_align_batch, banded_align_profile,
+                      comp_bias_batch)
+from ..ops.sw import PROF_COLS
+from ..ops.sw_engine import DeviceAlignDB, ProfileDeviceDB
 from ..stats.evalue import EvalueComputation, BLOSUM62_GAPPED_11_1
 from ..stats.submat import SubstitutionMatrix, load_substitution_matrix
 from .records import AlnRecord
@@ -51,6 +61,36 @@ COV_MODE_BIDIRECTIONAL = 0
 COV_MODE_QUERY = 2
 COV_MODE_TARGET = 1
 _INT_MAX = 2147483647
+
+
+def can_be_covered(cov_thr: float, cov_mode: int, qlen: int, tlen: int) -> bool:
+    q = np.float32(qlen)
+    t = np.float32(tlen)
+    thr = np.float32(cov_thr)
+    if cov_mode == COV_MODE_BIDIRECTIONAL:
+        return bool(q / t >= thr and t / q >= thr)
+    if cov_mode == COV_MODE_QUERY:
+        return bool(t / q >= thr)
+    if cov_mode == COV_MODE_TARGET:
+        return bool(q / t >= thr)
+    return True
+
+
+def has_coverage(cov_thr: float, cov_mode: int, qcov: float, tcov: float) -> bool:
+    thr = np.float32(cov_thr)
+    if cov_mode == COV_MODE_BIDIRECTIONAL:
+        return bool(np.float32(qcov) >= thr and np.float32(tcov) >= thr)
+    if cov_mode == COV_MODE_QUERY:
+        return bool(np.float32(qcov) >= thr)
+    if cov_mode == COV_MODE_TARGET:
+        return bool(np.float32(tcov) >= thr)
+    return True
+
+
+def compute_cov(start: int, end: int, length: int) -> np.float32:
+    # StripedSmithWaterman.cpp:1671-1673
+    return np.float32((min(length, max(start, end)) - min(start, end) + 1)
+                      / np.float32(length))
 
 
 def _ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -119,10 +159,21 @@ class AlignmentEngine:
     def __init__(self, query_db: SetDB, target_db: SetDB,
                  params: AlignmentParams | None = None,
                  matrix: SubstitutionMatrix | None = None,
-                 same_qt_db: bool | None = None, *,
+                 same_qt_db: bool | None = None,
+                 query_profiles: dict[int, np.ndarray] | None = None,
+                 query_profile_seqs: dict[int, np.ndarray] | None = None, *,
                  device: torch.device | str):
         """`device` is where the SW passes run: a CUDA device launches
-        the kernels of ops/sw_cuda.py, the CPU runs their plain version."""
+        the kernels of ops/sw_cuda.py, the CPU runs their plain version.
+
+        `query_profiles` maps query keys to (L, 21) int8 alignment
+        profiles (the reference's profile_for_alignment = pssm/4 with the
+        X column zeroed, Sequence.cpp:271-280), L the query's length;
+        every query of such an engine must have one.  They are scored per
+        position (PROFILE_SEQ) with no composition bias.
+        `query_profile_seqs` optionally carries each profile's stored
+        query-residue column (Sequence.cpp:254, possibly tantan-masked at
+        profile build time): identity counting uses it, not the gene."""
         self.qdb = query_db
         self.tdb = target_db
         self.par = params or AlignmentParams()
@@ -135,6 +186,11 @@ class AlignmentEngine:
         self._qbias_arr: np.ndarray | None = None
         self._ident_raws: np.ndarray | None = None
         self._dev: DeviceAlignDB | None = None
+        self.query_profiles = query_profiles or {}
+        self.query_profile_seqs = query_profile_seqs or {}
+        if self.query_profiles:
+            self._traceback = self._profile_traceback
+            self._prof_t: dict[int, np.ndarray] = {}
         # what the --alt-ali rounds did: chains in each round, their
         # host-clock seconds, and the masked-target engines' metrics
         # summed over the rounds
@@ -179,6 +235,10 @@ class AlignmentEngine:
         out: dict[int, AlnRecord] = {}
         if len(qkeys) == 0:
             return out
+        if self.query_profiles:
+            raise NotImplementedError(
+                "identity records of profile queries are not ported yet "
+                "(ROADMAP A10b)")
         if self._identity_record is not None:
             return {int(qk): self._identity_record(int(qk)) for qk in qkeys}
         keys = np.asarray(qkeys, dtype=np.int64)
@@ -266,17 +326,41 @@ class AlignmentEngine:
 
     # ------------------------------------------------------------------
     def _device_db(self) -> DeviceAlignDB:
-        """Device-resident token/bias arrays, built on first use."""
+        """Device-resident token/bias arrays (profile rows for profile
+        queries), built on first use."""
         if self._dev is None:
-            self._dev = DeviceAlignDB(
-                self.qdb.seq_data, self._qbias_all(), self.tdb.seq_data,
-                self.matrix.sub_int, device=self.device)
+            if self.query_profiles:
+                self._dev = ProfileDeviceDB(self._profile_rows(),
+                                            self.tdb.seq_data,
+                                            device=self.device)
+            else:
+                self._dev = DeviceAlignDB(
+                    self.qdb.seq_data, self._qbias_all(), self.tdb.seq_data,
+                    self.matrix.sub_int, device=self.device)
         return self._dev
+
+    def _profile_rows(self) -> np.ndarray:
+        """The query profiles as one (n, 21) int8 array, row k for query
+        element k (zero for queries without a profile)."""
+        qdb = self.qdb
+        rows = np.zeros((len(qdb.seq_data), PROF_COLS), dtype=np.int8)
+        for qk, prof in self.query_profiles.items():
+            L = int(qdb.lengths[qk])
+            if prof.shape != (L, PROF_COLS):
+                raise ValueError(f"query {qk}: profile of shape {prof.shape}"
+                                 f", need ({L}, {PROF_COLS})")
+            o = int(qdb.offsets[qk])
+            rows[o:o + L] = prof
+        return rows
 
     def _forward_jobs_arrays(self, qk: np.ndarray, tk: np.ndarray,
                              positions: np.ndarray):
         """Forward jobs for pair arrays: element offsets, lengths,
         terminate -1 (unused), global pair positions."""
+        if self.query_profiles and not all(
+                int(k) in self.query_profiles for k in np.unique(qk)):
+            raise ValueError("every query of a profile engine needs a "
+                             "profile")
         ql = self.qdb.lengths[qk]
         return [(self.qdb.offsets[qk], ql, self.tdb.offsets[tk],
                  self.tdb.lengths[tk], np.full(len(qk), -1, np.int64),
@@ -315,10 +399,24 @@ class AlignmentEngine:
                 out[sidx] = (q_end - int(fi[bi]), t_end - int(fj[bi]))
 
     # ------------------------------------------------------------------
+    def _profile_traceback(self, qk: int, tk: int, q_start: int, q_end: int,
+                           t_start: int, t_end: int, score: int) -> str:
+        """Banded traceback of a profile query over its (21, L) profile."""
+        prof_t = self._prof_t.get(qk)
+        if prof_t is None:
+            prof_t = np.ascontiguousarray(self.query_profiles[qk].T,
+                                          dtype=np.int8)
+            self._prof_t = {qk: prof_t}       # pairs come query by query
+        return banded_align_profile(
+            self.tdb.sequence(tk)[t_start:t_end + 1], q_end - q_start + 1,
+            prof_t, q_start, score, self.par.gap_open, self.par.gap_extend)
+
     def _pair_tracebacks(self, qk, tk, q_start, q_end, t_start, t_end,
                          score):
         """Per-pair `_traceback` calls: (ops list, identity counts), where
-        an identity is an M column with equal amino acids."""
+        an identity is an M column with equal amino acids (for a profile
+        query, between the profile's stored query residues and the
+        target)."""
         ops_list, idents = [], []
         for i in range(len(qk)):
             ops = self._traceback(int(qk[i]), int(tk[i]), int(q_start[i]),
@@ -330,7 +428,9 @@ class AlignmentEngine:
             t_adv = is_m | (b == ord("D"))
             qp = q_start[i] + np.cumsum(q_adv) - q_adv
             tp = t_start[i] + np.cumsum(t_adv) - t_adv
-            qseq = self.qdb.sequence(int(qk[i]))
+            qseq = self.query_profile_seqs.get(int(qk[i]))
+            if qseq is None:
+                qseq = self.qdb.sequence(int(qk[i]))
             tseq = self.tdb.sequence(int(tk[i]))
             ops_list.append(ops)
             idents.append(int((qseq[qp[is_m]] == tseq[tp[is_m]]).sum()))

@@ -133,3 +133,41 @@ def load_pinned_matrix(name: str) -> SubstitutionMatrix:
         sub_int=sub_int,
         bit_factor=float(raw["bit_factor"]),
     )
+
+
+def local_aa_bias_correction(seq: np.ndarray,
+                             sub_int: np.ndarray,
+                             p_back: np.ndarray,
+                             scale: float = 1.0) -> np.ndarray:
+    """Per-position composition-bias correction, bit-exact float32 chain.
+
+    Mirrors SubstitutionMatrix::calcLocalAaBiasCorrection
+    (lib/mmseqs/src/commons/SubstitutionMatrix.cpp:79-109): for each
+    position i, deltaS_i = -avg of sub scores of residue i against a +/-20
+    window (own position excluded) plus the background-expected score.
+    The reference accumulates into a C `float`, so every arithmetic step
+    here is rounded to float32 to match bit-for-bit.
+    """
+    n = seq.shape[0]
+    nsym = sub_int.shape[0]
+    half = 20  # windowSize 40 / 2
+    # counts[c, i] = number of j in window(i) with seq[j] == c (via prefix sums)
+    prefix = np.zeros((nsym, n + 1), dtype=np.int64)
+    for c in range(nsym):
+        prefix[c, 1:] = np.cumsum(seq == c)
+    idx = np.arange(n)
+    lo = np.maximum(0, idx - half)
+    hi = np.minimum(n, idx + half)
+    win_len = (hi - lo).astype(np.float64)
+    counts = prefix[:, hi] - prefix[:, lo]            # (nsym, n)
+    row = sub_int[seq].astype(np.int64)               # (n, nsym)
+    sum_sub = np.einsum("nc,cn->n", row, counts)      # exact int windowed sum
+    sum_sub -= sub_int[seq, seq]                      # remove own amino acid
+    # float deltaS_i = sumSubScores; deltaS_i /= -(double)windowLength;
+    delta = np.float32(sum_sub.astype(np.float32).astype(np.float64) /
+                       (-1.0 * win_len))
+    # sequential f32 accumulation of pBack[a] * subMat[row][a]
+    for a in range(nsym):
+        delta = np.float32(delta.astype(np.float64) +
+                           p_back[a] * row[:, a].astype(np.float64))
+    return np.float32(np.float32(scale) * delta)

@@ -119,10 +119,15 @@ class ClusterSearchParams:
     # -k (0 = auto: IndexTable::computeKmerSize) and --spaced-kmer-mode
     kmer_size: int = 0
     spaced_kmer_mode: int = 1
-    # not ported yet (they raise): --split-memory-limit (out-of-core
-    # target splits), --profile-cluster-search
+    # not ported yet (it raises): --split-memory-limit (out-of-core
+    # target splits)
     split_memory_limit: int = 0
+    # --profile-cluster-search (clustersearch.cpp:29-36): search against
+    # the target's cluster-representative profiles, then expand hits to
+    # cluster members (expandaln); e 1e-3, 100 results.
     profile_cluster_search: bool = False
+    profile_eval_thr: float = 1e-3
+    profile_max_res: int = 300
     # --search-mode (LocalParameters.h:32-41): 0 = sequence, 1 = foldseek
     # on aa2foldseek-mapped subset + sequence search of the unmapped rest,
     # 2 = structure (3Di) search of the whole DB (ProstT5/foldseek-testdb
@@ -145,9 +150,6 @@ def _check_ported(par: ClusterSearchParams) -> None:
     if par.split_memory_limit > 0:
         raise NotImplementedError(
             "--split-memory-limit is not ported yet (ROADMAP A7)")
-    if par.profile_cluster_search:
-        raise NotImplementedError(
-            "--profile-cluster-search is not ported yet (ROADMAP A10)")
 
 
 def _sequence_aln_params(par: ClusterSearchParams) -> AlignmentParams:
@@ -175,14 +177,19 @@ def _structure_params(par: ClusterSearchParams):
 def cluster_search(query_db: SetDB, target_db: SetDB,
                    params: ClusterSearchParams | None = None,
                    same_qt_db: bool | None = None,
+                   target_cluster_db=None,
                    query_mapping=None, target_mapping=None,
                    ckpt_dir: str | Path | None = None, *,
                    device: torch.device | str) -> ClusterSearchResult:
     """clustersearch of query_db against target_db; the SW passes run on
     `device` (CUDA: the hand-written kernels; CPU: their plain PyTorch
-    version).  `query_mapping`/`target_mapping`:
-    workflow.aa2foldseek.FoldseekMapping artifacts (required for
-    --search-mode 1, the reference's *_foldseek/_unmapped sidecars)."""
+    version).  `target_cluster_db`: a workflow.clusterdb.ClusterDB of the
+    target for --profile-cluster-search (built here when absent,
+    mirroring the reference's precomputed TARGET_clu_rep_profile/_clu_aln
+    sidecars, data/clustersearch.sh:69-80).  `query_mapping`/
+    `target_mapping`: workflow.aa2foldseek.FoldseekMapping artifacts
+    (required for --search-mode 1, the reference's *_foldseek/_unmapped
+    sidecars)."""
     par = params or ClusterSearchParams()
     _check_ported(par)
     if same_qt_db is None:
@@ -192,6 +199,37 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
 
     if ck.has("result"):
         records = None          # search stage resumed from checkpoint
+    elif par.profile_cluster_search:
+        from ..search.profilesearch import (ProfileSearchParams,
+                                            search_profile_target)
+        from ..search.expandaln import ExpandParams, expand_alignments
+        from .clusterdb import cluster_db as build_cluster_db
+        if target_cluster_db is None:
+            t0 = time.time()
+            detail = {}
+            target_cluster_db = build_cluster_db(target_db, device=device,
+                                                 metrics=detail)
+            timings["clusterdb"] = time.time() - t0
+            timings["clusterdb_detail"] = detail
+        t0 = time.time()
+        # the search stage runs at the outer -e (oracle: searchtarget-
+        # profile.sh with -e 10); profile_eval_thr applies at expandaln
+        ppar = ProfileSearchParams(
+            sensitivity=par.sensitivity, eval_thr=par.eval_thr,
+            max_res_list_len=par.profile_max_res, cov_thr=par.cov_thr,
+            cov_mode=par.cov_mode, aln_len_thr=par.aln_len_thr,
+            gap_open=par.gap_open, gap_extend=par.gap_extend,
+            mask=par.mask, comp_bias_correction=par.comp_bias_correction)
+        detail = {}
+        profile_hits = search_profile_target(query_db, target_db,
+                                             target_cluster_db, ppar,
+                                             device=device, metrics=detail)
+        timings["profile_search"] = time.time() - t0
+        timings["profile_detail"] = detail
+        t0 = time.time()
+        records = expand_alignments(profile_hits, target_cluster_db.clu_aln,
+                                    ExpandParams(eval_thr=par.profile_eval_thr))
+        timings["expandaln"] = time.time() - t0
     elif par.search_mode == 1:
         # foldseek search of the aa2foldseek-mapped subset + sequence
         # search of the unmapped genes vs the full target, concatenated

@@ -23,6 +23,13 @@ for name in ("spacedust_tpu_torch.search.structure",
              "spacedust_tpu_torch.workflow.aa2foldseek",
              "spacedust_tpu_torch.search.convert",
              "spacedust_tpu_torch.workflow.modules",
+             "spacedust_tpu_torch.search.profile",
+             "spacedust_tpu_torch.search.msafilter",
+             "spacedust_tpu_torch.search.expandaln",
+             "spacedust_tpu_torch.search.profilesearch",
+             "spacedust_tpu_torch.cluster.seqcluster",
+             "spacedust_tpu_torch.cluster.cascade",
+             "spacedust_tpu_torch.workflow.clusterdb",
              "spacedust_tpu_torch.cli"):
     assert name in names and name in sys.modules, name
 leaked = sorted(m for m in sys.modules

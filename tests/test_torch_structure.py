@@ -265,11 +265,10 @@ def test_unported_options_still_raise(subsets):
     with pytest.raises(ValueError, match="aa2foldseek"):
         cluster_search(db, db, ClusterSearchParams(search_mode=1),
                        device="cpu")
-    for kw in ({"split_memory_limit": 1 << 20},
-               {"profile_cluster_search": True}):
-        with pytest.raises(NotImplementedError):
-            cluster_search(db, db, ClusterSearchParams(search_mode=2, **kw),
-                           device="cpu")
+    # the profile cluster search is ported; out-of-core splits are not
+    with pytest.raises(NotImplementedError, match="A7"):
+        cluster_search(db, db, ClusterSearchParams(
+            search_mode=2, split_memory_limit=1 << 20), device="cpu")
 
 
 def test_profile_cache_is_bounded(subsets):

@@ -26,6 +26,17 @@ package on the CPU:
                                         combinehits through the library, see
                                         jax_combinehits)
   tests/fixtures/torch_port_repeats.tsv result TSV of the repeat set
+  tests/fixtures/torch_port_small_clu/  `clusterdb` of the small set
+                                        through the JAX package's CLI
+                                        (a ClusterDB directory)
+  tests/fixtures/torch_port_small_clu_cascade/
+                                        the same with
+                                        --single-step-clustering 0
+  tests/fixtures/torch_port_small_profile.tsv
+                                        `clustersearch --filter-self-match
+                                        --profile-cluster-search
+                                        --cluster-db` of the small set
+                                        against torch_port_small_clu/
 
 Every run is `clustersearch --filter-self-match` of a two-genome set
 against itself, as written by `spacedust_tpu_torch.synth` at its default
@@ -34,12 +45,16 @@ ingests them).  Usage:
 
   JAX_PLATFORMS=cpu python tools/record_torch_port_fixtures.py \
       [small|real|struct_small|struct_small_mode1|struct_real[:SIZE]|
-       repeats|toolkit:small|toolkit:repeats]...
+       repeats|toolkit:small|toolkit:repeats|profile:small]...
 
 The --alt-ali runs align one masked pair a call and compile for every
 (query length, target length) they meet: toolkit:repeats took 22 s and
 toolkit:small 55 s on a CPU (search_controls.tsv, the first to compile,
-15 s and 40 s of that).
+15 s and 40 s of that).  profile:small takes about 2 minutes (the two
+clusterdb runs and the profile search, whose numpy k-mer index of the
+profiles holds 55 M postings at this size).  The `half` set is not
+recorded for the profile search: that index would hold about 600 M
+postings there, tens of GB.
 """
 
 from __future__ import annotations
@@ -125,6 +140,34 @@ def toolkit(size: str) -> None:
                 (Path(d) / name).read_bytes())
 
 
+def profile(size: str) -> None:
+    """clusterdb (both clusterings) and the profile cluster search on the
+    set `size` through the JAX CLI; the default ClusterDB directory is the
+    one the search runs against."""
+    import shutil
+    with tempfile.TemporaryDirectory() as d:
+        db = str(Path(d) / "db")
+        fastas = [str(pth) for pth in synth.write_genome_set(d, size)]
+        assert jax_cli.main(["createsetdb", *fastas, db]) == 0
+        clu = FIXTURES / f"torch_port_{size}_clu"
+        for out, flags in ((clu, []),
+                           (FIXTURES / f"torch_port_{size}_clu_cascade",
+                            ["--single-step-clustering", "0"])):
+            shutil.rmtree(out, ignore_errors=True)
+            t0 = time.time()
+            assert jax_cli.main(["clusterdb", db, str(out), *flags]) == 0
+            print(f"profile:{size} clusterdb {flags}: "
+                  f"{time.time() - t0:.1f} s", file=sys.stderr)
+        out = FIXTURES / f"torch_port_{size}_profile.tsv"
+        t0 = time.time()
+        assert jax_cli.main(["clustersearch", db, db, str(out),
+                             str(Path(d) / "tmp"), "--filter-self-match",
+                             "--profile-cluster-search", "--cluster-db",
+                             str(clu)]) == 0
+        print(f"profile:{size} clustersearch: {time.time() - t0:.1f} s",
+              file=sys.stderr)
+
+
 def summary(tsv: str, size: str) -> dict:
     lines = tsv.splitlines()
     return {"seed": synth.SEED, "sizes": list(synth.SIZES[size]),
@@ -140,6 +183,8 @@ def main(argv: list[str]) -> int:
             (FIXTURES / f"torch_port_{name}.tsv").write_text(run(name))
         elif name == "toolkit":
             toolkit(size)
+        elif name == "profile":
+            profile(size)
         elif name == "real":
             rec = summary(run("real"), "real")
             (FIXTURES / "torch_port_real.json").write_text(
