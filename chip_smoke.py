@@ -25,7 +25,11 @@ the kernels line, the card and the result.
                 edge_batch, with every pair forced into that class:
                 forward, reverse on the same pairs (terminate = their
                 score) and reverse on the derived prefixes, and the planted
-                ties must come out where the design puts them;
+                ties must come out where the design puts them.  Then both
+                again with the iterative search's realignment matrix
+                (blosum62_bf2_bias) and the composition bias it gives each
+                query, the extreme-bias pairs kept: the seeded batch and
+                every class on the edge batches, all six outputs equal;
   4. small   -- createsetdb + clustersearch --filter-self-match through the
                 CLI on the small synthetic genome set; the result must equal
                 tests/fixtures/torch_port_small.tsv (recorded by the JAX
@@ -105,7 +109,31 @@ the kernels line, the card and the result.
                 key in exactly one cluster, every representative's clu_aln
                 holding its self alignment, every representative of >= 100
                 aa finding its own profile with E < 1e-10;
- 13. timing  -- each kernel against its plain version on the largest stage
+ 13. iterative-small -- `search --num-iterations 2` and `3` through the
+                CLI on the small set and `--num-iterations 2` on the family
+                set (synth.py --size families: chains of divergence, where
+                the profile round adds records): each TSV equal to
+                tests/fixtures/torch_port_{small,families}_iterN.tsv byte for
+                byte; K1/K2 and both prof kernels must launch;
+ 14. iterative-real -- `search --num-iterations 2` through the CLI on the
+                real-size set, counters reset just before and read just
+                after (K1/K2 and both prof kernels must launch), held to
+                invariants: every gene of >= 100 aa finds itself with
+                E < 1e-10; no round-1 record's target is one that round 0
+                found at E <= --e-profile; every record of round 0 carries
+                the score and E-value the acceptance pass gave it.  Prints
+                each round's stage seconds, index size and SW engines'
+                metrics, and the resident set after each round's index;
+ 15. split   -- clustersearch --split-memory-limit through the CLI on the
+                small set at 400,000 and 150,000 bytes (4 and 9 target
+                splits) and with --profile-cluster-search over
+                tests/fixtures/torch_port_small_clu at 64,000,000 bytes
+                (3-4 profile slices), each equal to the unsplit fixture
+                byte for byte; then the real-size set at 7,000,000 bytes (4
+                target splits) through cluster_search_to_file, counters
+                reset just before and read just after, equal to
+                tests/fixtures/torch_port_real.json;
+ 16. timing  -- each kernel against its plain version on the largest stage
                 the real runs dispatched, with the main path's own resident
                 tensors: equal outputs, milliseconds (the launches alone, by
                 the events the wrapper records round them, and the wrapper's
@@ -145,8 +173,15 @@ STRUCT_GO = 10          # foldseek's gap costs in structure mode
 STRUCT_REPLACES = "spacedust_tpu/ops/sw_engine.py:608"
 PHASES = ("kernels", "kernels-struct", "kernels-prof", "small", "real",
           "struct-small", "struct-real", "toolkit", "profile-small",
-          "profile-real", "timing")
+          "profile-real", "iterative-small", "iterative-real", "split",
+          "timing")
 ALT_ALI = 2             # --alt-ali of the toolkit phase
+# --split-memory-limit of the split phase (12 bytes a target residue; a
+# profile position 2,048): 4 and 9 target splits of the small set, 4 of the
+# real set (2,057,079 residues), 3-4 profile slices of the small set
+SPLIT_BUDGETS_SMALL = (400_000, 150_000)
+SPLIT_BUDGET_REAL = 7_000_000
+SPLIT_BUDGET_PROFILE = 64_000_000
 # The card's peaks (NVIDIA's H100 SXM data sheet): 3.35 TB/s of HBM, and
 # 67 TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x
 # 2 (FMA) x 1.98 GHz.  An SM runs int32 on 64 lanes, one operation an
@@ -357,12 +392,15 @@ def tie_letters(sub: np.ndarray) -> tuple[int, int, list]:
     raise ValueError("no tie letters in this matrix")
 
 
-def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED, go: int = GO):
+def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED, go: int = GO,
+               bias_of=None):
     """Pairs that stress the kernels' body at `rows` query rows per lane
     (a strip is 32 * rows rows), for the letter scores `sub` and the gap
     open cost `go`.  Returns resident (q, bias, t), the (5, n) forward
     jobs and, for the planted ties, {pair: (score, t_end, q_end)}, the
-    forward result the design must give.
+    forward result the design must give.  The grid pairs' bias is random
+    in -3..3, or bias_of(query) when given (a composition bias); the
+    planted pairs have none.
 
     Grid: qlen in {1, rows, 32 rows - 1, 32 rows, 32 rows + 1, 64 rows,
     64 rows + 1, 96 rows + 7} x tlen in {1, 2, 7, 31, 32, 33, 100}, random
@@ -393,7 +431,8 @@ def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED, go: int = GO):
             hit = rng.integers(0, 100, tl) < 25
             t[hit] = rng.integers(0, 20, int(hit.sum()))
             qs.append(q)
-            bs.append(rng.integers(-3, 4, ql).astype(np.int8))
+            b = rng.integers(-3, 4, ql).astype(np.int8)
+            bs.append(b if bias_of is None else bias_of(q))
             ts.append(t.astype(np.uint8))
     fq, ft, (a, b, c) = tie_letters(sub)
     motif = {1: [a, b, c, a, b, c], 2: [c, b, a, c, b, a]}
@@ -624,26 +663,29 @@ def check_batch(tag: str, resident: list, jobs: np.ndarray, go: int,
               f"kernel {k_ms:.1f} ms, plain {p_ms:.1f} ms")
 
 
-def check_edges(tables: list, errs: dict, cell: str = "seq") -> None:
+def check_edges(tables: list, errs: dict, cell: str = "seq",
+                bias_of=None, tag: str | None = None) -> None:
     """Each compiled class of the kernels' body on edge_batch (cell "seq",
-    tables: [sub]), edge_batch_struct ("struct", tables: [m3di, aasc]) or
-    edge_batch_prof ("prof", tables: [sub], from which the profile rows
-    are made), on the card, every pair forced into the class (a plan of
-    one class, handed to the wrappers' launcher); the planted ties where
-    the design puts them."""
+    tables: [sub], the grid pairs' bias from bias_of when given),
+    edge_batch_struct ("struct", tables: [m3di, aasc]) or edge_batch_prof
+    ("prof", tables: [sub], from which the profile rows are made), on the
+    card, every pair forced into the class (a plan of one class, handed
+    to the wrappers' launcher); the planted ties where the design puts
+    them."""
     from spacedust_tpu_torch.ops import sw_cuda
     tabs = [m.cpu().numpy().astype(np.int32) for m in tables]
-    d_fwd, d_rev, go, tag = {
+    d_fwd, d_rev, go, tag0 = {
         "seq": ("fwd", "rev", GO, "kernels"),
         "struct": ("fwd_struct", "rev_struct", STRUCT_GO, "kernels-struct"),
         "prof": ("fwd_prof", "rev_prof", GO, "kernels-prof")}[cell]
+    tag = tag or tag0
     for rows in sw_cuda.LANE_ROWS:
         if cell == "struct":
             arrays, jobs, expect = edge_batch_struct(rows, *tabs)
         elif cell == "prof":
             arrays, jobs, expect = edge_batch_prof(rows, *tabs)
         else:
-            *arrays, jobs, expect = edge_batch(rows, *tabs)
+            *arrays, jobs, expect = edge_batch(rows, *tabs, bias_of=bias_of)
         res = [torch.from_numpy(a).to(tables[0].device) for a in arrays]
         if cell != "prof":
             res += tables
@@ -653,8 +695,8 @@ def check_edges(tables: list, errs: dict, cell: str = "seq") -> None:
             got = sw_cuda._launch_warp(reverse, res, sw_cuda.warp_plan(
                 js, sw_cuda.WARP_SCRATCH[reverse], rows=rows), go, GE)
             ref = plain(d)(*res, js, go, GE)
-            errs[d] = max(errs[d], compare(f"edges R={rows} {what}", got,
-                                           ref))
+            errs[d] = max(errs[d], compare(f"{tag} edges R={rows} {what}",
+                                           got, ref))
             return got
 
         fwd = both(d_fwd, jobs, d_fwd).cpu().numpy()
@@ -678,11 +720,49 @@ def check_edges(tables: list, errs: dict, cell: str = "seq") -> None:
               f"six outputs equal")
 
 
+def composition_bias(matrix):
+    """bias_of(q) for edge_batch: the int8 composition bias of one query
+    under `matrix` (the native routine the alignment engine calls)."""
+    from spacedust_tpu_torch.native import comp_bias_batch
+
+    def bias_of(q: np.ndarray) -> np.ndarray:
+        return comp_bias_batch(
+            np.ascontiguousarray(q, dtype=np.uint8), np.zeros(1, np.int64),
+            np.array([len(q)], np.int32),
+            np.ascontiguousarray(matrix.sub_int, dtype=np.int32),
+            np.ascontiguousarray(matrix.p_back, dtype=np.float64))
+    return bias_of
+
+
 def check_kernels(sub: torch.Tensor, errs: dict) -> None:
+    """K1/K2 on the seeded batch and the edge batches with BLOSUM62, then
+    with the iterative search's realignment matrix (blosum62_bf2_bias)
+    and the composition bias it gives each query: the sequence kernels
+    score with any 21-letter table they are handed, and the int8 wrap of
+    table + bias must agree with the plain version for this one too."""
+    from spacedust_tpu_torch.native import comp_bias_batch
+    from spacedust_tpu_torch.stats.submat import load_pinned_matrix
     q, b, t, jobs = kernel_batch()
     Q, B, T = (torch.from_numpy(a).to(sub.device) for a in (q, b, t))
     check_batch("kernels", [Q, B, T, sub], jobs, GO, ("fwd", "rev"), errs)
     check_edges([sub], errs)
+    m = load_pinned_matrix("blosum62_bf2_bias")
+    rsub = torch.from_numpy(m.sub_int.astype(np.int8)).to(sub.device)
+    rb = comp_bias_batch(q, np.ascontiguousarray(jobs[0]),
+                         np.ascontiguousarray(jobs[1], dtype=np.int32),
+                         np.ascontiguousarray(m.sub_int, dtype=np.int32),
+                         np.ascontiguousarray(m.p_back, dtype=np.float64))
+    # the pairs of kernel_batch's kinds 4 and 5 keep their extreme bias
+    for p in range(jobs.shape[1] - 2):
+        if p % 8 in (4, 5):
+            o, n = jobs[0, p], jobs[1, p]
+            rb[o:o + n] = b[o:o + n]
+    if int(np.abs(rb).max()) < 100 or (rb != 0).mean() < 0.05:
+        fail("kernels realign: the composition bias lost its shape")
+    check_batch("kernels realign", [Q, torch.from_numpy(rb).to(sub.device),
+                                    T, rsub], jobs, GO, ("fwd", "rev"), errs)
+    check_edges([rsub], errs, bias_of=composition_bias(m),
+                tag="kernels realign")
 
 
 def check_kernels_prof(sub: torch.Tensor, errs: dict) -> None:
@@ -980,14 +1060,15 @@ def check_masked_targets(sub: torch.Tensor, errs: dict) -> None:
         fail("toolkit: too few masked pairs score above 0")
 
 
-def run_cli(argv: list) -> str:
+def run_cli(argv: list, quiet: bool = False) -> str:
     """cli.main(argv), fatal on a non-zero return; returns what it
-    printed (and prints it)."""
+    printed (and prints it unless quiet)."""
     from spacedust_tpu_torch import cli
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
-    print(buf.getvalue(), end="")
+    if not quiet:
+        print(buf.getvalue(), end="")
     if rc != 0:
         fail(f"{' '.join(argv[:1])} failed: {argv}")
     return buf.getvalue()
@@ -1256,6 +1337,254 @@ def profile_real(work: Path, dev: torch.device) -> tuple[dict, dict]:
     return launches, stages
 
 
+# ------------------------------------------- 13-15. iterative and split
+def detail_of(text: str) -> dict:
+    """The JSON of a command's `detail:` line."""
+    return next(json.loads(ln.split("detail: ", 1)[1])
+                for ln in text.splitlines() if "detail: " in ln)
+
+
+def round_line(tag: str, m: dict) -> str:
+    """One round of search_iterative's metrics: stage seconds, counts and
+    each SW engine's pairs, cells, launches and kernel / wrapper ms."""
+    engines = "; ".join(
+        f"{key} {d['fwd_pairs']} + {d['rev_pairs']} pairs, "
+        f"{d['fwd_cells'] / 1e9:.3f} + {d['rev_cells'] / 1e9:.3f} G cells, "
+        f"{d['fwd_launches']} + {d['rev_launches']} launches, kernel "
+        f"{d['fwd_kernel_ms']:.2f} + {d['rev_kernel_ms']:.2f} ms (wrapper "
+        f"{d['fwd_wrapper_ms']:.2f} + {d['rev_wrapper_ms']:.2f})"
+        for key, d in m.items() if key.endswith("_detail"))
+    return (f"[{tag}] round {m['round']}: index {m['index_s']:.2f} s "
+            f"({m['index_mb']:.1f} MB), prefilter {m['prefilter_s']:.2f} s, "
+            f"{m['candidates']} candidates, align {m['align_s']:.2f} s, "
+            f"{m['records']} records, profiles "
+            f"{m.get('profiles_s', 0.0):.2f} s; {engines}")
+
+
+def iterative_small(work: Path) -> None:
+    """search --num-iterations through the CLI on the small set (2 and 3)
+    and the family set (2), each TSV equal to its JAX fixture."""
+    from spacedust_tpu_torch import synth
+    t0 = time.perf_counter()
+    before = read_counts()
+    for size, iters in (("small", (2, 3)), ("families", (2,))):
+        fa = synth.write_genome_set(work / f"it_{size}", size)
+        db = str(work / f"it_{size}_db")
+        run_cli(["createsetdb", *map(str, fa), db], quiet=True)
+        for n in iters:
+            out = work / f"it_{size}_{n}.tsv"
+            rounds = detail_of(run_cli(
+                ["search", db, db, str(out), "--num-iterations", str(n),
+                 "--device", "cuda"], quiet=True))["rounds"]
+            name = f"torch_port_{size}_iter{n}.tsv"
+            if out.read_bytes() != (ROOT / "tests" / "fixtures"
+                                    / name).read_bytes():
+                fail(f"iterative-small: search --num-iterations {n} on "
+                     f"{size} differs from {name}")
+            print(f"[iterative-small] {size}, {n} iterations: records a "
+                  f"round {[m['records'] for m in rounds]}, equal to {name}")
+    launched = {d: k - before[d] for d, k in read_counts().items()}
+    if any(launched[d] <= 0 for d in ("fwd", "rev", "fwd_prof", "rev_prof")):
+        fail(f"iterative-small did not launch K1/K2 and both prof kernels: "
+             f"{launched}")
+    print(f"[iterative-small] launches {launched} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def peak_rss_mb() -> float:
+    """The process's peak resident set so far (getrusage), in MB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def rss_mb() -> float:
+    """The process's resident set now (/proc/self/statm), in MB."""
+    import os
+    pages = int(Path("/proc/self/statm").read_text().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def iterative_real(work: Path) -> dict:
+    """search --num-iterations 2 through the CLI at real size, counters
+    reset just before and read just after, held to invariants; returns
+    the launch counts of the run."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.db.setdb import SetDB
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.search import alignment, iterative
+    e_profile = 0.1                       # the CLI's default --e-profile
+    fa = synth.write_genome_set(work / "it_real", "real")
+    db_path = str(work / "it_real_db")
+    run_cli(["createsetdb", *map(str, fa), db_path], quiet=True)
+    db = SetDB.load(db_path)
+    out = work / "it_real.tsv"
+    # where round 0 ends in each query's list, and what the acceptance
+    # pass gave, taken on their way through the library
+    n0: dict = {}
+    accepted: dict = {}
+    rss: list = []                 # resident set after each round's index
+    build = iterative.build_profiles
+    forward_accepts = alignment.AlignmentEngine.forward_accepts
+    engine = iterative.PrefilterEngine
+
+    class Measured(engine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            rss.append(rss_mb())
+
+    def counting(qdb, tdb, records, eval_profile):
+        n0.update({qk: len(v) for qk, v in records.items()})
+        return build(qdb, tdb, records, eval_profile)
+
+    def keeping(self, *args, **kw):
+        res = forward_accepts(self, *args, **kw)
+        accepted.update(res)
+        return res
+
+    iterative.build_profiles = counting
+    alignment.AlignmentEngine.forward_accepts = keeping
+    iterative.PrefilterEngine = Measured
+    try:
+        rss0, peak0 = rss_mb(), peak_rss_mb()
+        sw_cuda.reset_counts()
+        t0 = time.perf_counter()
+        text = run_cli(["search", db_path, db_path, str(out),
+                        "--num-iterations", "2", "--device", "cuda"],
+                       quiet=True)
+        torch.cuda.synchronize()
+        t_search = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        iterative.build_profiles = build
+        alignment.AlignmentEngine.forward_accepts = forward_accepts
+        iterative.PrefilterEngine = engine
+    peak = peak_rss_mb()
+    if any(launches[d] <= 0 for d in ("fwd", "rev", "fwd_prof", "rev_prof")):
+        fail(f"iterative-real did not launch K1/K2 and both prof kernels: "
+             f"{launches}")
+    lines = collections.defaultdict(list)
+    for ln in out.read_text().splitlines():
+        c = ln.split("\t")
+        lines[int(c[0])].append(c)
+    no_self, again, changed, n1 = [], [], [], 0
+    for qk in range(db.size):
+        cols = lines.get(qk, [])
+        r0, r1 = cols[:n0.get(qk, 0)], cols[n0.get(qk, 0):]
+        n1 += len(r1)
+        if db.lengths[qk] >= 100 and not any(
+                int(c[1]) == qk and float(c[4]) < 1e-10 for c in cols):
+            no_self.append(qk)
+        found = {int(c[1]) for c in r0 if float(c[4]) <= e_profile}
+        again += [(qk, int(c[1])) for c in r1 if int(c[1]) in found]
+        fwd = {r.tkey: r.columns() for r in accepted.get(qk, [])}
+        changed += [(qk, int(c[1])) for c in r0
+                    if int(c[1]) not in fwd
+                    or (c[2], c[4]) != (fwd[int(c[1])][1],
+                                        fwd[int(c[1])][3])]
+    if no_self:
+        fail(f"iterative-real: {len(no_self)} genes of >= 100 aa lack a self "
+             f"hit with E < 1e-10 (first: {no_self[:5]})")
+    if again:
+        fail(f"iterative-real: round 1 aligned {len(again)} targets that "
+             f"round 0 had found at E <= {e_profile} (first: {again[:5]})")
+    if changed:
+        fail(f"iterative-real: {len(changed)} round-0 records do not carry "
+             f"the acceptance pass's score and E-value (first: "
+             f"{changed[:5]})")
+    n_all = sum(len(v) for v in lines.values())
+    rounds = detail_of(text)["rounds"]
+    print(f"[iterative-real] {db.size} genes, {len(db.seq_data)} residues; "
+          f"search --num-iterations 2 {t_search:.2f} s; {n_all} records, "
+          f"{n_all - n1} of round 0 and {n1} of round 1")
+    for m in rounds:
+        print(round_line("iterative-real", m))
+    print(f"[iterative-real] launches {launches}; resident set "
+          f"{rss0:.0f} MB before the run, "
+          f"{', '.join(f'{x:.0f}' for x in rss)} MB after each round's "
+          f"index; the process's peak {peak:.0f} MB after the run "
+          f"({peak0:.0f} MB before it); "
+          f"every gene of >= 100 aa finds itself with E < 1e-10, round 1 "
+          f"aligns no target round 0 found at E <= {e_profile}, round 0's "
+          f"records carry the acceptance pass's score and E-value")
+    return launches
+
+
+def split_phase(work: Path, dev: torch.device) -> dict:
+    """--split-memory-limit: the sequence search at two budgets and the
+    sliced profile search on the small set through the CLI, each equal to
+    the unsplit JAX fixture; the sequence search at real size in 3-4
+    target splits through cluster_search_to_file, counters reset just
+    before and read just after, equal to the unsplit fixture.  Returns the
+    launch counts of that run."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.cluster.summarize import canonical_sha256
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.parallel.split import splits_for_memory_budget
+    from spacedust_tpu_torch.workflow.clustersearch import (
+        ClusterSearchParams, cluster_search_to_file)
+    from spacedust_tpu_torch.workflow.createsetdb import create_setdb
+    fixtures = ROOT / "tests" / "fixtures"
+    t0 = time.perf_counter()
+    fa = synth.write_genome_set(work / "split_small", "small")
+    db = str(work / "split_small_db")
+    run_cli(["createsetdb", *map(str, fa), db], quiet=True)
+    runs = [(["--split-memory-limit", str(b)], "torch_port_small.tsv")
+            for b in SPLIT_BUDGETS_SMALL]
+    runs.append((["--profile-cluster-search", "--cluster-db",
+                  str(fixtures / "torch_port_small_clu"),
+                  "--split-memory-limit", str(SPLIT_BUDGET_PROFILE)],
+                 "torch_port_small_profile.tsv"))
+    for flags, name in runs:
+        out = work / "split_small.tsv"
+        detail = detail_of(run_cli(
+            ["clustersearch", db, db, str(out), "--filter-self-match",
+             *flags, "--device", "cuda"], quiet=True))
+        if out.read_bytes() != (fixtures / name).read_bytes():
+            fail(f"split: {' '.join(flags)} on small differs from {name}")
+        parts = (f"{detail['split_detail']['shards']} target splits"
+                 if "split_detail" in detail else
+                 f"{detail['profile_detail']['slices']} profile slices")
+        print(f"[split] small, {parts}: equal to {name}")
+    print(f"[split] small: {time.perf_counter() - t0:.1f} s")
+
+    fx = json.loads((fixtures / "torch_port_real.json").read_text())
+    fa = synth.write_genome_set(work / "split_real", "real")
+    rdb = create_setdb([str(p) for p in fa], str(work / "split_real_db"))
+    n_split = len(splits_for_memory_budget(rdb.lengths, SPLIT_BUDGET_REAL))
+    if not 3 <= n_split <= 4:
+        fail(f"split: {SPLIT_BUDGET_REAL} bytes make {n_split} splits of the "
+             f"real set, not 3-4")
+    sw_cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = cluster_search_to_file(
+        rdb, rdb, str(work / "split_real.tsv"),
+        params=ClusterSearchParams(filter_self_match=True,
+                                   split_memory_limit=SPLIT_BUDGET_REAL),
+        device=dev)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    launches = read_counts()
+    if launches["fwd"] <= 0 or launches["rev"] <= 0:
+        fail(f"split: the real run did not launch both kernels: {launches}")
+    got = (*counts(res.tsv), canonical_sha256(res.tsv))
+    want = (fx["hits"], fx["clusters"], fx["canonical_sha256"])
+    if got != want:
+        fail(f"split: the real set in {n_split} splits differs from the "
+             f"unsplit fixture: {got} vs {want}")
+    tm = res.timings
+    sd = tm["split_detail"]
+    ad = tm["align_detail"]
+    print(f"[split] real, {SPLIT_BUDGET_REAL} bytes: {n_split} target splits; "
+          f"clustersearch {t_search:.2f} s = prefilter {tm['prefilter']:.2f} "
+          f"(shards {', '.join(f'{x:.2f}' for x in sd['shard_s'])}; merge "
+          f"{sd['merge_s']:.3f}) + align {tm['align']:.2f} + aggregate "
+          f"{tm['aggregate']:.2f}; {ad['fwd_pairs']} + {ad['rev_pairs']} "
+          f"pairs, kernel {ad['fwd_kernel_ms']:.2f} + "
+          f"{ad['rev_kernel_ms']:.2f} ms; launches {launches}; {got[0]} hits "
+          f"/ {got[1]} clusters, equal to the unsplit fixture")
+    return launches
+
+
 def bound_ms(d: str, js: np.ndarray) -> tuple[float, str]:
     """The least milliseconds the card could take for stage js of
     direction d, and what sets it.  Bytes: every token and bias byte of
@@ -1464,6 +1793,12 @@ def main(argv: list | None = None) -> int:
             launches.update({d: p_launches[d]
                              for d in ("fwd_prof", "rev_prof")})
             stages.update(p_stages)
+        if "iterative-small" in phases:
+            iterative_small(Path(tmp))
+        if "iterative-real" in phases:
+            it_launches = iterative_real(Path(tmp))
+        if "split" in phases:
+            split_launches = split_phase(Path(tmp), dev)
     report = (time_stages(stages, launches, errs, card)
               if "timing" in phases else [])
     torch.cuda.synchronize()
@@ -1480,6 +1815,9 @@ def main(argv: list | None = None) -> int:
             fail(f"the toolkit's search did not launch {entry['name']}")
         # the profile path: clusterdb and the profile search at real size
         entry["launches_profile"] = p_launches[d]
+        # search --num-iterations 2 and the split clustersearch, real size
+        entry["launches_iterative"] = it_launches[d]
+        entry["launches_split"] = split_launches[d]
 
     print(json.dumps({"kernels": report}))
     print(card_line())

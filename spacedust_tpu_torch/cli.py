@@ -8,7 +8,11 @@ and `summarizeresults`, and the inherited `search` and
 
 A flag or command whose code path is not ported yet is registered and
 fails when the arguments are parsed, naming its ROADMAP item (NOT_PORTED,
-`gff2db`).
+`gff2db`).  So does a flag that the JAX package takes and then ignores on
+the path another flag selects (DROPPED): `-k`, `--spaced-kmer-mode`,
+`--max-accept`, `--max-rejected` and `--alt-ali` with `search
+--num-iterations > 1`; `-k`, `--spaced-kmer-mode` and `--search-mode` with
+`clustersearch --split-memory-limit`.
 
 Run as `python -m spacedust_tpu_torch <command> ...`.
 """
@@ -29,17 +33,25 @@ from .db.setdb import SetDB
 # ports it).  For an int flag marked `above`, values up to the default
 # pass (they switch the feature off in the reference too).
 NOT_PORTED = {
-    "split_memory_limit": (0, "A7"),
     "multihost": (1, "A8"),
     "multihost_local_devices": (1, "A8"),
     "gff_dir": (None, "A11b"),
     "gff_type": ("CDS", "A11b"),
     "translation_table": (1, "A11b"),
-    "num_iterations": (1, "A10b"),
-    "e_profile": (0.1, "A10b"),
     "search_type": (1, "A11b"),
 }
-_ABOVE = {"split_memory_limit", "multihost", "num_iterations", "search_type"}
+_ABOVE = {"multihost", "search_type"}
+
+# flags that the JAX package takes and then drops without a word on the
+# path a switch selects: (switch dest, switch is on?, what the path is,
+# the dropped flags' dests and defaults).  The port refuses them there.
+DROPPED = (
+    ("num_iterations", lambda v: v > 1, "--num-iterations > 1",
+     {"kmer_size": 0, "spaced_kmer_mode": 1, "max_accept": 2147483647,
+      "max_rejected": 2147483647, "alt_ali": 0}),
+    ("split_memory_limit", lambda v: v > 0, "--split-memory-limit > 0",
+     {"kmer_size": 0, "spaced_kmer_mode": 1, "search_mode": 0}),
+)
 
 
 def _check_ported(p: argparse.ArgumentParser, a: argparse.Namespace) -> None:
@@ -52,6 +64,21 @@ def _check_ported(p: argparse.ArgumentParser, a: argparse.Namespace) -> None:
             flag = "--" + dest.replace("_", "-")
             shown = flag if val is True else f"{flag} {val}"
             p.error(f"{shown} is not ported yet (ROADMAP {item})")
+
+
+def _check_dropped(p: argparse.ArgumentParser, a: argparse.Namespace
+                   ) -> None:
+    """Fail at parse time (exit code 2) on a flag at a value other than
+    its default where its path ignores it (DROPPED)."""
+    for switch, on, path, flags in DROPPED:
+        if not hasattr(a, switch) or not on(getattr(a, switch)):
+            continue
+        for dest, default in flags.items():
+            if hasattr(a, dest) and getattr(a, dest) != default:
+                flag = "-k" if dest == "kmer_size" else (
+                    "--" + dest.replace("_", "-"))
+                p.error(f"{flag} {getattr(a, dest)} has no effect with "
+                        f"{path}; leave it at its default {default}")
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
@@ -103,7 +130,11 @@ def _add_clustersearch_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mask", type=int, default=1)
     p.add_argument("--comp-bias-corr", type=int, default=1)
     p.add_argument("--split-memory-limit", type=int, default=0,
-                   help="not ported yet (ROADMAP A7); 0 = off")
+                   help="bound the k-mer index of one target split to "
+                        "this many bytes (12 a residue; sequential "
+                        "residue-balanced splits; with "
+                        "--profile-cluster-search, profile slices of "
+                        "2,048 bytes a position); 0 = off")
     p.add_argument("--threads", type=int, default=0,
                    help="cap OpenMP threads in the native engines "
                         "(0 = all cores, the reference default)")
@@ -184,6 +215,7 @@ def cmd_clustersearch(argv: list[str]) -> int:
     _add_clustersearch_args(p)
     a = p.parse_args(argv)
     _check_ported(p, a)
+    _check_dropped(p, a)
     device = _device(a)
     qdb, tdb = _load_dbs(a)
     params = ClusterSearchParams(
@@ -449,9 +481,26 @@ def _run_search(qdb, tdb, a, same_qt_db: bool, device: torch.device,
     """Prefilter + align; returns {query_key: [AlnRecord]}.  detail, if
     given, receives the host-clock seconds of the two steps, the SW
     engine's metrics (`align_detail`) and those of the --alt-ali rounds
-    (`alt_detail`)."""
+    (`alt_detail`); with --num-iterations > 1, one dict a round
+    (`rounds`, search/iterative.py::search_iterative's metrics)."""
     from .search.alignment import AlignmentEngine, AlignmentParams
     from .search.prefilter import PrefilterEngine
+    if a.num_iterations > 1:
+        from .search.iterative import IterativeSearchConfig, search_iterative
+        cfg = IterativeSearchConfig(
+            num_iterations=a.num_iterations, sensitivity=a.sensitivity,
+            max_seqs=a.max_seqs, eval_thr=a.eval_thr,
+            eval_profile=a.e_profile, cov_thr=a.cov_thr,
+            cov_mode=a.cov_mode, aln_len_thr=a.aln_len_thr,
+            gap_open=a.gap_open, gap_extend=a.gap_extend,
+            mask=bool(a.mask),
+            comp_bias_correction=bool(a.comp_bias_corr))
+        rounds: list = []
+        records = search_iterative(qdb, tdb, cfg, same_qt_db=same_qt_db,
+                                   device=device, metrics=rounds)
+        if detail is not None:
+            detail["rounds"] = rounds
+        return records
     t0 = time.perf_counter()
     pref = PrefilterEngine(qdb, tdb, sensitivity=a.sensitivity,
                            max_seqs=a.max_seqs, same_qt_db=same_qt_db,
@@ -513,10 +562,13 @@ def cmd_search(argv: list[str]) -> int:
                    help="1: spaced seed pattern (default), 0: consecutive")
     p.add_argument("--max-seq-len", type=int, default=65535)
     p.add_argument("--num-iterations", type=int, default=1,
-                   help="more than 1 (iterative profile search) is not "
-                        "ported yet (ROADMAP A10b)")
+                   help="iterative profile search rounds (the blastpgp.sh "
+                        "path, workflow/Search.cpp:202): round 0 searches "
+                        "sequences and realigns, later rounds search with "
+                        "result2profile PSSMs, subtracting prior hits")
     p.add_argument("--e-profile", type=float, default=0.1,
-                   help="not ported yet (ROADMAP A10b)")
+                   help="profile inclusion E-value; intermediate rounds "
+                        "run at min(-e, --e-profile) (Search.cpp:482)")
     p.add_argument("--format-mode", type=int, default=0,
                    help="0: key-prefixed alignment TSV, 4: BLAST-tab "
                         "with column headers, 1: BLAST-tab")
@@ -526,6 +578,7 @@ def cmd_search(argv: list[str]) -> int:
                         "search) is not ported yet (ROADMAP A11b)")
     a = p.parse_args(argv)
     _check_ported(p, a)
+    _check_dropped(p, a)
     device = _device(a)
     qdb, tdb = _load_dbs(a)
     _apply_threads(a.threads)

@@ -105,6 +105,26 @@ class SetDB:
         sub.finalize_metadata()
         return sub
 
+    def subrange(self, s: int, e: int) -> "SetDB":
+        """Zero-copy SetDB over the contiguous gene range [s, e): token
+        arrays are VIEWS of this DB's (possibly mmapped) arrays, so an
+        out-of-core target split holds no resident copy of the shard --
+        the DBReader MMAP-mode analog (DBReader.cpp mmap path,
+        Prefiltering.cpp:662-723)."""
+        off0 = int(self.offsets[s])
+        sub = SetDB(
+            dbtype=self.dbtype,
+            seq_data=self.seq_data[off0:int(self.offsets[e])],
+            offsets=(self.offsets[s:e + 1] - off0),
+            names=self.names[s:e],
+            set_ids=self.set_ids[s:e],
+            headers=self.headers[s:e],
+            sources=list(self.sources))
+        if self.has_ss:
+            sub.ss_data = self.ss_data[off0:int(self.offsets[e])]
+        sub.finalize_metadata()
+        return sub
+
     def ss_view(self) -> "SetDB":
         """A SetDB view whose primary residues are the 3Di states (shares
         all metadata) — feeds the structure-mode prefilter/index."""

@@ -1,5 +1,6 @@
-"""Native (C++/OpenMP) host engines: k-mer index and prefilter, tantan
-masking, composition bias, banded traceback, clusterhits, and the
+"""Native (C++/OpenMP) host engines: k-mer index and prefilter (sequence
+and profile queries), tantan masking, composition bias, banded traceback
+(sequence, profile and profile-profile), clusterhits, and the
 profile helpers (global PSSM bias correction, target-profile k-mer
 postings).
 
@@ -9,7 +10,8 @@ search/profile.py and search/profilesearch.py); `banded_sw.cpp` here writes its 
 CIGARs without the one-byte overrun of the original.  The
 shared library is compiled with g++ at first use into the package's
 `_build/` directory (content-hashed, git-ignored).  Only the symbols the
-port's paths call are bound.
+port's paths call are bound, and `banded_align_profile_profile`, which no
+command calls in either package (library parity).
 """
 
 from __future__ import annotations
@@ -98,6 +100,37 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P(i32), P(i32), P(i32), P(i32),   # out_seq/score/diag/cnt
         P(i64),              # total_raw_out
     ]
+    lib.prefilter_match_profile_batch.restype = ctypes.c_int
+    lib.prefilter_match_profile_batch.argtypes = [
+        P(ctypes.c_int16),   # rank_s (Ltot, 20)
+        P(ctypes.c_uint8),   # rank_i (Ltot, 20)
+        P(ctypes.c_int16),   # qprof (Ltot, 20)
+        P(ctypes.c_uint8),   # qseq (profile residues)
+        ctypes.c_int,        # x_index
+        P(i64),              # qoffs (position offsets)
+        P(i32),              # qlens
+        ctypes.c_int,        # nq
+        ctypes.c_int,        # kmer_size
+        P(i32),              # spaced pattern
+        P(i32),              # hash keys
+        P(i32),              # hash range starts
+        P(i32),              # hash range counts
+        i64,                 # hash capacity
+        P(ctypes.c_uint64),  # occupied bitmap
+        P(i32),              # post_seq
+        P(i32),              # post_pos
+        P(ctypes.c_uint8),   # tdata
+        P(i64),              # toffs
+        P(i32),              # tlens
+        ctypes.c_int,        # nt
+        ctypes.c_int,        # alpha
+        ctypes.c_int, ctypes.c_int,       # kmer_thr, max_seqs
+        ctypes.c_int, ctypes.c_int,       # min_diag_score, bin_count
+        P(i32),              # identity_keys (nullable)
+        ctypes.c_float, ctypes.c_int,     # cov_thr, cov_mode
+        P(i32), P(i32), P(i32), P(i32),   # out_seq/score/diag/cnt
+        P(i64),              # total_raw_out
+    ]
     lib.tantan_mask.restype = ctypes.c_int
     lib.tantan_mask.argtypes = [
         P(ctypes.c_uint8),                # seq (in/out)
@@ -131,6 +164,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,       # q_len, t_len
         P(ctypes.c_int8),                 # prof [aa][qpos]
         ctypes.c_int, ctypes.c_int,       # prof_qlen, query_start
+        ctypes.c_int,                     # score
+        ctypes.c_int, ctypes.c_int,       # gap_open, gap_extend
+        ctypes.c_int,                     # band_width
+        ctypes.c_char_p, ctypes.c_int]    # out, cap
+    lib.banded_align_profile_profile.restype = ctypes.c_int
+    lib.banded_align_profile_profile.argtypes = [
+        P(ctypes.c_uint8), P(ctypes.c_uint8),   # t, qcons (consensus)
+        ctypes.c_int, ctypes.c_int,       # q_len, t_len
+        P(ctypes.c_int8),                 # qprof [aa][qpos]
+        ctypes.c_int, ctypes.c_int,       # qprof_qlen, query_start
+        P(ctypes.c_int8),                 # tprof [aa][tpos]
+        ctypes.c_int, ctypes.c_int,       # tprof_tlen, target_start
         ctypes.c_int,                     # score
         ctypes.c_int, ctypes.c_int,       # gap_open, gap_extend
         ctypes.c_int,                     # band_width
@@ -306,6 +351,52 @@ def prefilter_match_batch(qdata, qoffs, qlens, seed_sub, p_back, do_bias,
     return out_seq, out_score, out_diag, out_cnt, int(total_raw.value)
 
 
+def prefilter_match_profile_batch(rank_s, rank_i, qprof, qseq, x_index,
+                                  qoffs, qlens,
+                                  hkeys, hoff, hcnt, occupied,
+                                  post_seq, post_pos, tdata, toffs, tlens,
+                                  alpha, kmer_thr, max_seqs,
+                                  min_diag_score, bin_count,
+                                  identity_keys, cov_thr, cov_mode,
+                                  kmer_size: int, pattern):
+    """OpenMP profile-query prefilter (per-position PSSM beam; see
+    prefilter_engine.cpp).  Same output contract as
+    prefilter_match_batch; identity_keys: per-row identity target key
+    or None."""
+    lib = get_lib()
+    nq = len(qlens)
+    pattern = np.ascontiguousarray(pattern, dtype=np.int32)
+    out_seq = np.empty(nq * max_seqs, dtype=np.int32)
+    out_score = np.empty(nq * max_seqs, dtype=np.int32)
+    out_diag = np.empty(nq * max_seqs, dtype=np.int32)
+    out_cnt = np.zeros(nq, dtype=np.int32)
+    total_raw = ctypes.c_int64(0)
+    rc = lib.prefilter_match_profile_batch(
+        _ptr(rank_s, ctypes.c_int16), _ptr(rank_i, ctypes.c_uint8),
+        _ptr(qprof, ctypes.c_int16),
+        _ptr(qseq, ctypes.c_uint8), int(x_index),
+        _ptr(qoffs, ctypes.c_int64), _ptr(qlens, ctypes.c_int32), nq,
+        int(kmer_size), _ptr(pattern, ctypes.c_int32),
+        _ptr(hkeys, ctypes.c_int32), _ptr(hoff, ctypes.c_int32),
+        _ptr(hcnt, ctypes.c_int32), ctypes.c_int64(len(hkeys)),
+        _ptr(occupied, ctypes.c_uint64),
+        _ptr(post_seq, ctypes.c_int32), _ptr(post_pos, ctypes.c_int32),
+        _ptr(tdata, ctypes.c_uint8), _ptr(toffs, ctypes.c_int64),
+        _ptr(tlens, ctypes.c_int32), len(tlens),
+        int(alpha), int(kmer_thr), int(max_seqs), int(min_diag_score),
+        int(bin_count),
+        (_ptr(identity_keys, ctypes.c_int32)
+         if identity_keys is not None
+         else ctypes.POINTER(ctypes.c_int32)()),
+        float(cov_thr), int(cov_mode),
+        _ptr(out_seq, ctypes.c_int32), _ptr(out_score, ctypes.c_int32),
+        _ptr(out_diag, ctypes.c_int32), _ptr(out_cnt, ctypes.c_int32),
+        ctypes.byref(total_raw))
+    if rc != 0:
+        raise RuntimeError(f"prefilter_match_profile_batch failed: {rc}")
+    return out_seq, out_score, out_diag, out_cnt, int(total_raw.value)
+
+
 def cluster_hits_native(qpos, tpos, qstrand, tstrand, lookup,
                         max_gene_gaps: int, s_min: float, q0: float = 0.001):
     """Native agglomeration (clusterhits_engine.cpp). Returns
@@ -399,6 +490,37 @@ def banded_align_profile(t: np.ndarray, q_len: int, prof_aa_qpos: np.ndarray,
         abs(len(t) - q_len) + 1, buf, cap)
     if n < 0:
         raise RuntimeError(f"banded_align_profile failed: {n}")
+    return buf.raw[:n].decode("ascii")
+
+
+def banded_align_profile_profile(t_consens: np.ndarray,
+                                 q_consens: np.ndarray,
+                                 qprof_aa_qpos: np.ndarray,
+                                 query_start: int,
+                                 tprof_aa_tpos: np.ndarray,
+                                 target_start: int, score: int,
+                                 gap_open: int = 11,
+                                 gap_extend: int = 1) -> str:
+    """PROFILE_PROFILE CIGAR (StripedSmithWaterman.cpp:1461-1470): both
+    sides are profiles; t_consens/q_consens are the consensus residues
+    over the aligned rectangle, the profiles are (alpha, full_len) int8
+    in [aa][pos] layout.  Cell score = the reference's rounded mean of
+    qprof[t_j][qs+i] and tprof[q_i][ts+j].  Returns the expanded ops
+    string."""
+    t = np.ascontiguousarray(t_consens, dtype=np.uint8)
+    qc = np.ascontiguousarray(q_consens, dtype=np.uint8)
+    qprof = np.ascontiguousarray(qprof_aa_qpos, dtype=np.int8)
+    tprof = np.ascontiguousarray(tprof_aa_tpos, dtype=np.int8)
+    q_len = len(qc)
+    cap = q_len + len(t) + 8
+    buf = ctypes.create_string_buffer(cap)
+    n = get_lib().banded_align_profile_profile(
+        _ptr(t, ctypes.c_uint8), _ptr(qc, ctypes.c_uint8), q_len, len(t),
+        _ptr(qprof, ctypes.c_int8), qprof.shape[1], int(query_start),
+        _ptr(tprof, ctypes.c_int8), tprof.shape[1], int(target_start),
+        int(score), gap_open, gap_extend, abs(len(t) - q_len) + 1, buf, cap)
+    if n < 0:
+        raise RuntimeError(f"banded_align_profile_profile failed: {n}")
     return buf.raw[:n].decode("ascii")
 
 

@@ -34,9 +34,15 @@ search/profilesearch.py) are scored per position from their (L, 21) int8
 alignment profiles with no composition bias: the SW passes run on the
 profile kernels (ops/sw_engine.py::ProfileDeviceDB), the traceback is one
 banded profile alignment per pair, and identities are counted against the
-profile's stored query residues (`query_profile_seqs`).  Their identity
-records (a profile query against itself) are not ported yet (ROADMAP
-A10b).
+profile's stored query residues (`query_profile_seqs`).  The identity
+record of a profile query scores the query's residues against its own
+profile rows, accumulated in int16 (scoreIdentical over a profile).
+
+`forward_accepts` is the SCORE_ONLY acceptance pass of the iterative
+search's first round (Alignment.cpp:47-56): one forward stage on the
+device, records with end points only.  The engine scores with any
+substitution matrix it is given (`matrix`, with its own composition bias):
+the iterative search realigns with the score-bias -0.2 matrix.
 """
 
 from __future__ import annotations
@@ -228,6 +234,17 @@ class AlignmentEngine:
             self._ident_raws = (csum[o[1:]] - csum[o[:-1]]).astype(np.int16)
         return self._ident_raws
 
+    def _profile_identity_raws(self, keys: np.ndarray) -> np.ndarray:
+        """int16 identity raw scores of profile queries: the sum over i of
+        profile[i, seq[i]] (profile_word_linear scoring of scoreIdentical),
+        wrapped to int16; as int64."""
+        raws = np.empty(len(keys), dtype=np.int64)
+        for i, qk in enumerate(keys.tolist()):
+            seq = self.qdb.sequence(qk).astype(np.int64)
+            qp = self.query_profiles[qk]
+            raws[i] = qp[np.arange(len(seq)), seq].astype(np.int64).sum()
+        return raws.astype(np.int16).astype(np.int64)
+
     def _identity_records_batch(self, qkeys: np.ndarray
                                 ) -> dict[int, AlnRecord]:
         """Vectorized identity fast path (scoreIdentical semantics; int16
@@ -235,14 +252,13 @@ class AlignmentEngine:
         out: dict[int, AlnRecord] = {}
         if len(qkeys) == 0:
             return out
-        if self.query_profiles:
-            raise NotImplementedError(
-                "identity records of profile queries are not ported yet "
-                "(ROADMAP A10b)")
         if self._identity_record is not None:
             return {int(qk): self._identity_record(int(qk)) for qk in qkeys}
         keys = np.asarray(qkeys, dtype=np.int64)
-        raws = self._identity_raws_all()[keys].astype(np.int64)
+        if self.query_profiles:
+            raws = self._profile_identity_raws(keys)
+        else:
+            raws = self._identity_raws_all()[keys].astype(np.int64)
         lens = self.qdb.lengths[keys].astype(np.int64)
         evalues = self.evaluer.compute_evalue(raws, lens)
         bits = (self.evaluer.compute_bit_score(raws) + 0.5).astype(np.int64)
@@ -255,6 +271,65 @@ class AlignmentEngine:
                 raw_score=int(raws[i]), qcov=1.0, tcov=1.0,
                 cigar=f"{L}M")
         return out
+
+    # ------------------------------------------------------------------
+    def forward_accepts(self, candidates: dict[int, list[int]],
+                        eval_thr: float, aln_len_thr: int,
+                        can_cov_thr: float, cov_mode: int
+                        ) -> dict[int, list[AlnRecord]]:
+        """SCORE_ONLY acceptance pass (the realign mode's first stage,
+        Alignment.cpp:47-56): the length pre-check at `can_cov_thr`, the
+        identity hits of a same-DB search, then one forward stage on the
+        device for the other pairs.  A pair is accepted on its E-value and
+        the alignment-length proxy max(q_end, t_end) + 2 (computeAlnLength
+        with start -1); its record carries the end points, start -1 and no
+        backtrace.  Records sorted as compareHits."""
+        qks = list(candidates)
+        n = sum(len(v) for v in candidates.values())
+        aqk = np.fromiter((qk for qk in qks for _ in candidates[qk]),
+                          np.int64, n)
+        atk = np.fromiter((tk for qk in qks for tk in candidates[qk]),
+                          np.int64, n)
+        qlens_all, tlens_all = self.qdb.lengths, self.tdb.lengths
+        covered = _can_be_covered_vec(can_cov_thr, cov_mode,
+                                      qlens_all[aqk].astype(np.float32),
+                                      tlens_all[atk].astype(np.float32))
+        is_ident = (aqk == atk) & self.same_qt_db
+        ident = np.nonzero(covered & is_ident)[0]
+        ident_recs = self._identity_records_batch(np.unique(aqk[ident]))
+        accepted: dict[int, list[AlnRecord]] = {qk: [] for qk in qks}
+        for qk in aqk[ident].tolist():
+            accepted[qk].append(ident_recs[qk])
+        pairs = np.nonzero(covered & ~is_ident)[0]
+        pqk, ptk = aqk[pairs], atk[pairs]
+        k = len(pairs)
+        score = np.zeros(k, np.int64)
+        q_end = np.zeros(k, np.int64)
+        t_end = np.full(k, -1, np.int64)
+        if k:
+            jobs = self._forward_jobs_arrays(pqk, ptk,
+                                             np.arange(k, dtype=np.int64))
+            for pos, (s, te, qe, _f, _fj, _fi) in self._device_db(
+                    ).run_buckets(jobs, self.par.gap_open,
+                                  self.par.gap_extend, reverse=False):
+                score[pos], t_end[pos], q_end[pos] = s, te, qe
+        qlen = qlens_all[pqk].astype(np.int64)
+        evalue = self.evaluer.compute_evalue(score, qlen)
+        bits = (self.evaluer.compute_bit_score(score) + 0.5).astype(np.int64)
+        keep = ((t_end >= 0) & (evalue <= eval_thr)
+                & (np.maximum(q_end + 1, t_end + 1) + 1 >= aln_len_thr))
+        for i in np.nonzero(keep)[0].tolist():
+            qk, tk = int(pqk[i]), int(ptk[i])
+            accepted[qk].append(AlnRecord(
+                tkey=tk, score=int(bits[i]), seq_id=0.0,
+                evalue=float(evalue[i]), qstart=-1, qend=int(q_end[i]),
+                qlen=int(qlen[i]), tstart=-1, tend=int(t_end[i]),
+                tlen=int(tlens_all[tk]), backtrace="",
+                raw_score=int(score[i])))
+        for qk in accepted:
+            accepted[qk].sort(key=lambda r: (r.evalue, -r.score, r.tlen,
+                                             r.tkey))
+        return accepted
 
     # ------------------------------------------------------------------
     def stream(self) -> "_AlignStream":

@@ -129,25 +129,29 @@ def filter_msa(msa: np.ndarray,
     inkk = in_flag[order].copy()
     WFIL = 25
 
+    # column i's window [jlo, jhi) of N, as offsets from jlo
+    cols = np.arange(L)
+    jlo = np.maximum(0, np.minimum(L - 2 * WFIL + 1, cols - WFIL))
+    jhi = np.minimum(L, np.maximum(2 * WFIL, cols + WFIL))
+    width = int((jhi - jlo).max()) if L else 0
+    in_win = jlo[:, None] + np.arange(width)[None, :]
+    valid = in_win < jhi[:, None]
+    in_win = np.minimum(in_win, max(L - 1, 0))
+
     seqid = seqid1
     seqid_step = 0
     diff_nmax_prev = 0
     while seqid <= max_seqid:
-        stop = True
         diff_nmax_prev = diff_nmax
-        diff_nmax = 0
-        for i in range(L):
-            jlo = max(0, min(L - 2 * WFIL + 1, i - WFIL))
-            jhi = min(L, max(2 * WFIL, i + WFIL))
-            m = int(N[jlo:jhi].max()) if jhi > jlo else 0
-            if Nmax[i] < m:
-                Nmax[i] = m
-            if Nmax[i] < ndiff:
-                stop = False
-                idmaxwin[i] = seqid
-                diff_nmax = max(diff_nmax, ndiff - Nmax[i])
-        if stop:
+        # the window maxima of N (0 for an empty window); N is fixed while
+        # the columns are visited, so they are independent of one another
+        m = np.where(valid, N[in_win], 0).max(axis=1) if L else N
+        np.maximum(Nmax, m, out=Nmax)
+        short = Nmax < ndiff
+        if not short.any():
             break
+        idmaxwin[short] = seqid
+        diff_nmax = max(0, int((ndiff - Nmax[short]).max()))
 
         for kk in range(n_in):
             if inkk[kk]:

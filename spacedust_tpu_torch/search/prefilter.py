@@ -24,6 +24,12 @@ query ranges.  The engine reproduces the reference's prefiltering
     diagonal, clamped at 255 (UngappedAlignment.cpp:30-43,385-414)
   * per-target max score, histogram-capped at --max-seqs with
     min-ungapped-score 15 floor (QueryMatcher.h:206-216)
+
+Profile queries (`query_profiles`, the later rounds of the iterative
+search) run through the engine's profile matcher: per query position the
+PSSM row ranked descending (`ranked_desc_sort20`), the k-mer beam as the
+product of the ranked rows with per-level pruning, the profile k-mer
+threshold table, no composition bias, and the pssm/4 rescore.
 """
 
 from __future__ import annotations
@@ -333,16 +339,22 @@ class PrefilterEngine:
                  mask: bool = True,
                  cov_thr: float = 0.0,
                  cov_mode: int = 0,
+                 query_profiles: dict[int, np.ndarray] | None = None,
                  index: "KmerIndex | None" = None,
                  seed_matrix_name: str = "vtml80_bf8_bias",
                  ungapped_matrix_name: str = "blosum62_bf2_bias",
                  kmer_thr: int | None = None,
                  kmer_size: int | None = None,
                  spaced_kmer_mode: int = 1):
-        """Sequence queries only (profile queries are not ported yet).
-        An existing `index` can be shared across engines."""
+        """`query_profiles` maps query keys to (L, 20) int16 PSSM scores
+        (the 8-bit-scaled profile_score rows, Sequence.cpp:241-264); such
+        queries use per-position k-mer generation, the profile k-mer
+        threshold table and no composition bias, and the target index is
+        built at threshold 0.  An existing `index` can be shared across
+        engines."""
         self.qdb = query_db
         self.tdb = target_db
+        self.query_profiles = query_profiles or {}
         # the prefilter builds matrices with scoreBias=-0.2 (Prefiltering.cpp:992)
         self.seed = load_pinned_matrix(seed_matrix_name)
         self.ungapped = load_pinned_matrix(ungapped_matrix_name)
@@ -353,8 +365,9 @@ class PrefilterEngine:
         self.spaced_kmer_mode = spaced_kmer_mode
         self.pattern = kmer_pattern(self.kmer_size, spaced_kmer_mode != 0)
         self.kmer_thr = (kmer_thr if kmer_thr is not None
-                         else kmer_score_threshold(sensitivity,
-                                                   self.kmer_size))
+                         else kmer_score_threshold(
+                             sensitivity, self.kmer_size,
+                             profile=bool(self.query_profiles)))
         self.max_seqs = max_seqs
         self.min_diag_score = min_diag_score
         self.comp_bias = comp_bias_correction
@@ -365,7 +378,9 @@ class PrefilterEngine:
         self.tables = build_seed_tables(seed_matrix_name)
         self.tables2 = (build_seed_tables2(seed_matrix_name)
                         if self.kmer_size % 3 != 0 else None)
-        index_thr = self.kmer_thr
+        # with profile queries the index is seeded at threshold 0
+        # (localKmerThr, Prefiltering.cpp:525-528): every k-mer is posted
+        index_thr = 0 if self.query_profiles else self.kmer_thr
         if index is not None:
             self.index = index
         else:
@@ -404,12 +419,18 @@ class PrefilterEngine:
 
     def match_all(self, qkeys: list[int] | None = None
                   ) -> dict[int, list[PrefilterHit]]:
-        """Prefilter the queries `qkeys` (default: all), in their order.
-        Each run of consecutive keys is one match_range call, so a
-        same-DB search keeps its identity semantics for any key list (the
-        native engine maps batch rows to keys by range start)."""
+        """Prefilter the queries `qkeys` (default: all): the profile
+        queries in one batch of the profile matcher, then the sequence
+        queries in their order, each run of consecutive keys one
+        match_range call, so that a same-DB search keeps its identity
+        semantics for any key list (the native engine maps batch rows to
+        keys by range start)."""
         keys = list(range(self.qdb.size) if qkeys is None else qkeys)
         out: dict[int, list[PrefilterHit]] = {}
+        prof_keys = [qk for qk in keys if qk in self.query_profiles]
+        if prof_keys:
+            out.update(self._match_profiles(prof_keys))
+            keys = [qk for qk in keys if qk not in self.query_profiles]
         s = 0
         while s < len(keys):
             e = s + 1
@@ -417,6 +438,50 @@ class PrefilterEngine:
                 e += 1
             out.update(self.match_range(keys[s], keys[e - 1] + 1))
             s = e
+        return out
+
+    def _match_profiles(self, pkeys: list[int]
+                        ) -> dict[int, list[PrefilterHit]]:
+        """Profile queries through the native batch matcher: ranked PSSM
+        rows and the per-position product beam, the pssm/4 rescore, the
+        identity slot by explicit per-row key."""
+        from ..native import prefilter_match_profile_batch
+        pssms = [np.ascontiguousarray(self.query_profiles[qk],
+                                      dtype=np.int16) for qk in pkeys]
+        lens = np.array([p.shape[0] for p in pssms], dtype=np.int32)
+        qoffs = np.concatenate(([0], np.cumsum(lens, dtype=np.int64)))
+        cat = np.concatenate(pssms)
+        rs, ri = ranked_desc_sort20(cat)
+        qseq = np.concatenate([self.qdb.sequence(qk) for qk in pkeys])
+        identity = (np.array(pkeys, dtype=np.int32) if self.same_qt_db
+                    else None)
+        idx = self.index
+        # the profile matcher seeds with the spaced pattern of the k-mer
+        # size, whatever --spaced-kmer-mode says
+        o_seq, o_score, o_diag, o_cnt, _raw = prefilter_match_profile_batch(
+            np.ascontiguousarray(rs, dtype=np.int16),
+            np.ascontiguousarray(ri.astype(np.uint8)),
+            np.ascontiguousarray(cat, dtype=np.int16),
+            np.ascontiguousarray(qseq, dtype=np.uint8), X_INDEX,
+            qoffs, lens,
+            idx.hkeys, idx.hoff, idx.hcnt, idx.occupied,
+            np.ascontiguousarray(idx.seq_ids, dtype=np.int32),
+            np.ascontiguousarray(idx.positions, dtype=np.int32),
+            np.ascontiguousarray(idx.t_data, dtype=np.uint8),
+            np.ascontiguousarray(idx.t_offsets, dtype=np.int64),
+            np.ascontiguousarray(self._tlens, dtype=np.int32),
+            21, self.kmer_thr, self.max_seqs, self.min_diag_score,
+            self._bin_count, identity, self.cov_thr, self.cov_mode,
+            kmer_size=self.kmer_size,
+            pattern=KMER_PATTERNS[self.kmer_size])
+        out: dict[int, list[PrefilterHit]] = {}
+        for bi, qk in enumerate(pkeys):
+            n = int(o_cnt[bi])
+            base = bi * self.max_seqs
+            out[qk] = [PrefilterHit(seq_id=int(o_seq[base + i]),
+                                    score=int(o_score[base + i]),
+                                    diagonal=int(o_diag[base + i]))
+                       for i in range(n)]
         return out
 
     def match_range(self, start: int, end: int

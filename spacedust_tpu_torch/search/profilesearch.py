@@ -301,7 +301,8 @@ def search_profile_target_sliced(query_db: SetDB, target_db: SetDB,
                                  cdb: ClusterDB,
                                  params: ProfileSearchParams | None = None,
                                  split_memory_limit: int = 0, *,
-                                 device: torch.device | str
+                                 device: torch.device | str,
+                                 metrics: dict | None = None
                                  ) -> dict[int, list[AlnRecord]]:
     """Memory-bounded target-profile search: the profile DB is processed
     in sequential slices (searchslicedtargetprofile.sh), each slice runs
@@ -312,23 +313,36 @@ def search_profile_target_sliced(query_db: SetDB, target_db: SetDB,
     search's; when the per-query candidate cap binds, slices can keep
     MORE candidates than one memory-bound pass — the same property the
     reference's split merge + re-threshold has (Prefiltering.cpp:356-361).
+    `metrics`, if given, gets search_profile_target's metrics summed over
+    the slices (`align_detail` key by key) and their count (`slices`).
     """
     import dataclasses
     par = params or ProfileSearchParams()
     if split_memory_limit <= 0:
         return search_profile_target(query_db, target_db, cdb, par,
-                                     device=device)
+                                     device=device, metrics=metrics)
+    m = metrics if metrics is not None else {}
     n_p = len(cdb.rep_keys)
     profile_res = (int(sum(cdb.pssms[r].shape[0] for r in cdb.rep_keys))
                    + n_p // 25 - n_p)
     merged: dict[int, list[AlnRecord]] = {qk: []
                                           for qk in range(query_db.size)}
-    for sl in profile_slices(cdb, split_memory_limit):
+    slices = profile_slices(cdb, split_memory_limit)
+    m["slices"] = len(slices)
+    for sl in slices:
         sub = dataclasses.replace(cdb, rep_keys=list(sl))
         spar = dataclasses.replace(par, n_profiles_override=n_p,
                                    profile_res_override=profile_res)
+        part_m: dict = {}
         part = search_profile_target(query_db, target_db, sub, spar,
-                                     device=device)
+                                     device=device, metrics=part_m)
+        for key, val in part_m.items():
+            if key == "align_detail":
+                ad = m.setdefault("align_detail", {})
+                for k, v in val.items():
+                    ad[k] = ad.get(k, 0) + v
+            else:
+                m[key] = m.get(key, 0.0) + val
         for qk, recs in part.items():
             merged[qk].extend(recs)
     for qk in merged:

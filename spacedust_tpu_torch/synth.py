@@ -18,8 +18,8 @@ Per genome set:
     genes, some blocks on the opposite strand in the second genome;
   * paralog families of 3-20 members within each genome.
 
-Run as `python -m spacedust_tpu_torch.synth OUT_DIR [--size real|small]
-[--seed N]`; it writes genome_a.faa and genome_b.faa.
+Run as `python -m spacedust_tpu_torch.synth OUT_DIR [--size real|small|
+...] [--seed N]`; it writes genome_a.faa and genome_b.faa.
 
 The repeat sets (`--size repeats`, `repeats_tiny`) are a generator of
 their own on its own stream of the seed (make_repeat_genomes), for the
@@ -31,6 +31,16 @@ first or last 60-150 aa, every fourth two copies.  `repeats` (60 + 60 genes)
 draws lengths from the histogram and mutates with indels; `repeats_tiny`
 (36 + 36) keeps to the gene lengths 120 and 180, a 60 aa segment and
 substitutions only, so that its pairs have few distinct shapes.
+
+The family set (`--size families`, 90 + 90 genes, make_family_genomes,
+its own stream of the seed) is for the iterative profile search (`search
+--num-iterations`): 30 chains of divergence of 4-6 genes of 150-350 aa,
+each gene mutated from the one before it at 40-50 % identity, so that
+neighbours in a chain align but its ends are remote, among unrelated
+genes, in a shuffled order.  A sequence search finds the neighbours; the
+profiles built from those hits reach further.  Round 0 of the JAX
+package's `search --num-iterations 2` gives 421 records there and the
+profile round adds 95 (516 in all).
 
 Structure mode (`--struct`) writes, from its own stream of the same
 seed, a Foldseek-style flat DB of the same two genome sizes (`genomes`,
@@ -62,11 +72,19 @@ from .constants import AA_ORDER
 
 SEED = 20261016
 SIZES = {"real": (4300, 1600), "half": (2150, 800), "small": (150, 150),
-         "repeats": (60, 60), "repeats_tiny": (36, 36)}
+         "repeats": (60, 60), "repeats_tiny": (36, 36),
+         "families": (90, 90)}
 # the repeat sets: gene lengths and the repeated segment's length (None:
 # the histogram, at least 120 aa, and 60-150 aa)
 REPEAT_SIZES = {"repeats": (None, None), "repeats_tiny": ((120, 180), 60)}
 REPEAT_STREAM = 5       # the repeat sets' RNG stream of a seed
+# the family set: chains of FAMILY_MEMBERS [lo, hi) genes of FAMILY_LEN
+# [lo, hi) aa, each mutated from the one before at FAMILY_IDENT [lo, hi) %
+FAMILY_STREAM = 7
+FAMILIES = 30
+FAMILY_MEMBERS = (4, 7)
+FAMILY_LEN = (150, 351)
+FAMILY_IDENT = (40, 51)
 
 # length histogram: (lo, hi, weight per mille), lo inclusive, hi exclusive
 _LEN_BINS = ((30, 100, 80), (100, 150, 90), (150, 200, 110),
@@ -236,6 +254,28 @@ def make_repeat_genomes(size: str, seed: int = SEED):
     return genomes
 
 
+def make_family_genomes(seed: int = SEED):
+    """Two genomes as lists of (protein, strand): FAMILIES chains of
+    divergence (each member mutated from the one before it at
+    FAMILY_IDENT % identity, so a chain's ends are remote) and unrelated
+    genes to fill SIZES["families"], all in a shuffled order."""
+    g = _Gen(seed, FAMILY_STREAM)
+    lo, hi = FAMILY_LEN
+    genes = []
+    for _ in range(FAMILIES):
+        prot = g.protein(int(g.ints(lo, hi)))
+        genes.append(prot)
+        for _ in range(int(g.ints(*FAMILY_MEMBERS)) - 1):
+            prot = g.mutate(prot, int(g.ints(*FAMILY_IDENT)))
+            genes.append(prot)
+    na, nb = SIZES["families"]
+    while len(genes) < na + nb:
+        genes.append(g.protein(int(g.ints(lo, hi))))
+    order = g.rng.permutation(len(genes))
+    genes = [[genes[int(k)], 1 if g.ints(0, 2) else -1] for k in order]
+    return genes[:na], genes[na:]
+
+
 def _headers(contig: str, genes) -> list[str]:
     """Prodigal-style headers `contig_i # start # end # strand # ...` of
     genes (protein, strand, ...) laid out along one contig."""
@@ -268,12 +308,14 @@ def write_genome_set(out_dir: str | Path, size: str = "real",
     out.mkdir(parents=True, exist_ok=True)
     paths = []
     genomes = (make_repeat_genomes(size, seed) if size in REPEAT_SIZES
+               else make_family_genomes(seed) if size == "families"
                else make_genomes(SIZES[size], seed))
     for tag, genes in zip("ab", genomes):
         p = out / f"genome_{tag}.faa"
-        # the repeat sets name their contigs apart, so that one setDB can
-        # hold a repeat set beside another set
-        prefix = "REP" if size in REPEAT_SIZES else "SYN"
+        # the repeat and family sets name their contigs apart, so that one
+        # setDB can hold them beside another set
+        prefix = ("REP" if size in REPEAT_SIZES
+                  else "FAM" if size == "families" else "SYN")
         write_fasta(p, f"{prefix}{tag.upper()}_000001.1", genes)
         paths.append(p)
     return paths

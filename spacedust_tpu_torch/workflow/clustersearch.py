@@ -119,8 +119,9 @@ class ClusterSearchParams:
     # -k (0 = auto: IndexTable::computeKmerSize) and --spaced-kmer-mode
     kmer_size: int = 0
     spaced_kmer_mode: int = 1
-    # not ported yet (it raises): --split-memory-limit (out-of-core
-    # target splits)
+    # --split-memory-limit (out-of-core target splits, the reference's
+    # memory model Prefiltering.cpp:273-377,662-723): bound the per-split
+    # k-mer index footprint; 0 = no splitting
     split_memory_limit: int = 0
     # --profile-cluster-search (clustersearch.cpp:29-36): search against
     # the target's cluster-representative profiles, then expand hits to
@@ -142,14 +143,6 @@ class ClusterSearchResult:
     matches: list[Match]
     seq_to_clu: dict[int, list[int]]
     timings: dict[str, float] = field(default_factory=dict)
-
-
-def _check_ported(par: ClusterSearchParams) -> None:
-    """Options whose code paths are not ported yet raise, naming their
-    ROADMAP item."""
-    if par.split_memory_limit > 0:
-        raise NotImplementedError(
-            "--split-memory-limit is not ported yet (ROADMAP A7)")
 
 
 def _sequence_aln_params(par: ClusterSearchParams) -> AlignmentParams:
@@ -191,7 +184,6 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
     (required for --search-mode 1, the reference's *_foldseek/_unmapped
     sidecars)."""
     par = params or ClusterSearchParams()
-    _check_ported(par)
     if same_qt_db is None:
         same_qt_db = query_db is target_db
     timings: dict[str, float] = {}
@@ -201,7 +193,7 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
         records = None          # search stage resumed from checkpoint
     elif par.profile_cluster_search:
         from ..search.profilesearch import (ProfileSearchParams,
-                                            search_profile_target)
+                                            search_profile_target_sliced)
         from ..search.expandaln import ExpandParams, expand_alignments
         from .clusterdb import cluster_db as build_cluster_db
         if target_cluster_db is None:
@@ -221,9 +213,12 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
             gap_open=par.gap_open, gap_extend=par.gap_extend,
             mask=par.mask, comp_bias_correction=par.comp_bias_correction)
         detail = {}
-        profile_hits = search_profile_target(query_db, target_db,
-                                             target_cluster_db, ppar,
-                                             device=device, metrics=detail)
+        # with --split-memory-limit, memory-bounded profile-DB slices
+        # (searchslicedtargetprofile.sh, Search.cpp:398)
+        profile_hits = search_profile_target_sliced(
+            query_db, target_db, target_cluster_db, ppar,
+            split_memory_limit=par.split_memory_limit, device=device,
+            metrics=detail)
         timings["profile_search"] = time.time() - t0
         timings["profile_detail"] = detail
         t0 = time.time()
@@ -280,6 +275,33 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
                                    metrics=detail)
         timings["structure_search"] = time.time() - t0
         timings["align_detail"] = detail
+    elif par.split_memory_limit > 0:
+        # out-of-core: sequential residue-balanced target splits bounded
+        # by the memory budget; per-split hit lists are merged with the
+        # global re-threshold (parallel/pipeline.sharded_prefilter), then
+        # one alignment pass over the merged candidates
+        from ..parallel.pipeline import sharded_prefilter
+        from ..parallel.split import splits_for_memory_budget
+        t0 = time.time()
+        shards = splits_for_memory_budget(target_db.lengths,
+                                          par.split_memory_limit)
+        hits = sharded_prefilter(
+            query_db, target_db, shards, sensitivity=par.sensitivity,
+            max_seqs=par.max_seqs,
+            comp_bias_correction=par.comp_bias_correction, mask=par.mask,
+            cov_thr=par.cov_thr, cov_mode=par.cov_mode,
+            same_qt_db=same_qt_db, sequential=True)
+        candidates = {qk: [h.seq_id for h in hs] for qk, hs in hits.items()}
+        timings["prefilter"] = time.time() - t0
+        timings["split_detail"] = {"shards": len(shards),
+                                   **sharded_prefilter.last_stats}
+
+        t0 = time.time()
+        aln = AlignmentEngine(query_db, target_db, _sequence_aln_params(par),
+                              same_qt_db=same_qt_db, device=device)
+        records = aln.align_all(candidates)
+        timings["align"] = time.time() - t0
+        timings["align_detail"] = dict(aln._device_db().metrics)
     else:
         aln = AlignmentEngine(query_db, target_db, _sequence_aln_params(par),
                               same_qt_db=same_qt_db, device=device)

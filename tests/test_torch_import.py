@@ -30,6 +30,10 @@ for name in ("spacedust_tpu_torch.search.structure",
              "spacedust_tpu_torch.cluster.seqcluster",
              "spacedust_tpu_torch.cluster.cascade",
              "spacedust_tpu_torch.workflow.clusterdb",
+             "spacedust_tpu_torch.search.iterative",
+             "spacedust_tpu_torch.parallel.split",
+             "spacedust_tpu_torch.parallel.merge",
+             "spacedust_tpu_torch.parallel.pipeline",
              "spacedust_tpu_torch.cli"):
     assert name in names and name in sys.modules, name
 leaked = sorted(m for m in sys.modules

@@ -437,12 +437,22 @@ def test_profile_queries_align_like_jax(tiny, tiny_cdb):
 
 
 def test_profile_query_identity_is_not_ported(tiny, tiny_cdb):
-    db, _ = tiny
-    rep = tiny_cdb.rep_keys[0]
+    """Ported since this test was named: the identity record of a profile
+    query in a same-DB search (scoreIdentical over the profile rows)
+    comes out of align_all as the JAX package's does."""
+    from spacedust_tpu.search.alignment import AlignmentEngine as JaxEngine
+    from spacedust_tpu.search.alignment import AlignmentParams as JaxParams
+    db, jdb = tiny
+    reps = tiny_cdb.rep_keys[:5]
     eng = AlignmentEngine(db, db, AlignmentParams(), same_qt_db=True,
                           query_profiles=tiny_cdb.aln_profiles, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        eng.align_all({rep: [rep]})
+    got = eng.align_all({rep: [rep] for rep in reps})
+    want = JaxEngine(jdb, jdb, JaxParams(), same_qt_db=True,
+                     query_profiles=tiny_cdb.aln_profiles).align_all(
+        {rep: [rep] for rep in reps})
+    for rep in reps:
+        assert [r.line() for r in got[rep]] == [r.line() for r in want[rep]]
+        assert [r.tkey for r in got[rep]] == [rep]
 
 
 def test_search_profile_target_and_sliced_match_jax(tiny, tiny_cdb):

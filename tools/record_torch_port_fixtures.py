@@ -37,6 +37,19 @@ package on the CPU:
                                         --profile-cluster-search
                                         --cluster-db` of the small set
                                         against torch_port_small_clu/
+  tests/fixtures/torch_port_SET_iterN.tsv
+                                        `search --num-iterations N` of SET
+                                        through the JAX package's CLI
+                                        (iterative:small writes N = 2 and 3,
+                                        iterative:families N = 2; the latter
+                                        asserts that the profile round adds
+                                        at least 20 records to round 0)
+
+`split:small` writes nothing: it asserts that the JAX package's
+clustersearch with --split-memory-limit (400,000 and 150,000 bytes, 4 and
+9 target splits; and --profile-cluster-search over torch_port_small_clu/
+at 64,000,000 bytes, 3-4 profile slices) gives torch_port_small.tsv and
+torch_port_small_profile.tsv.
 
 Every run is `clustersearch --filter-self-match` of a two-genome set
 against itself, as written by `spacedust_tpu_torch.synth` at its default
@@ -45,7 +58,8 @@ ingests them).  Usage:
 
   JAX_PLATFORMS=cpu python tools/record_torch_port_fixtures.py \
       [small|real|struct_small|struct_small_mode1|struct_real[:SIZE]|
-       repeats|toolkit:small|toolkit:repeats|profile:small]...
+       repeats|toolkit:small|toolkit:repeats|profile:small|
+       iterative:small|iterative:families|split:small]...
 
 The --alt-ali runs align one masked pair a call and compile for every
 (query length, target length) they meet: toolkit:repeats took 22 s and
@@ -54,7 +68,8 @@ toolkit:small 55 s on a CPU (search_controls.tsv, the first to compile,
 clusterdb runs and the profile search, whose numpy k-mer index of the
 profiles holds 55 M postings at this size).  The `half` set is not
 recorded for the profile search: that index would hold about 600 M
-postings there, tens of GB.
+postings there, tens of GB.  iterative:small takes about 2 minutes,
+iterative:families about 30 s and split:small about 2 minutes.
 """
 
 from __future__ import annotations
@@ -168,6 +183,72 @@ def profile(size: str) -> None:
               file=sys.stderr)
 
 
+def iterative(size: str) -> None:
+    """`search --num-iterations N` on the set `size` through the JAX CLI;
+    the records of round 0 are counted where the profiles are built from
+    them."""
+    import spacedust_tpu.search.iterative as jax_iterative
+    round0 = []
+    build = jax_iterative.build_profiles
+
+    def counting(qdb, tdb, records, eval_profile):
+        round0.append(sum(len(v) for v in records.values()))
+        return build(qdb, tdb, records, eval_profile)
+
+    jax_iterative.build_profiles = counting
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            db = str(Path(d) / "db")
+            fastas = [str(p) for p in synth.write_genome_set(d, size)]
+            assert jax_cli.main(["createsetdb", *fastas, db]) == 0
+            for n in ((2, 3) if size == "small" else (2,)):
+                out = FIXTURES / f"torch_port_{size}_iter{n}.tsv"
+                round0.clear()
+                t0 = time.time()
+                assert jax_cli.main(["search", db, db, str(out),
+                                     "--num-iterations", str(n)]) == 0
+                total = len(out.read_text().splitlines())
+                print(f"iterative:{size} {n} iterations: {total} records, "
+                      f"round 0 {round0[0]}, {time.time() - t0:.1f} s",
+                      file=sys.stderr)
+                if size == "families":
+                    assert total - round0[0] >= 20, (total, round0)
+    finally:
+        jax_iterative.build_profiles = build
+
+
+def split(size: str) -> None:
+    """--split-memory-limit through the JAX library: the sequence search
+    at two budgets and the sliced profile search, each equal to the
+    unsplit fixture."""
+    from spacedust_tpu.parallel.split import splits_for_memory_budget
+    from spacedust_tpu.search.profilesearch import profile_slices
+    from spacedust_tpu.workflow.clusterdb import ClusterDB
+    with tempfile.TemporaryDirectory() as d:
+        db = create_setdb_from_fastas(synth.write_genome_set(d, size))
+        want = (FIXTURES / f"torch_port_{size}.tsv").read_text()
+        for budget, n in ((400_000, 4), (150_000, 9)):
+            assert len(splits_for_memory_budget(db.lengths, budget)) == n
+            t0 = time.time()
+            res = cluster_search(db, db, ClusterSearchParams(
+                filter_self_match=True, split_memory_limit=budget))
+            assert res.tsv == want, budget
+            print(f"split:{size} {n} target splits: equal "
+                  f"({time.time() - t0:.1f} s)", file=sys.stderr)
+        cdb = ClusterDB.load(FIXTURES / f"torch_port_{size}_clu")
+        budget = 64_000_000
+        n = len(profile_slices(cdb, budget))
+        assert 3 <= n <= 4, n
+        t0 = time.time()
+        res = cluster_search(db, db, ClusterSearchParams(
+            filter_self_match=True, profile_cluster_search=True,
+            split_memory_limit=budget), target_cluster_db=cdb)
+        assert res.tsv == (FIXTURES
+                           / f"torch_port_{size}_profile.tsv").read_text()
+        print(f"split:{size} {n} profile slices: equal "
+              f"({time.time() - t0:.1f} s)", file=sys.stderr)
+
+
 def summary(tsv: str, size: str) -> dict:
     lines = tsv.splitlines()
     return {"seed": synth.SEED, "sizes": list(synth.SIZES[size]),
@@ -185,6 +266,10 @@ def main(argv: list[str]) -> int:
             toolkit(size)
         elif name == "profile":
             profile(size)
+        elif name == "iterative":
+            iterative(size)
+        elif name == "split":
+            split(size)
         elif name == "real":
             rec = summary(run("real"), "real")
             (FIXTURES / "torch_port_real.json").write_text(
