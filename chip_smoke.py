@@ -13,7 +13,7 @@ the kernels line, the card and the result.
   1. device  -- a CUDA card is required; prints its name and power limit;
   2. build   -- compiles the native host engines (g++) and csrc/sw.cu
                 (nvcc, sm_90a) from the checkout into
-                spacedust_tpu_torch/_build;
+                spacedust_tpu_torch/_build, the two side by side;
   3. kernels -- sw_forward / sw_reverse against their plain PyTorch version
                 (ops/sw.py) on the same CUDA tensors, on a seeded ragged
                 batch: lengths 1-3,000, zero-score pairs, planted ties,
@@ -133,7 +133,36 @@ the kernels line, the card and the result.
                 target splits) through cluster_search_to_file, counters
                 reset just before and read just after, equal to
                 tests/fixtures/torch_port_real.json;
- 16. timing  -- each kernel against its plain version on the largest stage
+ 16. sharded -- the real set over 4 target shards on the card (ROADMAP A8,
+                B8): the concurrent split prefilter's hits equal to the
+                single index's (as sets a query); the sharded clustersearch
+                (parallel/pipeline.py::sharded_cluster_search), counters
+                reset just before and read just after, equal to
+                tests/fixtures/torch_port_real.json, every shard launching
+                both kernels on its own stream; each shard's kernels
+                against the plain version on an edge grid (its first and
+                last target among the pairs, forward and reverse); and the
+                largest sharded stage of each direction again, its wall on
+                the card against the plain version shard by shard.  Prints
+                the per-shard launches, pairs and kernel ms and the stages'
+                wall ms;
+ 17. multihost -- the real set as 2 worker processes of 2 target shards,
+                all on the one card (parallel/multihost.py, a gloo group):
+                equal to torch_port_real.json, each rank launching K1 and
+                K2 (its metrics file);
+ 18. gff     -- contigs plus GFF3 (synth.py --gff): small through
+                createsetdb --gff-dir and clustersearch, equal to
+                tests/fixtures/torch_port_small_gff.tsv byte for byte; the
+                real set's ingest equal to torch_port_real_gff.json's
+                digest, and its clustersearch (counters reset just before
+                and read just after) held to the self-hit invariant;
+ 19. nucl    -- search --search-type 3 on the nucleotide contigs
+                (synth.py --nucl), equal to torch_port_small_nucl.tsv;
+ 20. entry   -- spacedust_tpu_torch/entry.py: entry()'s sw_forward launch
+                against the plain version, and dryrun_multichip(4) (the
+                sharded and the 2-process clustersearch of the small set on
+                the card, each equal to the single run);
+ 21. timing  -- each kernel against its plain version on the largest stage
                 the real runs dispatched, with the main path's own resident
                 tensors: equal outputs, milliseconds (the launches alone, by
                 the events the wrapper records round them, and the wrapper's
@@ -153,6 +182,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -174,7 +204,7 @@ STRUCT_REPLACES = "spacedust_tpu/ops/sw_engine.py:608"
 PHASES = ("kernels", "kernels-struct", "kernels-prof", "small", "real",
           "struct-small", "struct-real", "toolkit", "profile-small",
           "profile-real", "iterative-small", "iterative-real", "split",
-          "timing")
+          "sharded", "multihost", "gff", "nucl", "entry", "timing")
 ALT_ALI = 2             # --alt-ali of the toolkit phase
 # --split-memory-limit of the split phase (12 bytes a target residue; a
 # profile position 2,048): 4 and 9 target splits of the small set, 4 of the
@@ -1585,6 +1615,396 @@ def split_phase(work: Path, dev: torch.device) -> dict:
     return launches
 
 
+# -------------------------------------- 16-20. the sharded and GFF paths
+SHARDS = 4              # target shards of the sharded phase (B8)
+B8_REPLACES = "spacedust_tpu/parallel/sw_sharded.py:40"
+
+
+def real_setdb(work: Path, tag: str):
+    """The real-size set of torch_port_real.json through createsetdb
+    under work/tag; returns (fixture, SetDB, its directory)."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.workflow.createsetdb import create_setdb
+    fx = json.loads((ROOT / "tests" / "fixtures"
+                     / "torch_port_real.json").read_text())
+    size = next((k for k, v in synth.SIZES.items()
+                 if list(v) == fx["sizes"]), None)
+    if size is None or fx["seed"] != synth.SEED:
+        fail("tests/fixtures/torch_port_real.json does not match synth.py")
+    fa = synth.write_genome_set(work / tag, size)
+    path = work / f"{tag}_db"
+    return fx, create_setdb([str(p) for p in fa], str(path)), path
+
+
+def equal_to_real(tag: str, tsv: str, fx: dict) -> None:
+    from spacedust_tpu_torch.cluster.summarize import canonical_sha256
+    got = (*counts(tsv), canonical_sha256(tsv))
+    want = (fx["hits"], fx["clusters"], fx["canonical_sha256"])
+    if got != want:
+        fail(f"{tag}: the real set differs from torch_port_real.json: "
+             f"{got} vs {want}")
+
+
+@contextlib.contextmanager
+def recording_flushes(stages: dict):
+    """Record, per direction, the largest stage a ShardedAlignDB
+    dispatched: the engine and its buffered jobs (global offsets)."""
+    from spacedust_tpu_torch.parallel import sw_sharded
+    orig = sw_sharded.ShardedAlignDB.flush
+
+    def flush(self, go, ge, reverse):
+        buf = self._buf.get((go, ge, reverse), [])
+        n = sum(len(b[0]) for b in buf)
+        d = "rev" if reverse else "fwd"
+        if n and (d not in stages or n > stages[d][-1]):
+            stages[d] = (self, [tuple(np.array(c) for c in b) for b in buf],
+                         go, ge, n)
+        return orig(self, go, ge, reverse)
+
+    sw_sharded.ShardedAlignDB.flush = flush
+    try:
+        yield
+    finally:
+        sw_sharded.ShardedAlignDB.flush = orig
+
+
+def shard_edge_grid(db, shards, rng, per_shard: int = 48) -> np.ndarray:
+    """(5, D, B) forward grid: in every shard its first and last target
+    (the reverse pass reads a target backwards from its end point) and
+    random others, against random queries; shard-local target offsets."""
+    toffs = db.offsets
+    grid = np.zeros((5, len(shards), per_shard), dtype=np.int64)
+    for d, (s, e) in enumerate(shards):
+        tk = np.concatenate([[s, e - 1, s, e - 1],
+                             rng.integers(s, e, per_shard - 4)])
+        qk = rng.integers(0, db.size, per_shard)
+        qk[:2] = tk[:2]                      # each end target against itself
+        grid[0, d], grid[1, d] = db.offsets[qk], db.lengths[qk]
+        grid[2, d] = toffs[tk] - toffs[s]
+        grid[3, d] = db.lengths[tk]
+    grid[4] = -1
+    return grid
+
+
+def check_shard_grid(sdb, db, shards, errs: dict) -> int:
+    """ShardedAlignDB.run_grid forward and reverse (from the forward end
+    points) on the edge grid, each shard's rows against the plain version
+    over that shard's own resident tensors; returns the max |diff|."""
+    rng = np.random.default_rng(SEED)
+    grid = shard_edge_grid(db, shards, rng)
+    err = 0
+    fwd = sdb.run_grid(None, *grid, GO, GE, reverse=False)
+    rgrid = grid.copy()
+    rgrid[1], rgrid[3], rgrid[4] = fwd[2] + 1, fwd[1] + 1, fwd[0]
+    rev = sdb.run_grid(None, *rgrid, GO, GE, reverse=True)
+    for d, shard in enumerate(sdb.shards):
+        for name, g, got, rows in (("fwd", grid, fwd, (0, 1, 2)),
+                                   ("rev", rgrid, rev, (0, 4, 5, 3))):
+            ref = plain(name)(*shard._resident(),
+                              np.ascontiguousarray(g[:, d]), GO, GE)
+            ref = ref.cpu().numpy()[list(rows)]
+            mine = np.stack([x[d] for x in got])
+            e = int(np.abs(mine.astype(np.int64) - ref).max())
+            if e > TOL or not np.array_equal(mine, ref):
+                fail(f"sharded: shard {d} {name} on the edge grid differs "
+                     f"from the plain version (max abs err {e})")
+            err = max(err, e)
+    if not rev[3].all():
+        fail("sharded: a reverse job of the edge grid missed its "
+             "terminate score")
+    errs["sharded"] = max(errs.get("sharded", 0), err)
+    return grid.shape[2]
+
+
+def time_sharded_stage(d: str, stage: tuple, card: str) -> dict:
+    """The largest sharded stage of direction d again, on the engine that
+    ran it: wall ms on the card (the events round the stage, from before
+    the first shard's launch to the end of the last shard's work, 3 runs
+    after a warm one) against the plain version shard by shard (host
+    clock), outputs equal, beside the bound of its cells."""
+    sdb, buf, go, ge, n = stage
+    reverse = d == "rev"
+
+    def run():
+        return sdb.collect(sdb.enqueue(buf, go, ge, reverse)
+                           + sdb.flush(go, ge, reverse))
+
+    def by_pos(collected):
+        out = np.zeros((6, n), np.int64)
+        for pos, cols in collected:
+            out[:, pos] = np.stack(cols)
+        return out
+
+    got = by_pos(run())
+    w0 = sdb._stages["stage_wall_ms"]
+    for _ in range(3):
+        run()
+    wall = (sdb._stages["stage_wall_ms"] - w0) / 3
+    cols = [np.concatenate([b[i] for b in buf]).astype(np.int64)
+            for i in range(6)]
+    shard = np.searchsorted(sdb.tok_starts, cols[2], side="right") - 1
+    ref = np.zeros((6, n), np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s, db_s in enumerate(sdb.shards):
+        sel = np.nonzero(shard == s)[0]
+        js = np.stack([c[sel] for c in cols[:5]])
+        js[2] -= sdb.tok_starts[s]
+        ref[:, cols[5][sel]] = plain(d)(*db_s._resident(),
+                                        np.ascontiguousarray(js), go,
+                                        ge).cpu().numpy()
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t0)
+    err = int(np.abs(got - ref).max())
+    if err > TOL:
+        fail(f"sharded {d} stage: kernels != plain (max abs err {err})")
+    js = np.stack(cols[:5])
+    b_ms, b_by = bound_ms(d, js)
+    per = [int((shard == s).sum()) for s in range(sdb.n_shards)]
+    print(f"[sharded] {d} stage of the main path, {n} pairs over "
+          f"{sdb.n_shards} shards ({per}), {cells(js) / 1e9:.3f} G cells: "
+          f"wall on the card {wall:.2f} ms; plain shard by shard "
+          f"{p_ms:.2f} ms; bound {b_ms:.2f} ms by {b_by}; equal; {card}")
+    name = KERNELS[d][0]
+    return {"name": f"{name} over {sdb.n_shards} target shards (B8)",
+            "route": "cuda",
+            "source": "spacedust_tpu_torch/parallel/sw_sharded.py",
+            "kernel_source": "spacedust_tpu_torch/csrc/sw.cu",
+            "replaces": B8_REPLACES,
+            "launches": None, "max_abs_err": err, "ms": wall,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "share_of_bound": b_ms / wall,
+            "pairs": n, "pairs_per_shard": per, "cells": cells(js)}
+
+
+def sharded_phase(work: Path, dev: torch.device, errs: dict,
+                  card: str) -> tuple[dict, list]:
+    """The real set over SHARDS target shards on the card: the concurrent
+    split prefilter against the single index (as sets a query), the
+    sharded clustersearch (counters reset just before and read just
+    after; every shard must launch) against torch_port_real.json, each
+    shard's kernels against the plain version on an edge grid, and the
+    largest sharded stage of each direction timed.  Returns the launch
+    counts and the two B8 entries of the kernels line."""
+    from spacedust_tpu_torch.native import comp_bias_batch
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.parallel import pipeline
+    from spacedust_tpu_torch.parallel.split import residue_balanced_splits
+    from spacedust_tpu_torch.parallel.sw_sharded import (ShardedAlignDB,
+                                                         make_mesh)
+    from spacedust_tpu_torch.search.prefilter import PrefilterEngine
+    from spacedust_tpu_torch.stats.submat import load_substitution_matrix
+    from spacedust_tpu_torch.workflow.clustersearch import ClusterSearchParams
+    fx, db, _path = real_setdb(work, "sharded_real")
+    shards = residue_balanced_splits(db.lengths, SHARDS)
+    kw = dict(cov_thr=0.8, cov_mode=2, same_qt_db=True)
+    t0 = time.perf_counter()
+    single = PrefilterEngine(db, db, **kw).match_all()
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = pipeline.sharded_prefilter(db, db, shards, **kw)
+    t_split = time.perf_counter() - t0
+    st = pipeline.sharded_prefilter.last_stats
+    n_order = 0
+    for qk in range(db.size):
+        a = [(h.seq_id, h.score, h.diagonal) for h in single.get(qk, [])]
+        b = [(h.seq_id, h.score, h.diagonal) for h in split.get(qk, [])]
+        if sorted(a) != sorted(b):
+            fail(f"sharded: the split prefilter's hits of query {qk} "
+                 f"differ from the single index's")
+        n_order += a != b
+    index = ", ".join(f"{x:.2f}" for x in st["index_s"])
+    print(f"[sharded] prefilter over {SHARDS} shards: hits equal to the "
+          f"single index's for all {db.size} queries ({n_order} lists in "
+          f"another order of ties); single {t_single:.2f} s, split "
+          f"{t_split:.2f} s = index {index} (side by side) + bitmap OR "
+          f"{st['bitmap_or_s']:.3f} + beam "
+          f"{st['beam_s']:.2f} + probes "
+          f"{', '.join(f'{x:.2f}' for x in st['probe_s'])} + merge "
+          f"{st['merge_s']:.3f}")
+
+    stages: dict = {}
+    with recording_flushes(stages):
+        sw_cuda.reset_counts()
+        t0 = time.perf_counter()
+        res = pipeline.sharded_cluster_search(
+            db, db, ClusterSearchParams(filter_self_match=True),
+            n_shards=SHARDS, device=dev)
+        torch.cuda.synchronize()
+        t_search = time.perf_counter() - t0
+        launches = read_counts()
+    equal_to_real("sharded", res.tsv, fx)
+    det = res.timings["search_detail"]
+    ad = det["align_detail"]
+    for d in ("fwd", "rev"):
+        if min(ad[f"shard_{d}_launches"]) <= 0:
+            fail(f"sharded: a shard launched no {d} kernel: "
+                 f"{ad[f'shard_{d}_launches']}")
+    print(f"[sharded] real over {SHARDS} shards on {dev}: clustersearch "
+          f"{t_search:.2f} s = search {res.timings['search']:.2f} "
+          f"(prefilter {det['prefilter_s']:.2f}, align {det['align_s']:.2f}) "
+          f"+ aggregate {res.timings['aggregate']:.2f}; launches {launches}; "
+          f"{ad['stages']} stages, wall on the card {ad['stage_wall_ms']:.2f} "
+          f"ms; per shard: fwd launches {ad['shard_fwd_launches']}, pairs "
+          f"{ad['shard_fwd_pairs']}, kernel ms "
+          f"{[round(x, 2) for x in ad['shard_fwd_kernel_ms']]}; rev launches "
+          f"{ad['shard_rev_launches']}, pairs {ad['shard_rev_pairs']}, kernel "
+          f"ms {[round(x, 2) for x in ad['shard_rev_kernel_ms']]}; equal to "
+          f"torch_port_real.json; {card}")
+    print(f"[sharded] align detail {json.dumps(ad)}")
+
+    mat = load_substitution_matrix()
+    qbias = comp_bias_batch(
+        np.ascontiguousarray(db.seq_data, dtype=np.uint8),
+        np.ascontiguousarray(db.offsets[:-1], dtype=np.int64),
+        np.ascontiguousarray(db.lengths, dtype=np.int32),
+        np.ascontiguousarray(mat.sub_int, dtype=np.int32),
+        np.ascontiguousarray(mat.p_back, dtype=np.float64))
+    toffs = db.offsets
+    sdb = ShardedAlignDB(make_mesh(SHARDS, dev), db.seq_data, qbias,
+                         db.seq_data, [(int(toffs[s]), int(toffs[e]))
+                                       for s, e in shards], mat.sub_int)
+    n = check_shard_grid(sdb, db, shards, errs)
+    print(f"[sharded] edge grid: {n} pairs a shard (its first and last "
+          f"target among them), forward and reverse, every shard equal to "
+          f"the plain version")
+    report = [time_sharded_stage(d, stages[d], card) for d in ("fwd", "rev")]
+    for entry, d in zip(report, ("fwd", "rev")):
+        entry["launches"] = launches[d]
+        entry["max_abs_err"] = max(entry["max_abs_err"], errs["sharded"])
+        entry["shard_launches"] = ad[f"shard_{d}_launches"]
+        entry["stage_wall_ms_main_path"] = ad["stage_wall_ms"]
+    return launches, report
+
+
+def multihost_phase(work: Path) -> dict:
+    """clustersearch of the real set as 2 worker processes of 2 target
+    shards each, all on the card (parallel/multihost.py::run_multihost):
+    equal to torch_port_real.json; each worker must launch K1 and K2.
+    Returns the workers' launch counts summed."""
+    from spacedust_tpu_torch.parallel.multihost import run_multihost
+    from spacedust_tpu_torch.workflow.clustersearch import ClusterSearchParams
+    fx, _db, path = real_setdb(work, "mh_real")
+    out, tmp = work / "mh_real.tsv", work / "mh_real_tmp"
+    t0 = time.perf_counter()
+    run_multihost(str(path), str(out), 2,
+                  ClusterSearchParams(filter_self_match=True),
+                  tmp_dir=str(tmp), local_devices=2, device="cuda")
+    t_run = time.perf_counter() - t0
+    equal_to_real("multihost", out.read_text(), fx)
+    total = dict.fromkeys(KERNELS, 0)
+    for r in range(2):
+        m = json.loads((tmp / f"metrics.{r}.json").read_text())
+        lc = {d: m["launches"][KERNELS[d][2]] for d in KERNELS}
+        if lc["fwd"] <= 0 or lc["rev"] <= 0:
+            fail(f"multihost: rank {r} did not launch K1 and K2: {lc}")
+        for d in KERNELS:
+            total[d] += lc[d]
+        ad = m["align_detail"]
+        print(f"[multihost] rank {r}: search {m['search_s']:.2f} s; "
+              f"launches {lc}; shard fwd launches "
+              f"{ad['shard_fwd_launches']}, rev {ad['shard_rev_launches']}; "
+              f"stage wall {ad['stage_wall_ms']:.2f} ms")
+    print(f"[multihost] real, 2 processes x 2 shards on one card: "
+          f"{t_run:.2f} s from launch to rank 0's TSV; equal to "
+          f"torch_port_real.json")
+    return total
+
+
+def gff_phase(work: Path, dev: torch.device) -> dict:
+    """Contigs plus GFF3 (synth.py --gff): small through createsetdb
+    --gff-dir and clustersearch on the card, equal to
+    torch_port_small_gff.tsv byte for byte; the real set's ingest equal
+    to torch_port_real_gff.json's digest, and its clustersearch on the
+    card (counters reset just before and read just after) held to the
+    self-hit invariant.  Returns the launch counts of that run."""
+    from spacedust_tpu_torch import synth
+    from spacedust_tpu_torch.db.gff import ingest_digest
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.workflow.clustersearch import (
+        ClusterSearchParams, cluster_search_to_file)
+    from spacedust_tpu_torch.workflow.createsetdb import create_setdb
+    fixtures = ROOT / "tests" / "fixtures"
+    t0 = time.perf_counter()
+    fnas, gffs = synth.write_gff_set(work / "gff_small", "small")
+    db, out = str(work / "gff_small_db"), work / "gff_small.tsv"
+    run_cli(["createsetdb", *map(str, fnas), db, "--gff-dir",
+             str(work / "gff_small")], quiet=True)
+    run_cli(["clustersearch", db, db, str(out), "--filter-self-match",
+             "--device", "cuda"], quiet=True)
+    if out.read_bytes() != (fixtures / "torch_port_small_gff.tsv"
+                            ).read_bytes():
+        fail("gff: small differs from torch_port_small_gff.tsv")
+    print(f"[gff] small: createsetdb --gff-dir + clustersearch equal to "
+          f"torch_port_small_gff.tsv ({time.perf_counter() - t0:.1f} s)")
+    fx = json.loads((fixtures / "torch_port_real_gff.json").read_text())
+    size = next(k for k, v in synth.SIZES.items() if list(v) == fx["sizes"])
+    t0 = time.perf_counter()
+    fnas, gffs = synth.write_gff_set(work / "gff_real", size)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rdb = create_setdb([str(p) for p in fnas], str(work / "gff_real_db"),
+                       gff_dir=str(work / "gff_real"))
+    t_ingest = time.perf_counter() - t0
+    got = ingest_digest(rdb)
+    if got != {k: fx[k] for k in ("genes", "residues", "sha256")}:
+        fail(f"gff: the real ingest's digest {got} differs from "
+             f"torch_port_real_gff.json")
+    tmp = work / "gff_real_tmp"
+    sw_cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = cluster_search_to_file(
+        rdb, rdb, str(work / "gff_real.tsv"), str(tmp),
+        params=ClusterSearchParams(filter_self_match=True), device=dev)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    launches = read_counts()
+    if launches["fwd"] <= 0 or launches["rev"] <= 0:
+        fail(f"gff: the real run did not launch K1 and K2: {launches}")
+    n_self = self_hits_ok(rdb, tmp)
+    hits, clusters = counts(res.tsv)
+    print(f"[gff] real: {got['genes']} genes, {got['residues']} residues; "
+          f"contigs + GFF3 written in {t_write:.2f} s, ingested in "
+          f"{t_ingest:.2f} s, digest equal to torch_port_real_gff.json; "
+          f"clustersearch {t_search:.2f} s, launches {launches}, {hits} hits "
+          f"/ {clusters} clusters; {n_self} genes of >= 100 aa find "
+          f"themselves with E < 1e-10")
+    return launches
+
+
+def nucl_phase(work: Path) -> None:
+    """search --search-type 3 on the nucleotide contigs (synth.py --nucl),
+    equal to torch_port_small_nucl.tsv byte for byte (host work)."""
+    from spacedust_tpu_torch import synth
+    q, t = synth.write_nucl_set(work / "nucl", "small")
+    out = work / "nucl.tsv"
+    t0 = time.perf_counter()
+    run_cli(["search", str(q), str(t), str(out), "--search-type", "3"],
+            quiet=True)
+    if out.read_bytes() != (ROOT / "tests" / "fixtures"
+                            / "torch_port_small_nucl.tsv").read_bytes():
+        fail("nucl: search --search-type 3 differs from "
+             "torch_port_small_nucl.tsv")
+    print(f"[nucl] {len(out.read_text().splitlines())} alignments equal to "
+          f"torch_port_small_nucl.tsv ({time.perf_counter() - t0:.2f} s)")
+
+
+def entry_phase(errs: dict) -> None:
+    """entry(): its one sw_forward launch against the plain version; and
+    dryrun_multichip(SHARDS): the sharded and the 2-process clustersearch
+    of the small set on the card, each equal to the single run."""
+    from spacedust_tpu_torch.entry import dryrun_multichip, entry
+    fn, args = entry("cuda")
+    got = fn(*args)
+    errs["fwd"] = max(errs["fwd"], compare("entry", got,
+                                           plain("fwd")(*args)))
+    t0 = time.perf_counter()
+    dryrun_multichip(SHARDS, device="cuda")
+    print(f"[entry] entry(): {args[4].shape[1]} pairs, equal to the plain "
+          f"version; dryrun_multichip({SHARDS}) passed "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def bound_ms(d: str, js: np.ndarray) -> tuple[float, str]:
     """The least milliseconds the card could take for stage js of
     direction d, and what sets it.  Bytes: every token and bias byte of
@@ -1752,14 +2172,19 @@ def main(argv: list | None = None) -> int:
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
-    # 2. build
+    # 2. build: g++ and nvcc side by side
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    native.build()
-    t_native = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sw_cuda.build(verbose=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        t_native = pool.submit(timed, native.build)
+        t_nvcc = pool.submit(timed, sw_cuda.build, True)
+        t_native, t_nvcc = t_native.result(), t_nvcc.result()
     print(f"[build] native (g++) {t_native:.2f} s, csrc/sw.cu (nvcc) "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{t_nvcc:.2f} s, side by side {time.perf_counter() - t0:.2f} s")
 
     sub = torch.from_numpy(
         load_substitution_matrix().sub_int.astype(np.int8)).to(dev)
@@ -1799,6 +2224,16 @@ def main(argv: list | None = None) -> int:
             it_launches = iterative_real(Path(tmp))
         if "split" in phases:
             split_launches = split_phase(Path(tmp), dev)
+        if "sharded" in phases:
+            sh_launches, b8 = sharded_phase(Path(tmp), dev, errs, card)
+        if "multihost" in phases:
+            mh_launches = multihost_phase(Path(tmp))
+        if "gff" in phases:
+            gff_launches = gff_phase(Path(tmp), dev)
+        if "nucl" in phases:
+            nucl_phase(Path(tmp))
+        if "entry" in phases:
+            entry_phase(errs)
     report = (time_stages(stages, launches, errs, card)
               if "timing" in phases else [])
     torch.cuda.synchronize()
@@ -1818,6 +2253,16 @@ def main(argv: list | None = None) -> int:
         # search --num-iterations 2 and the split clustersearch, real size
         entry["launches_iterative"] = it_launches[d]
         entry["launches_split"] = split_launches[d]
+        # the sharded clustersearch (in this process and as 2 workers of
+        # 2 shards) and the clustersearch over the GFF ingest, real size
+        entry["launches_sharded"] = sh_launches[d]
+        entry["launches_multihost"] = mh_launches[d]
+        entry["launches_gff"] = gff_launches[d]
+        for path, n in (("sharded", sh_launches), ("multihost", mh_launches),
+                        ("gff", gff_launches)):
+            if d in ("fwd", "rev") and n[d] <= 0:
+                fail(f"the {path} path did not launch {entry['name']}")
+    report += b8
 
     print(json.dumps({"kernels": report}))
     print(card_line())

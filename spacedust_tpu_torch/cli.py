@@ -1,18 +1,22 @@
 """Command-line interface: the reference's commands
 (src/spacedust.cpp:26-120) with its flag names, plus `--device` for where
-the SW passes run: `createsetdb`, `clusterdb`, `clustersearch` (with
-`--profile-cluster-search [--cluster-db DIR]`), `aa2foldseek`, the module
-stages `besthitbyset`, `mergeresultsbyset`, `combinehits`, `clusterhits`
-and `summarizeresults`, and the inherited `search` and
+the SW passes run: `createsetdb` (protein FASTA, or contigs with
+`--gff-dir`), `gff2db`, `clusterdb`, `clustersearch` (with
+`--profile-cluster-search [--cluster-db DIR]`, and target-sharded or in
+several processes with `--multihost N --multihost-local-devices D`),
+`aa2foldseek`, the module stages `besthitbyset`, `mergeresultsbyset`,
+`combinehits`, `clusterhits` and `summarizeresults`, and the inherited
+`search` (`--search-type 3`: the nucleotide contig search) and
 `convertalignments`.
 
-A flag or command whose code path is not ported yet is registered and
-fails when the arguments are parsed, naming its ROADMAP item (NOT_PORTED,
-`gff2db`).  So does a flag that the JAX package takes and then ignores on
-the path another flag selects (DROPPED): `-k`, `--spaced-kmer-mode`,
-`--max-accept`, `--max-rejected` and `--alt-ali` with `search
---num-iterations > 1`; `-k`, `--spaced-kmer-mode` and `--search-mode` with
-`clustersearch --split-memory-limit`.
+A flag that the JAX package takes and then ignores on the path another
+flag selects fails when the arguments are parsed (DROPPED): `-k`,
+`--spaced-kmer-mode`, `--max-accept`, `--max-rejected` and `--alt-ali`
+with `search --num-iterations > 1`; every protein-search flag with
+`search --search-type 3`; `-k`, `--spaced-kmer-mode` and `--search-mode`
+with `clustersearch --split-memory-limit`; the flags of the other search
+paths with `--multihost > 1` or `--multihost-local-devices > 1`;
+`--gff-type` and `--translation-table` without `--gff-dir`.
 
 Run as `python -m spacedust_tpu_torch <command> ...`.
 """
@@ -21,49 +25,45 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import torch
 
 from .db.setdb import SetDB
+from .search.convert import DEFAULT_FORMAT
 
 
-# flag -> (its default: any other value fails, the ROADMAP item that
-# ports it).  For an int flag marked `above`, values up to the default
-# pass (they switch the feature off in the reference too).
-NOT_PORTED = {
-    "multihost": (1, "A8"),
-    "multihost_local_devices": (1, "A8"),
-    "gff_dir": (None, "A11b"),
-    "gff_type": ("CDS", "A11b"),
-    "translation_table": (1, "A11b"),
-    "search_type": (1, "A11b"),
-}
-_ABOVE = {"multihost", "search_type"}
-
+_INT_MAX = 2147483647
+# the flags of the search paths that --multihost / --multihost-local-
+# devices (the sequence search of a setDB against itself) do not take
+_NOT_MULTIHOST = {"kmer_size": 0, "spaced_kmer_mode": 1, "search_mode": 0,
+                  "split_memory_limit": 0, "profile_cluster_search": False,
+                  "cluster_db": None, "foldseek_db": None}
 # flags that the JAX package takes and then drops without a word on the
 # path a switch selects: (switch dest, switch is on?, what the path is,
 # the dropped flags' dests and defaults).  The port refuses them there.
 DROPPED = (
     ("num_iterations", lambda v: v > 1, "--num-iterations > 1",
-     {"kmer_size": 0, "spaced_kmer_mode": 1, "max_accept": 2147483647,
-      "max_rejected": 2147483647, "alt_ali": 0}),
+     {"kmer_size": 0, "spaced_kmer_mode": 1, "max_accept": _INT_MAX,
+      "max_rejected": _INT_MAX, "alt_ali": 0}),
     ("split_memory_limit", lambda v: v > 0, "--split-memory-limit > 0",
      {"kmer_size": 0, "spaced_kmer_mode": 1, "search_mode": 0}),
+    ("multihost", lambda v: v > 1, "--multihost > 1", _NOT_MULTIHOST),
+    ("multihost_local_devices", lambda v: v > 1,
+     "--multihost-local-devices > 1", _NOT_MULTIHOST),
+    # the nucleotide search takes -e and --max-seqs only
+    ("search_type", lambda v: v == 3, "--search-type 3",
+     {"sensitivity": 5.7, "cov_thr": 0.0, "cov_mode": 0, "aln_len_thr": 0,
+      "gap_open": 11, "gap_extend": 1, "mask": 1, "comp_bias_corr": 1,
+      "max_accept": _INT_MAX, "max_rejected": _INT_MAX, "alt_ali": 0,
+      "kmer_size": 0, "spaced_kmer_mode": 1, "max_seq_len": 65535,
+      "num_iterations": 1, "e_profile": 0.1, "format_mode": 0,
+      "format_output": DEFAULT_FORMAT}),
+    ("gff_dir", lambda v: v is None, "protein input (no --gff-dir)",
+     {"gff_type": "CDS", "translation_table": 1}),
 )
-
-
-def _check_ported(p: argparse.ArgumentParser, a: argparse.Namespace) -> None:
-    """Fail at parse time (exit code 2) on a flag that is not acted on."""
-    for dest, (default, item) in NOT_PORTED.items():
-        if not hasattr(a, dest):
-            continue
-        val = getattr(a, dest)
-        if (val > default) if dest in _ABOVE else (val != default):
-            flag = "--" + dest.replace("_", "-")
-            shown = flag if val is True else f"{flag} {val}"
-            p.error(f"{shown} is not ported yet (ROADMAP {item})")
 
 
 def _check_dropped(p: argparse.ArgumentParser, a: argparse.Namespace
@@ -77,8 +77,10 @@ def _check_dropped(p: argparse.ArgumentParser, a: argparse.Namespace
             if hasattr(a, dest) and getattr(a, dest) != default:
                 flag = "-k" if dest == "kmer_size" else (
                     "--" + dest.replace("_", "-"))
-                p.error(f"{flag} {getattr(a, dest)} has no effect with "
-                        f"{path}; leave it at its default {default}")
+                val = getattr(a, dest)
+                shown = flag if val is True else f"{flag} {val}"
+                p.error(f"{shown} has no effect with {path}; leave it at "
+                        f"its default {default}")
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
@@ -161,15 +163,26 @@ def _add_clustersearch_args(p: argparse.ArgumentParser) -> None:
                         "search; default <target_db>_clu, built there "
                         "when absent)")
     p.add_argument("--multihost", type=int, default=0,
-                   help="N > 1 is not ported yet (ROADMAP A8)")
+                   help="N > 1: the search stage in N worker processes, "
+                        "a residue-balanced query slice each, over a "
+                        "shared tmp dir; rank 0 merges and runs the tail "
+                        "(parallel/multihost.py; query_db == target_db). "
+                        "Several hosts: a cluster runner starts the "
+                        "workers with SPACEDUST_{COORDINATOR,NUM_PROCS,"
+                        "PROC_ID}")
     p.add_argument("--multihost-local-devices", type=int, default=1,
-                   help="not ported yet (ROADMAP A8)")
+                   help="D > 1: target shards a process (one alone "
+                        "without --multihost), dealt round-robin over the "
+                        "cards of --device cuda (several shards a card "
+                        "where there are fewer cards)")
 
 
 def _apply_threads(n: int) -> None:
     """--threads: cap the native engines' OpenMP team (Parameters
-    PARAM_THREADS; 0 keeps the all-cores default)."""
+    PARAM_THREADS; 0 keeps the all-cores default), worker processes'
+    too."""
     if n and n > 0:
+        os.environ["OMP_NUM_THREADS"] = str(n)
         from .native import set_num_threads
         set_num_threads(n)
 
@@ -186,22 +199,49 @@ def _check_max_seq_len(db, max_seq_len: int) -> None:
             f"{max_seq_len} (first: {names}); raise --max-seq-len")
 
 
+def _gff_args(p: argparse.ArgumentParser, required: bool) -> None:
+    p.add_argument("--gff-dir", required=required,
+                   help="GFF3 files, one a genome: a file listing one "
+                        "path a line, or a directory of *.gff* files; "
+                        "the inputs are then contig FASTA files")
+    p.add_argument("--gff-type", default="CDS",
+                   help="feature types to take (a comma list)")
+    p.add_argument("--translation-table", type=int, default=1,
+                   help="NCBI genetic code of the translation")
+
+
+def cmd_gff2db(argv: list[str]) -> int:
+    """Per-genome GFF3 + contig FASTA -> gene SetDB
+    (src/workflow/gff2db.cpp)."""
+    from .db.gff import create_setdb_from_gff
+    from .workflow.createsetdb import gff_files
+    p = argparse.ArgumentParser(prog="spacedust gff2db")
+    p.add_argument("fna_inputs", nargs="+")
+    p.add_argument("out_db")
+    _gff_args(p, required=True)
+    a = p.parse_args(argv)
+    db = create_setdb_from_gff(gff_files(a.gff_dir), a.fna_inputs,
+                               gff_type=a.gff_type,
+                               translation_table=a.translation_table)
+    db.save(a.out_db)
+    print(f"gff2db: {db.size} genes in {db.num_sets} sets -> {a.out_db}")
+    return 0
+
+
 def cmd_createsetdb(argv: list[str]) -> int:
     from .workflow.createsetdb import create_setdb
     p = argparse.ArgumentParser(prog="spacedust createsetdb")
     p.add_argument("inputs", nargs="+")
     p.add_argument("out_db")
     p.add_argument("tmp_dir", nargs="?")
-    p.add_argument("--gff-dir", help="not ported yet (ROADMAP A11b)")
-    p.add_argument("--gff-type", default="CDS",
-                   help="not ported yet (ROADMAP A11b)")
-    p.add_argument("--translation-table", type=int, default=1,
-                   help="not ported yet (ROADMAP A11b)")
+    _gff_args(p, required=False)
     p.add_argument("--file-include", default=".*")
     p.add_argument("--file-exclude", default="^$")
     a = p.parse_args(argv)
-    _check_ported(p, a)
+    _check_dropped(p, a)
     db = create_setdb(a.inputs, a.out_db, gff_dir=a.gff_dir,
+                      gff_type=a.gff_type,
+                      translation_table=a.translation_table,
                       file_include=a.file_include,
                       file_exclude=a.file_exclude)
     print(f"createsetdb: {db.size} genes in {db.num_sets} sets -> {a.out_db}")
@@ -214,8 +254,9 @@ def cmd_clustersearch(argv: list[str]) -> int:
     p = argparse.ArgumentParser(prog="spacedust clustersearch")
     _add_clustersearch_args(p)
     a = p.parse_args(argv)
-    _check_ported(p, a)
     _check_dropped(p, a)
+    if a.multihost > 1 and a.target_db != a.query_db:
+        p.error("--multihost requires query_db == target_db")
     device = _device(a)
     qdb, tdb = _load_dbs(a)
     params = ClusterSearchParams(
@@ -238,6 +279,8 @@ def cmd_clustersearch(argv: list[str]) -> int:
     _check_max_seq_len(qdb, a.max_seq_len)
     if tdb is not qdb:
         _check_max_seq_len(tdb, a.max_seq_len)
+    if a.multihost > 1 or a.multihost_local_devices > 1:
+        return _clustersearch_parallel(a, qdb, tdb, params, device)
     cdb = None
     if a.profile_cluster_search:
         from .workflow.clusterdb import cluster_db_cached
@@ -255,22 +298,62 @@ def cmd_clustersearch(argv: list[str]) -> int:
                                  target_cluster_db=cdb,
                                  query_mapping=qmap, target_mapping=tmap,
                                  device=device)
-    if res.seq_to_clu:
-        # ${OUTPUT}_seq_to_clu sidecar (data/clustersearch.sh:157-164:
-        # filterdb --trim-to-one-column + swapdb of the cluster DB)
+    _write_seq_to_clu(a.output, res.seq_to_clu)
+    _report_clustersearch("clustersearch", res.tsv, a.output, t0,
+                          res.timings)
+    return 0
+
+
+def _write_seq_to_clu(output: str, s2c: dict) -> None:
+    """${OUTPUT}_seq_to_clu sidecar (data/clustersearch.sh:157-164:
+    filterdb --trim-to-one-column + swapdb of the cluster DB)."""
+    if s2c:
         from .db.mmseqs_io import write_flatdb
-        write_flatdb(a.output + "_seq_to_clu",
+        write_flatdb(output + "_seq_to_clu",
                      [(k, "".join(f"{c}\n" for c in clus))
-                      for k, clus in sorted(res.seq_to_clu.items())],
-                     dbtype=5)
-    n_hits = sum(1 for ln in res.tsv.splitlines() if ln.startswith(">"))
-    n_clusters = sum(1 for ln in res.tsv.splitlines() if ln.startswith("#"))
-    print(f"clustersearch: {n_clusters} clusters / {n_hits} hits "
-          f"in {time.time()-t0:.1f}s -> {a.output}")
-    for k, v in res.timings.items():
+                      for k, clus in sorted(s2c.items())], dbtype=5)
+
+
+def _report_clustersearch(tag: str, tsv: str, output: str, t0: float,
+                          timings: dict) -> None:
+    n_hits = sum(1 for ln in tsv.splitlines() if ln.startswith(">"))
+    n_clusters = sum(1 for ln in tsv.splitlines() if ln.startswith("#"))
+    print(f"{tag}: {n_clusters} clusters / {n_hits} hits "
+          f"in {time.time()-t0:.1f}s -> {output}")
+    for k, v in timings.items():
         if isinstance(v, float):
             print(f"  {k}: {v:.2f}s")
-    print(f"  detail: {json.dumps(res.timings)}")
+    print(f"  detail: {json.dumps(timings)}")
+
+
+def _clustersearch_parallel(a: argparse.Namespace, qdb, tdb, params,
+                            device: torch.device) -> int:
+    """--multihost N > 1: N worker processes (parallel/multihost.py), each
+    over --multihost-local-devices target shards; otherwise the one
+    process target-sharded over --multihost-local-devices shards
+    (parallel/pipeline.py::sharded_cluster_search)."""
+    from pathlib import Path
+    t0 = time.time()
+    if a.multihost > 1:
+        from .parallel.multihost import read_seq_to_clu, run_multihost
+        run_multihost(a.query_db, a.output, a.multihost, params,
+                      tmp_dir=a.tmp_dir,
+                      local_devices=a.multihost_local_devices,
+                      device=str(device))
+        tsv = Path(a.output).read_text()
+        _write_seq_to_clu(a.output, read_seq_to_clu(a.output))
+        tag, timings = f"clustersearch[multihost x{a.multihost}]", {}
+    else:
+        from .parallel.pipeline import sharded_cluster_search
+        res = sharded_cluster_search(qdb, tdb, params,
+                                     n_shards=a.multihost_local_devices,
+                                     device=device)
+        tsv = res.tsv
+        Path(a.output).write_text(tsv)
+        _write_seq_to_clu(a.output, res.seq_to_clu)
+        tag = f"clustersearch[{a.multihost_local_devices} target shards]"
+        timings = res.timings
+    _report_clustersearch(tag, tsv, a.output, t0, timings)
     return 0
 
 
@@ -469,13 +552,6 @@ def cmd_summarizeresults(argv: list[str]) -> int:
     return 0
 
 
-def _not_ported_command(name: str, item: str):
-    def cmd(argv: list[str]) -> int:
-        argparse.ArgumentParser(prog=f"spacedust {name}").error(
-            f"{name} is not ported yet (ROADMAP {item})")
-    return cmd
-
-
 def _run_search(qdb, tdb, a, same_qt_db: bool, device: torch.device,
                 detail: dict | None = None):
     """Prefilter + align; returns {query_key: [AlnRecord]}.  detail, if
@@ -530,11 +606,44 @@ def _run_search(qdb, tdb, a, same_qt_db: bool, device: torch.device,
     return records
 
 
+def _read_contigs(path: str) -> dict[int, str]:
+    """Contig FASTA -> {index in file: sequence}."""
+    out: dict[int, str] = {}
+    cur: list[str] = []
+    with open(path) as fh:
+        for ln in fh:
+            if ln.startswith(">"):
+                if cur:
+                    out[len(out)] = "".join(cur)
+                    cur = []
+            else:
+                cur.append(ln.strip())
+    if cur:
+        out[len(out)] = "".join(cur)
+    return out
+
+
+def _run_nucl_search(a: argparse.Namespace) -> int:
+    """blastn-style nucleotide contig search (--search-type 3): FASTA in,
+    key-prefixed contig-coordinate alignment TSV out (search/nucl.py)."""
+    from .search.nucl import nucl_search
+    q = _read_contigs(a.query_db)
+    t = q if a.target_db == a.query_db else _read_contigs(a.target_db)
+    res = nucl_search(q, t, eval_thr=a.eval_thr, max_seqs=a.max_seqs)
+    with open(a.output, "w") as fh:
+        for k in sorted(res):
+            for cols in res[k]:
+                fh.write(f"{k}\t" + "\t".join(cols) + "\n")
+    n = sum(len(v) for v in res.values())
+    print(f"search (nucleotide): {n} alignments -> {a.output}")
+    return 0
+
+
 def cmd_search(argv: list[str]) -> int:
     """Standalone homology search (the inherited `mmseqs search` surface,
     workflow/Search.cpp): setDB x setDB -> alignment records, written as
     key-prefixed TSV or BLAST-m8 with --format-mode 4."""
-    from .search.convert import DEFAULT_FORMAT, convert_alignments
+    from .search.convert import convert_alignments
     p = argparse.ArgumentParser(prog="spacedust search")
     p.add_argument("query_db")
     p.add_argument("target_db")
@@ -574,11 +683,14 @@ def cmd_search(argv: list[str]) -> int:
                         "with column headers, 1: BLAST-tab")
     p.add_argument("--format-output", default=DEFAULT_FORMAT)
     p.add_argument("--search-type", type=int, default=0,
-                   help="0/1: protein setDB search; 3 (nucleotide contig "
-                        "search) is not ported yet (ROADMAP A11b)")
+                   help="0/1: protein setDB search; 3: nucleotide contig "
+                        "search on the host (query/target are FASTA "
+                        "files; takes -e and --max-seqs)")
     a = p.parse_args(argv)
-    _check_ported(p, a)
     _check_dropped(p, a)
+    if a.search_type == 3:
+        _apply_threads(a.threads)
+        return _run_nucl_search(a)
     device = _device(a)
     qdb, tdb = _load_dbs(a)
     _apply_threads(a.threads)
@@ -608,7 +720,7 @@ def cmd_search(argv: list[str]) -> int:
 def cmd_convertalignments(argv: list[str]) -> int:
     """Key-prefixed alignment TSV -> BLAST-m8
     (util/convertalignments.cpp)."""
-    from .search.convert import DEFAULT_FORMAT, convert_alignments
+    from .search.convert import convert_alignments
     from .search.records import AlnRecord
     p = argparse.ArgumentParser(prog="spacedust convertalignments")
     p.add_argument("query_db")
@@ -629,7 +741,7 @@ def cmd_convertalignments(argv: list[str]) -> int:
 COMMANDS = {
     # the reference's 9 commands (src/spacedust.cpp:26-120)
     "createsetdb": cmd_createsetdb,
-    "gff2db": _not_ported_command("gff2db", "A11b"),
+    "gff2db": cmd_gff2db,
     "aa2foldseek": cmd_aa2foldseek,
     "clusterdb": cmd_clusterdb,
     "clustersearch": cmd_clustersearch,

@@ -1,8 +1,9 @@
 """Native (C++/OpenMP) host engines: k-mer index and prefilter (sequence
-and profile queries), tantan masking, composition bias, banded traceback
-(sequence, profile and profile-profile), clusterhits, and the
-profile helpers (global PSSM bias correction, target-profile k-mer
-postings).
+and profile queries; the cached-beam probes of the concurrent target
+split), tantan masking, composition bias, banded traceback (sequence,
+profile and profile-profile), the banded nucleotide aligner,
+clusterhits, and the profile helpers (global PSSM bias correction,
+target-profile k-mer postings).
 
 The sources are the JAX package's, copied, but for `profile_native.cpp`,
 which is the port's own (the JAX package runs those two as numpy loops,
@@ -29,7 +30,7 @@ _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
 _SOURCES = ["banded_sw.cpp", "tantan.cpp", "simd_helpers.cpp",
             "prefilter_engine.cpp", "clusterhits_engine.cpp",
-            "profile_native.cpp"]
+            "profile_native.cpp", "nucl_align.cpp"]
 _LIB = None
 _LOCK = threading.Lock()
 
@@ -207,6 +208,87 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P(i32), P(i32), P(ctypes.c_double)]
     lib.spacedust_set_threads.restype = ctypes.c_int
     lib.spacedust_set_threads.argtypes = [ctypes.c_int]
+    # the concurrent target split: one screened beam a query, partitioned
+    # by shard and probed against each shard's index
+    lib.prefilter_generate_beams.restype = ctypes.c_int
+    lib.prefilter_generate_beams.argtypes = [
+        P(ctypes.c_uint8),   # qdata
+        P(i64),              # qoffs
+        P(i32),              # qlens
+        ctypes.c_int,        # nq
+        P(i32),              # seed_sub
+        P(ctypes.c_double),  # p_back
+        ctypes.c_int, ctypes.c_int,       # nsym, do_bias
+        P(ctypes.c_int16),   # sc3
+        P(ctypes.c_int16),   # id3
+        P(ctypes.c_int16),   # sc2 (nullable for k%3==0)
+        P(ctypes.c_int16),   # id2
+        ctypes.c_int,        # kmer_size
+        P(i32),              # spaced pattern
+        P(ctypes.c_uint64),  # global bitmap (nullable)
+        ctypes.c_int, ctypes.c_int,       # x_index, kmer_thr
+        P(P(i32)),           # out kmer
+        P(P(i32)),           # out win
+        P(i64),              # out_offs (nq+1)
+        P(ctypes.c_int8),    # out_corr8 (nullable)
+    ]
+    lib.free_beam_buffers.restype = None
+    lib.free_beam_buffers.argtypes = [P(i32), P(i32)]
+    lib.build_shard_mask_table.restype = ctypes.c_int
+    lib.build_shard_mask_table.argtypes = [
+        P(ctypes.c_uint64),  # shard bitmaps (concat)
+        ctypes.c_int, i64,   # n_shards, words_per_shard
+        P(ctypes.c_uint8),   # table (words*64 bytes)
+    ]
+    lib.partition_beams.restype = ctypes.c_int
+    lib.partition_beams.argtypes = [
+        P(i32),              # beam_kmer
+        P(i32),              # beam_win
+        P(i64),              # beam_offs
+        ctypes.c_int,        # nq
+        P(ctypes.c_uint8),   # shard mask table
+        ctypes.c_int,        # n_shards
+        P(P(i32)),           # out kmer
+        P(P(i32)),           # out win
+        P(i64),              # out_offs (n_shards*nq+1)
+    ]
+    lib.prefilter_match_beams.restype = ctypes.c_int
+    lib.prefilter_match_beams.argtypes = [
+        P(ctypes.c_uint8),   # qdata
+        P(i64),              # qoffs
+        P(i32),              # qlens
+        ctypes.c_int,        # nq
+        P(i32),              # seed_sub
+        P(ctypes.c_double),  # p_back
+        ctypes.c_int, ctypes.c_int,       # nsym, do_bias
+        P(ctypes.c_int8),    # corr8 (nullable)
+        P(i32),              # beam_kmer
+        P(i32),              # beam_win
+        P(i64),              # beam_offs
+        P(i32),              # hash keys
+        P(i32),              # hash range starts
+        P(i32),              # hash range counts
+        i64,                 # hash capacity
+        P(ctypes.c_uint64),  # occupied bitmap (shard)
+        P(i32),              # post_seq
+        P(i32),              # post_pos
+        P(ctypes.c_uint8),   # tdata
+        P(i64),              # toffs
+        P(i32),              # tlens
+        ctypes.c_int,        # nt
+        P(i32),              # ungapped_sub
+        ctypes.c_int,        # alpha
+        ctypes.c_int, ctypes.c_int,       # max_seqs, min_diag_score
+        ctypes.c_int, ctypes.c_int,       # bin_count, identity_base
+        ctypes.c_float, ctypes.c_int,     # cov_thr, cov_mode
+        P(i32), P(i32), P(i32), P(i32),   # out seq / score / diag / cnt
+        P(i64)]                           # total_raw_out
+    lib.nucl_banded_align.restype = ctypes.c_int
+    lib.nucl_banded_align.argtypes = [
+        P(ctypes.c_uint8), ctypes.c_int, P(ctypes.c_uint8), ctypes.c_int,
+        ctypes.c_int, P(i32), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        P(i32), ctypes.c_char_p, ctypes.c_int]
     return lib
 
 
@@ -349,6 +431,171 @@ def prefilter_match_batch(qdata, qoffs, qlens, seed_sub, p_back, do_bias,
     if rc != 0:
         raise RuntimeError(f"prefilter_match_batch failed: {rc}")
     return out_seq, out_score, out_diag, out_cnt, int(total_raw.value)
+
+
+def _pattern_arr(pattern, kmer_size):
+    if pattern is None:
+        from ..search.prefilter import KMER_PATTERNS
+        pattern = KMER_PATTERNS[kmer_size]
+    return np.ascontiguousarray(pattern, dtype=np.int32)
+
+
+def prefilter_generate_beams(qdata, qoffs, qlens, seed_sub, p_back, do_bias,
+                             sc3, id3, global_bitmap, x_index, kmer_thr,
+                             want_corr8: bool = False,
+                             kmer_size: int = 6, sc2=None, id2=None,
+                             pattern=None):
+    """Per-query similar-k-mer beams in exact generation order, screened
+    against a global occupancy bitmap (None = keep all).  Returns
+    (beam_kmer int32[N], beam_win int32[N], beam_offs int64[nq+1]) plus,
+    with want_corr8, the precomputed int8 rescore bias correction per
+    query position (same layout as qdata)."""
+    lib = get_lib()
+    nq = len(qlens)
+    out_offs = np.empty(nq + 1, dtype=np.int64)
+    corr8 = np.zeros(max(len(qdata), 1), dtype=np.int8) if want_corr8 else None
+    pk = ctypes.POINTER(ctypes.c_int32)()
+    pw = ctypes.POINTER(ctypes.c_int32)()
+    null16 = ctypes.POINTER(ctypes.c_int16)()
+    rc = lib.prefilter_generate_beams(
+        _ptr(qdata, ctypes.c_uint8), _ptr(qoffs, ctypes.c_int64),
+        _ptr(qlens, ctypes.c_int32), nq,
+        _ptr(seed_sub, ctypes.c_int32), _ptr(p_back, ctypes.c_double),
+        seed_sub.shape[0], int(do_bias),
+        _ptr(sc3, ctypes.c_int16), _ptr(id3, ctypes.c_int16),
+        _ptr(sc2, ctypes.c_int16) if sc2 is not None else null16,
+        _ptr(id2, ctypes.c_int16) if id2 is not None else null16,
+        int(kmer_size), _ptr(_pattern_arr(pattern, kmer_size),
+                             ctypes.c_int32),
+        (_ptr(global_bitmap, ctypes.c_uint64) if global_bitmap is not None
+         else ctypes.POINTER(ctypes.c_uint64)()),
+        int(x_index), int(kmer_thr),
+        ctypes.byref(pk), ctypes.byref(pw),
+        _ptr(out_offs, ctypes.c_int64),
+        (_ptr(corr8, ctypes.c_int8) if corr8 is not None
+         else ctypes.POINTER(ctypes.c_int8)()))
+    if rc != 0:
+        raise RuntimeError(f"prefilter_generate_beams failed: {rc}")
+    n = int(out_offs[-1])
+    try:
+        beam_kmer = np.ctypeslib.as_array(pk, shape=(max(n, 1),))[:n].copy()
+        beam_win = np.ctypeslib.as_array(pw, shape=(max(n, 1),))[:n].copy()
+    finally:
+        lib.free_beam_buffers(pk, pw)
+    if want_corr8:
+        return beam_kmer, beam_win, out_offs, corr8
+    return beam_kmer, beam_win, out_offs
+
+
+def build_shard_mask_table(shard_bitmaps: np.ndarray) -> np.ndarray:
+    """Per-k-mer byte of shard-occupancy bits (n_shards <= 8) from the
+    stacked shard occupancy bitmaps (n_shards, words) uint64."""
+    lib = get_lib()
+    n_shards, words = shard_bitmaps.shape
+    if n_shards > 8:
+        raise ValueError("mask table supports <= 8 shards per group")
+    table = np.empty(words * 64, dtype=np.uint8)
+    rc = lib.build_shard_mask_table(
+        _ptr(shard_bitmaps, ctypes.c_uint64), n_shards,
+        ctypes.c_int64(words), _ptr(table, ctypes.c_uint8))
+    if rc != 0:
+        raise RuntimeError(f"build_shard_mask_table failed: {rc}")
+    return table
+
+
+def partition_beams(beam_kmer, beam_win, beam_offs, mask_table, n_shards):
+    """Split screened beams into per-shard sub-beams via the shard mask
+    table (build_shard_mask_table).  Returns (kmer, win, offs) with
+    shard-major segment layout: shard s, query qi =
+    [offs[s*nq+qi], offs[s*nq+qi+1])."""
+    lib = get_lib()
+    nq = len(beam_offs) - 1
+    out_offs = np.empty(n_shards * nq + 1, dtype=np.int64)
+    pk = ctypes.POINTER(ctypes.c_int32)()
+    pw = ctypes.POINTER(ctypes.c_int32)()
+    rc = lib.partition_beams(
+        _ptr(beam_kmer, ctypes.c_int32), _ptr(beam_win, ctypes.c_int32),
+        _ptr(beam_offs, ctypes.c_int64), nq,
+        _ptr(mask_table, ctypes.c_uint8), n_shards,
+        ctypes.byref(pk), ctypes.byref(pw),
+        _ptr(out_offs, ctypes.c_int64))
+    if rc != 0:
+        raise RuntimeError(f"partition_beams failed: {rc}")
+    n = int(out_offs[-1])
+    try:
+        km = np.ctypeslib.as_array(pk, shape=(max(n, 1),))[:n].copy()
+        wn = np.ctypeslib.as_array(pw, shape=(max(n, 1),))[:n].copy()
+    finally:
+        lib.free_beam_buffers(pk, pw)
+    return km, wn, out_offs
+
+
+def prefilter_match_beams(qdata, qoffs, qlens, seed_sub, p_back, do_bias,
+                          beam_kmer, beam_win, beam_offs,
+                          hkeys, hoff, hcnt, occupied, post_seq, post_pos,
+                          tdata, toffs, tlens, ungapped_sub,
+                          max_seqs, min_diag_score, bin_count,
+                          identity_base, cov_thr, cov_mode, corr8=None):
+    """Probe a (shard-local) posting index with cached beams; same output
+    contract as prefilter_match_batch.  occupied=None skips the bitmap
+    screen (pre-partitioned sub-beams); corr8 skips the per-shard bias
+    recompute."""
+    lib = get_lib()
+    nq = len(qlens)
+    out_seq = np.empty(nq * max_seqs, dtype=np.int32)
+    out_score = np.empty(nq * max_seqs, dtype=np.int32)
+    out_diag = np.empty(nq * max_seqs, dtype=np.int32)
+    out_cnt = np.zeros(nq, dtype=np.int32)
+    total_raw = ctypes.c_int64(0)
+    rc = lib.prefilter_match_beams(
+        _ptr(qdata, ctypes.c_uint8), _ptr(qoffs, ctypes.c_int64),
+        _ptr(qlens, ctypes.c_int32), nq,
+        _ptr(seed_sub, ctypes.c_int32), _ptr(p_back, ctypes.c_double),
+        seed_sub.shape[0], int(do_bias),
+        (_ptr(corr8, ctypes.c_int8) if corr8 is not None
+         else ctypes.POINTER(ctypes.c_int8)()),
+        _ptr(beam_kmer, ctypes.c_int32), _ptr(beam_win, ctypes.c_int32),
+        _ptr(beam_offs, ctypes.c_int64),
+        _ptr(hkeys, ctypes.c_int32), _ptr(hoff, ctypes.c_int32),
+        _ptr(hcnt, ctypes.c_int32), ctypes.c_int64(len(hkeys)),
+        (_ptr(occupied, ctypes.c_uint64) if occupied is not None
+         else ctypes.POINTER(ctypes.c_uint64)()),
+        _ptr(post_seq, ctypes.c_int32), _ptr(post_pos, ctypes.c_int32),
+        _ptr(tdata, ctypes.c_uint8), _ptr(toffs, ctypes.c_int64),
+        _ptr(tlens, ctypes.c_int32), len(tlens),
+        _ptr(ungapped_sub, ctypes.c_int32), ungapped_sub.shape[0],
+        int(max_seqs), int(min_diag_score), int(bin_count),
+        int(identity_base), float(cov_thr), int(cov_mode),
+        _ptr(out_seq, ctypes.c_int32), _ptr(out_score, ctypes.c_int32),
+        _ptr(out_diag, ctypes.c_int32), _ptr(out_cnt, ctypes.c_int32),
+        ctypes.byref(total_raw))
+    if rc != 0:
+        raise RuntimeError(f"prefilter_match_beams failed: {rc}")
+    return out_seq, out_score, out_diag, out_cnt, int(total_raw.value)
+
+
+def nucl_banded_align(q: np.ndarray, t: np.ndarray, diagonal: int,
+                      mat: np.ndarray, gap_open: int = 5, gap_extend: int = 2,
+                      zdrop: int = 40, band: int = 64):
+    """BandedNucleotideAligner::align equivalent (nucl_align.cpp).
+    q must be strand-correct (reverse hits pass the reverse complement).
+    Returns (score, qstart, qend, tstart, tend, n_ident, ops)."""
+    lib = get_lib()
+    q = np.ascontiguousarray(q, dtype=np.uint8)
+    t = np.ascontiguousarray(t, dtype=np.uint8)
+    mat = np.ascontiguousarray(mat, dtype=np.int32)
+    out = np.zeros(9, dtype=np.int32)
+    cap = len(q) + len(t) + 8
+    buf = ctypes.create_string_buffer(cap)
+    n = lib.nucl_banded_align(
+        _ptr(q, ctypes.c_uint8), len(q), _ptr(t, ctypes.c_uint8), len(t),
+        int(diagonal), _ptr(mat, ctypes.c_int32), mat.shape[0],
+        gap_open, gap_extend, zdrop, band,
+        _ptr(out, ctypes.c_int32), buf, cap)
+    if n < 0:
+        raise RuntimeError(f"nucl_banded_align failed: {n}")
+    return (int(out[0]), int(out[1]), int(out[2]), int(out[3]),
+            int(out[4]), int(out[5]), buf.raw[:n].decode("ascii"))
 
 
 def prefilter_match_profile_batch(rank_s, rank_i, qprof, qseq, x_index,

@@ -628,7 +628,7 @@ class AlignmentEngine:
             k = len(alive)
             qk, tk = cqk[alive], ctk[alive]
             m["round_pairs"].append(k)
-            dev = self._device_db().with_targets(masked)
+            dev = self._device_db().with_targets(masked, moff)
             score = np.zeros(k, np.int64)
             q_end = np.zeros(k, np.int64)
             t_end = np.full(k, -1, np.int64)
@@ -652,7 +652,8 @@ class AlignmentEngine:
                                       [starts[i] for i in found],
                                       targets=(masked, moff, rows))
             for key, val in dev.metrics.items():
-                m[key] = m.get(key, 0) + val
+                if isinstance(val, (int, float)):
+                    m[key] = m.get(key, 0) + val
             keep = [i for i, rec in enumerate(recs) if rec is not None]
             if not keep:
                 break

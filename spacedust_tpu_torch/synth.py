@@ -19,7 +19,8 @@ Per genome set:
   * paralog families of 3-20 members within each genome.
 
 Run as `python -m spacedust_tpu_torch.synth OUT_DIR [--size real|small|
-...] [--seed N]`; it writes genome_a.faa and genome_b.faa.
+...] [--seed N] [--gff | --nucl | --struct]`; it writes genome_a.faa and
+genome_b.faa (or the files of a mode below).
 
 The repeat sets (`--size repeats`, `repeats_tiny`) are a generator of
 their own on its own stream of the seed (make_repeat_genomes), for the
@@ -41,6 +42,21 @@ genes, in a shuffled order.  A sequence search finds the neighbours; the
 profiles built from those hits reach further.  Round 0 of the JAX
 package's `search --num-iterations 2` gives 421 records there and the
 profile round adds 95 (516 in all).
+
+GFF mode (`--gff`, its own stream of the seed, make_gff_genomes) writes
+the same sets as a genome annotation arrives, contigs plus GFF3, for
+`createsetdb --gff-dir` and `gff2db`: genome_a.fna / genome_b.fna (one
+contig each, the genes at their Prodigal-style positions, seeded
+back-translation with table 1's codons and a stop codon, minus-strand
+genes reverse-complemented, random bases between them) and
+genome_a.gff / genome_b.gff (a `gene` and a `CDS` feature a gene, a
+`tRNA` feature, a comment and a CDS of 2 nt that the ingest skips).
+
+Nucleotide mode (`--nucl`, make_nucl_contigs, its own stream) writes two
+contig FASTAs for `search --search-type 3` (query_contigs.fna,
+target_contigs.fna; NUCL_SIZES contigs a file): each target contig holds
+copies of query segments at 85-99 % identity with short indels, one of
+them reverse-complemented, between random bases.
 
 Structure mode (`--struct`) writes, from its own stream of the same
 seed, a Foldseek-style flat DB of the same two genome sizes (`genomes`,
@@ -92,6 +108,12 @@ _LEN_BINS = ((30, 100, 80), (100, 150, 90), (150, 200, 110),
              (350, 400, 90), (400, 500, 120), (500, 700, 100),
              (700, 1000, 50), (1000, 1500, 16), (1500, 2501, 4))
 
+
+GFF_STREAM = 9          # the GFF sets' RNG stream of a seed
+NUCL_STREAM = 11        # the nucleotide contigs' stream
+# --nucl: contigs a file and their length in bases (query, target)
+NUCL_SIZES = {"small": (2, 24_000), "tiny": (1, 6_000)}
+BASES = "ACGT"
 
 STRUCT_MAX_LEN = 2700
 STRUCT_STREAM = 3       # the structure set's RNG stream of a seed
@@ -321,6 +343,147 @@ def write_genome_set(out_dir: str | Path, size: str = "real",
     return paths
 
 
+# ------------------------------------------------------------ GFF sets
+def _codon_table() -> list[list[str]]:
+    """Per residue index of AA_ORDER (20 amino acids), its codons under
+    NCBI table 1, and the three stop codons last."""
+    aas = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+    order = "TCAG"
+    codons = [a + b + c for a in order for b in order for c in order]
+    return ([[c for c, x in zip(codons, aas) if x == aa]
+             for aa in AA_ORDER[:20]]
+            + [[c for c, x in zip(codons, aas) if x == "*"]])
+
+
+_COMPLEMENT = str.maketrans("ACGT", "TGCA")
+
+
+def _back_translate(g: _Gen, prot: np.ndarray, table: list) -> str:
+    """A coding sequence of prot plus a stop codon, codons drawn
+    uniformly among the synonymous ones."""
+    pick = g.ints(0, 1 << 30, len(prot) + 1)
+    return "".join(table[int(a)][int(k) % len(table[int(a)])]
+                   for a, k in zip(list(prot) + [20], pick))
+
+
+def make_gff_genomes(size: str, seed: int = SEED):
+    """Per genome of the set `size`: (contig name, contig bases, GFF3
+    text)."""
+    genomes = (make_repeat_genomes(size, seed) if size in REPEAT_SIZES
+               else make_family_genomes(seed) if size == "families"
+               else make_genomes(SIZES[size], seed))
+    g = _Gen(seed, GFF_STREAM)
+    table = _codon_table()
+    out = []
+    for tag, genes in zip("AB", genomes):
+        contig = f"SYN{tag}_000001.1"
+        parts, pos = [], 1
+        gff = ["##gff-version 3",
+               f"# {contig}: {len(genes)} genes, seeded (synth.py --gff)"]
+        for i, (head, (prot, strand)) in enumerate(
+                zip(_headers(contig, genes), genes), start=1):
+            start, end = (int(x) for x in head.split(" # ")[1:3])
+            parts.append("".join(BASES[int(b)]
+                                 for b in g.ints(0, 4, start - pos)))
+            cds = _back_translate(g, prot, table)
+            if strand < 0:
+                cds = cds.translate(_COMPLEMENT)[::-1]
+            parts.append(cds)
+            pos = end + 1
+            sign = "+" if strand > 0 else "-"
+            gff.append(f"{contig}\tsynth\tgene\t{start}\t{end}\t.\t{sign}"
+                       f"\t.\tID=gene_{i}")
+            gff.append(f"{contig}\tsynth\tCDS\t{start}\t{end}\t.\t{sign}"
+                       f"\t0\tID=cds_{i};Parent=gene_{i}")
+            if i == 3:
+                # a CDS of 2 nt: translated to nothing, skipped, counted
+                gff.append(f"{contig}\tsynth\tCDS\t{end - 1}\t{end}\t.\t"
+                           f"+\t0\tID=short_{i}")
+            if i == 5:
+                gff.append(f"{contig}\tsynth\ttRNA\t{start + 3}\t"
+                           f"{start + 74}\t.\t{sign}\t.\tID=trna_{i}")
+        parts.append("".join(BASES[int(b)] for b in g.ints(0, 4, 200)))
+        out.append((contig, "".join(parts), "\n".join(gff) + "\n"))
+    return out
+
+
+def _write_contigs(path: Path, contigs: list[tuple[str, str]]) -> None:
+    lines = []
+    for name, seq in contigs:
+        lines.append(f">{name}")
+        lines += [seq[k:k + 80] for k in range(0, len(seq), 80)]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def write_gff_set(out_dir: str | Path, size: str = "real",
+                  seed: int = SEED) -> tuple[list[Path], list[Path]]:
+    """Write genome_{a,b}.fna and genome_{a,b}.gff for `size`; returns
+    (contig FASTA paths, GFF paths)."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    fnas, gffs = [], []
+    for tag, (contig, seq, gff) in zip("ab", make_gff_genomes(size, seed)):
+        fna, gp = out / f"genome_{tag}.fna", out / f"genome_{tag}.gff"
+        _write_contigs(fna, [(f"{contig} synthetic genome {tag}", seq)])
+        gp.write_text(gff)
+        fnas.append(fna)
+        gffs.append(gp)
+    return fnas, gffs
+
+
+# ----------------------------------------------------- nucleotide contigs
+def _nucl_mutate(g: _Gen, seq: np.ndarray, ident: int) -> np.ndarray:
+    """Substitutions at (100 - ident) % of positions, indels of 1-3 bases
+    at a tenth of that rate."""
+    out = seq.copy()
+    sub = g.ints(0, 100, len(out)) >= ident
+    out[sub] = g.ints(0, 4, int(sub.sum()))
+    for _ in range((100 - ident) * len(seq) // 1000):
+        p, k = int(g.ints(1, len(out) - 4)), int(g.ints(1, 4))
+        out = (np.concatenate([out[:p], g.ints(0, 4, k), out[p:]])
+               if g.ints(0, 2) else np.concatenate([out[:p], out[p + k:]]))
+    return out
+
+
+def make_nucl_contigs(size: str = "small", seed: int = SEED):
+    """(query contigs, target contigs) as lists of (name, bases): the
+    target contig c holds three segments of 800-3,000 bases of query
+    contig c at 85-99 % identity, the second reverse-complemented."""
+    g = _Gen(seed, NUCL_STREAM)
+    n, length = NUCL_SIZES[size]
+    rc = np.array([3, 2, 1, 0], dtype=np.int64)        # in BASES order
+    query, target = [], []
+    for c in range(n):
+        q = g.ints(0, 4, length)
+        parts = []
+        for k in range(3):
+            seg_len = int(g.ints(800, 3001))
+            s0 = int(g.ints(0, length - seg_len))
+            seg = _nucl_mutate(g, q[s0:s0 + seg_len], int(g.ints(85, 100)))
+            parts += [g.ints(0, 4, int(g.ints(500, length // 4))),
+                      rc[seg[::-1]] if k == 1 else seg]
+        parts.append(g.ints(0, 4, int(g.ints(500, length // 4))))
+
+        def text(a):
+            return "".join(BASES[int(b)] for b in a)
+
+        query.append((f"QRY{c}_contig", text(q)))
+        target.append((f"TGT{c}_contig", text(np.concatenate(parts))))
+    return query, target
+
+
+def write_nucl_set(out_dir: str | Path, size: str = "small",
+                   seed: int = SEED) -> tuple[Path, Path]:
+    """Write query_contigs.fna and target_contigs.fna; returns their
+    paths."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    paths = (out / "query_contigs.fna", out / "target_contigs.fna")
+    for path, contigs in zip(paths, make_nucl_contigs(size, seed)):
+        _write_contigs(path, contigs)
+    return paths
+
+
 # ------------------------------------------------------------ structure set
 def _struct_mutate(g: _Gen, aa: np.ndarray, ss: np.ndarray, aa_ident: int,
                    ss_ident: int) -> tuple[np.ndarray, np.ndarray]:
@@ -464,14 +627,28 @@ def write_struct_set(out_dir: str | Path, size: str = "real",
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m spacedust_tpu_torch.synth")
     ap.add_argument("out_dir")
-    ap.add_argument("--size", choices=sorted(SIZES), default="real")
+    ap.add_argument("--size", default="real",
+                    help=f"one of {sorted(SIZES)}; with --nucl one of "
+                         f"{sorted(NUCL_SIZES)}")
     ap.add_argument("--seed", type=int, default=SEED)
-    ap.add_argument("--struct", action="store_true",
-                    help="write the structure-mode flat DB and reference "
-                         "structure DB instead of the FASTA pair")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--struct", action="store_true",
+                      help="write the structure-mode flat DB and reference "
+                           "structure DB instead of the FASTA pair")
+    mode.add_argument("--gff", action="store_true",
+                      help="write the set as contigs plus GFF3 files")
+    mode.add_argument("--nucl", action="store_true",
+                      help="write the nucleotide contigs of --search-type 3")
     a = ap.parse_args(argv)
-    paths = (write_struct_set(a.out_dir, a.size, a.seed) if a.struct
-             else write_genome_set(a.out_dir, a.size, a.seed))
+    if a.size not in (NUCL_SIZES if a.nucl else SIZES):
+        ap.error(f"unknown --size {a.size}")
+    if a.gff:
+        fnas, gffs = write_gff_set(a.out_dir, a.size, a.seed)
+        paths = fnas + gffs
+    else:
+        paths = (write_struct_set(a.out_dir, a.size, a.seed) if a.struct
+                 else write_nucl_set(a.out_dir, a.size, a.seed) if a.nucl
+                 else write_genome_set(a.out_dir, a.size, a.seed))
     for p in paths:
         print(p)
     return 0

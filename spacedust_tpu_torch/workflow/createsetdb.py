@@ -1,11 +1,11 @@
-"""createsetdb workflow: protein FASTA inputs -> SetDB artifact.
+"""createsetdb workflow: FASTA/GFF inputs -> SetDB artifact.
 
 Mirrors src/workflow/createsetdb.cpp:20-140: expands a directory or .tsv
 list into file names (with --file-include/--file-exclude regex), then
-runs the amino-acid (Prodigal headers) path.  A single input with a
+dispatches to the amino-acid (Prodigal headers) or nucleotide (contigs
+plus one GFF3 a genome, db/gff.py) path.  A single input with a
 `.dbtype` file is a pre-built MMseqs2/Foldseek DB (with its `_ss` 3Di
-sidecar, if any) and goes through db/flatdb_ingest.py.  The nucleotide
-(GFF) input is not ported yet (ROADMAP A11b) and raises.
+sidecar, if any) and goes through db/flatdb_ingest.py.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import re
 from pathlib import Path
 
 from ..db.fasta import create_setdb_from_fastas
+from ..db.gff import create_setdb_from_gff
 from ..db.setdb import SetDB
 
 
@@ -41,6 +42,8 @@ def expand_inputs(inputs: list[str],
 
 def create_setdb(inputs: list[str], out_path: str | None = None,
                  gff_dir: str | None = None,
+                 gff_type: str = "CDS",
+                 translation_table: int = 1,
                  file_include: str = ".*",
                  file_exclude: str = "^$") -> SetDB:
     # pre-built MMseqs2/Foldseek DB input (createsetdb.sh:51-77 "external"
@@ -56,13 +59,26 @@ def create_setdb(inputs: list[str], out_path: str | None = None,
         raise ValueError("no input files after expansion")
     is_nucl = any(f.endswith((".fna", ".fa", ".fasta")) and _looks_nucl(f)
                   for f in files[:1])
-    if gff_dir is not None or is_nucl:
-        raise NotImplementedError(
-            "nucleotide (GFF) input is not ported yet (ROADMAP A11b)")
-    db = create_setdb_from_fastas(files)
+    if gff_dir is not None:
+        db = create_setdb_from_gff(gff_files(gff_dir), files, gff_type,
+                                   translation_table)
+    elif is_nucl:
+        raise ValueError("nucleotide input requires --gff-dir")
+    else:
+        db = create_setdb_from_fastas(files)
     if out_path is not None:
         db.save(out_path)
     return db
+
+
+def gff_files(gff_dir: str) -> list[str]:
+    """The GFF3 files of --gff-dir: a file listing one path a line (the
+    reference's form), or a directory, whose *.gff* files are taken in
+    name order."""
+    gd = Path(gff_dir)
+    if gd.is_dir():
+        return sorted(str(p) for p in gd.glob("*.gff*"))
+    return [ln.strip() for ln in gd.read_text().splitlines() if ln.strip()]
 
 
 def _looks_nucl(path: str, sample: int = 500) -> bool:

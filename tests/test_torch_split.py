@@ -140,9 +140,16 @@ def test_sharded_prefilter_matches_jax(small, budget):
 
 
 def test_concurrent_split_waits_for_a8(small):
+    """The concurrent split (ROADMAP A8) is ported: it gives the
+    sequential split's hits, and its own timings."""
     db, _jdb, _ = small
-    with pytest.raises(NotImplementedError, match="A8"):
-        pipeline.sharded_prefilter(db, db, [(0, 100), (100, db.size)])
+    kw = dict(cov_thr=0.8, cov_mode=2, same_qt_db=True)
+    shards = [(0, 100), (100, db.size)]
+    got = pipeline.sharded_prefilter(db, db, shards, **kw)
+    stats = pipeline.sharded_prefilter.last_stats
+    assert len(stats["index_s"]) == len(stats["probe_s"]) == 2
+    assert hits(got) == hits(pipeline.sharded_prefilter(
+        db, db, shards, sequential=True, **kw))
 
 
 def test_query_split_prefilter_matches_jax(small):

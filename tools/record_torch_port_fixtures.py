@@ -45,6 +45,20 @@ package on the CPU:
                                         asserts that the profile round adds
                                         at least 20 records to round 0)
 
+  tests/fixtures/torch_port_small_gff.tsv
+                                        result TSV of the small set ingested
+                                        as contigs plus GFF3 (synth.py
+                                        --gff) by `createsetdb --gff-dir`
+  tests/fixtures/torch_port_real_gff.json
+                                        the real set's GFF ingest: gene and
+                                        residue counts and the sha256 of its
+                                        residues, offsets, names and set ids
+                                        (db/gff.py::ingest_digest)
+  tests/fixtures/torch_port_small_nucl.tsv
+                                        `search --search-type 3` of the
+                                        nucleotide contigs (synth.py --nucl
+                                        --size small)
+
 `split:small` writes nothing: it asserts that the JAX package's
 clustersearch with --split-memory-limit (400,000 and 150,000 bytes, 4 and
 9 target splits; and --profile-cluster-search over torch_port_small_clu/
@@ -59,7 +73,8 @@ ingests them).  Usage:
   JAX_PLATFORMS=cpu python tools/record_torch_port_fixtures.py \
       [small|real|struct_small|struct_small_mode1|struct_real[:SIZE]|
        repeats|toolkit:small|toolkit:repeats|profile:small|
-       iterative:small|iterative:families|split:small]...
+       iterative:small|iterative:families|split:small|gff:small|
+       gff:real|nucl:small]...
 
 The --alt-ali runs align one masked pair a call and compile for every
 (query length, target length) they meet: toolkit:repeats took 22 s and
@@ -249,6 +264,45 @@ def split(size: str) -> None:
               f"({time.time() - t0:.1f} s)", file=sys.stderr)
 
 
+def gff(size: str) -> None:
+    """The set `size` as contigs plus GFF3 through the JAX CLI: the
+    clustersearch TSV (small), or the ingest's digest alone (real)."""
+    from spacedust_tpu.db.setdb import SetDB
+    from spacedust_tpu_torch.db.gff import ingest_digest
+    with tempfile.TemporaryDirectory() as d:
+        fnas, gffs = synth.write_gff_set(d, size)
+        (Path(d) / "gffs.tsv").write_text("".join(f"{g}\n" for g in gffs))
+        db = str(Path(d) / "db")
+        t0 = time.time()
+        assert jax_cli.main(["createsetdb", *map(str, fnas), db,
+                             "--gff-dir", str(Path(d) / "gffs.tsv")]) == 0
+        print(f"gff:{size} createsetdb {time.time() - t0:.1f} s",
+              file=sys.stderr)
+        if size == "real":
+            rec = {"seed": synth.SEED, "sizes": list(synth.SIZES[size]),
+                   **ingest_digest(SetDB.load(db))}
+            (FIXTURES / "torch_port_real_gff.json").write_text(
+                json.dumps(rec, indent=1) + "\n")
+            print(rec, file=sys.stderr)
+            return
+        out = FIXTURES / f"torch_port_{size}_gff.tsv"
+        t0 = time.time()
+        assert jax_cli.main(["clustersearch", db, db, str(out),
+                             "--filter-self-match"]) == 0
+        print(f"gff:{size} clustersearch {time.time() - t0:.1f} s",
+              file=sys.stderr)
+
+
+def nucl(size: str) -> None:
+    """`search --search-type 3` of the nucleotide contigs through the JAX
+    CLI."""
+    with tempfile.TemporaryDirectory() as d:
+        q, t = synth.write_nucl_set(d, size)
+        assert jax_cli.main(["search", str(q), str(t),
+                             str(FIXTURES / f"torch_port_{size}_nucl.tsv"),
+                             "--search-type", "3"]) == 0
+
+
 def summary(tsv: str, size: str) -> dict:
     lines = tsv.splitlines()
     return {"seed": synth.SEED, "sizes": list(synth.SIZES[size]),
@@ -270,6 +324,10 @@ def main(argv: list[str]) -> int:
             iterative(size)
         elif name == "split":
             split(size)
+        elif name == "gff":
+            gff(size)
+        elif name == "nucl":
+            nucl(size)
         elif name == "real":
             rec = summary(run("real"), "real")
             (FIXTURES / "torch_port_real.json").write_text(
