@@ -1687,33 +1687,54 @@ def shard_edge_grid(db, shards, rng, per_shard: int = 48) -> np.ndarray:
 
 
 def check_shard_grid(sdb, db, shards, errs: dict) -> int:
-    """ShardedAlignDB.run_grid forward and reverse (from the forward end
-    points) on the edge grid, each shard's rows against the plain version
-    over that shard's own resident tensors; returns the max |diff|."""
+    """The edge grid through the stream that the main path runs
+    (ShardedAlignDB.enqueue / flush / collect, global target offsets, all
+    shards' jobs in one stage under shuffled positions), forward and then
+    reverse from the forward end points, each shard's results against the
+    plain version over that shard's own resident tensors.  Then the same
+    without the first shard's jobs, so that the shard on whose card's
+    stream the stage is timed gets none.  Returns the pairs a shard."""
     rng = np.random.default_rng(SEED)
     grid = shard_edge_grid(db, shards, rng)
+    n_sh, per = grid.shape[1:]
     err = 0
-    fwd = sdb.run_grid(None, *grid, GO, GE, reverse=False)
-    rgrid = grid.copy()
-    rgrid[1], rgrid[3], rgrid[4] = fwd[2] + 1, fwd[1] + 1, fwd[0]
-    rev = sdb.run_grid(None, *rgrid, GO, GE, reverse=True)
-    for d, shard in enumerate(sdb.shards):
-        for name, g, got, rows in (("fwd", grid, fwd, (0, 1, 2)),
-                                   ("rev", rgrid, rev, (0, 4, 5, 3))):
-            ref = plain(name)(*shard._resident(),
-                              np.ascontiguousarray(g[:, d]), GO, GE)
-            ref = ref.cpu().numpy()[list(rows)]
-            mine = np.stack([x[d] for x in got])
-            e = int(np.abs(mine.astype(np.int64) - ref).max())
-            if e > TOL or not np.array_equal(mine, ref):
-                fail(f"sharded: shard {d} {name} on the edge grid differs "
-                     f"from the plain version (max abs err {e})")
-            err = max(err, e)
-    if not rev[3].all():
-        fail("sharded: a reverse job of the edge grid missed its "
-             "terminate score")
+    for first in (0, 1):
+        glob = grid[:, first:].copy()
+        glob[2] += sdb.tok_starts[first:, None]
+        fcols = [c.reshape(-1) for c in glob]
+        pos = rng.permutation(len(fcols[0]))
+
+        def run(cols, reverse):
+            got = np.zeros((6, len(pos)), np.int64)
+            for p, c in sdb.collect(sdb.enqueue([(*cols, pos)], GO, GE,
+                                                reverse)
+                                    + sdb.flush(GO, GE, reverse)):
+                got[:, p] = np.stack(c)
+            return got[:, pos]                # back in job order
+
+        fwd = run(fcols, False)
+        rcols = [fcols[0], fwd[2] + 1, fcols[2], fwd[1] + 1, fwd[0]]
+        rev = run(rcols, True)
+        if not rev[3].all():
+            fail("sharded: a reverse job of the edge grid missed its "
+                 "terminate score")
+        for d in range(first, n_sh):
+            sl = slice((d - first) * per, (d - first + 1) * per)
+            for name, cols, got in (("fwd", fcols, fwd),
+                                    ("rev", rcols, rev)):
+                local = np.stack([c[sl] for c in cols])
+                local[2] -= sdb.tok_starts[d]
+                ref = plain(name)(*sdb.shards[d]._resident(),
+                                  np.ascontiguousarray(local), GO, GE)
+                ref = ref.cpu().numpy()
+                e = int(np.abs(got[:, sl] - ref).max())
+                if e > TOL or not np.array_equal(got[:, sl], ref):
+                    fail(f"sharded: shard {d} {name} on the edge grid "
+                         f"differs from the plain version (max abs err "
+                         f"{e})")
+                err = max(err, e)
     errs["sharded"] = max(errs.get("sharded", 0), err)
-    return grid.shape[2]
+    return per
 
 
 def time_sharded_stage(d: str, stage: tuple, card: str) -> dict:
@@ -1865,9 +1886,10 @@ def sharded_phase(work: Path, dev: torch.device, errs: dict,
                          db.seq_data, [(int(toffs[s]), int(toffs[e]))
                                        for s, e in shards], mat.sub_int)
     n = check_shard_grid(sdb, db, shards, errs)
-    print(f"[sharded] edge grid: {n} pairs a shard (its first and last "
-          f"target among them), forward and reverse, every shard equal to "
-          f"the plain version")
+    print(f"[sharded] edge grid through enqueue / flush / collect: {n} "
+          f"pairs a shard (its first and last target among them), forward "
+          f"and reverse, and again without shard 0's pairs; every shard "
+          f"equal to the plain version")
     report = [time_sharded_stage(d, stages[d], card) for d in ("fwd", "rev")]
     for entry, d in zip(report, ("fwd", "rev")):
         entry["launches"] = launches[d]
@@ -1926,10 +1948,10 @@ def gff_phase(work: Path, dev: torch.device) -> dict:
     from spacedust_tpu_torch.workflow.createsetdb import create_setdb
     fixtures = ROOT / "tests" / "fixtures"
     t0 = time.perf_counter()
-    fnas, gffs = synth.write_gff_set(work / "gff_small", "small")
+    fnas, _gffs = synth.write_gff_set(work / "gff_small", "small")
     db, out = str(work / "gff_small_db"), work / "gff_small.tsv"
     run_cli(["createsetdb", *map(str, fnas), db, "--gff-dir",
-             str(work / "gff_small")], quiet=True)
+             str(work / "gff_small" / "gffs.tsv")], quiet=True)
     run_cli(["clustersearch", db, db, str(out), "--filter-self-match",
              "--device", "cuda"], quiet=True)
     if out.read_bytes() != (fixtures / "torch_port_small_gff.tsv"
@@ -1940,11 +1962,11 @@ def gff_phase(work: Path, dev: torch.device) -> dict:
     fx = json.loads((fixtures / "torch_port_real_gff.json").read_text())
     size = next(k for k, v in synth.SIZES.items() if list(v) == fx["sizes"])
     t0 = time.perf_counter()
-    fnas, gffs = synth.write_gff_set(work / "gff_real", size)
+    fnas, _gffs = synth.write_gff_set(work / "gff_real", size)
     t_write = time.perf_counter() - t0
     t0 = time.perf_counter()
     rdb = create_setdb([str(p) for p in fnas], str(work / "gff_real_db"),
-                       gff_dir=str(work / "gff_real"))
+                       gff_dir=str(work / "gff_real" / "gffs.tsv"))
     t_ingest = time.perf_counter() - t0
     got = ingest_digest(rdb)
     if got != {k: fx[k] for k in ("genes", "residues", "sha256")}:

@@ -2,8 +2,8 @@
 (src/spacedust.cpp:26-120) with its flag names, plus `--device` for where
 the SW passes run: `createsetdb` (protein FASTA, or contigs with
 `--gff-dir`), `gff2db`, `clusterdb`, `clustersearch` (with
-`--profile-cluster-search [--cluster-db DIR]`, and target-sharded or in
-several processes with `--multihost N --multihost-local-devices D`),
+`--profile-cluster-search [--cluster-db DIR]`, and in several processes,
+each target-sharded, with `--multihost N --multihost-local-devices D`),
 `aa2foldseek`, the module stages `besthitbyset`, `mergeresultsbyset`,
 `combinehits`, `clusterhits` and `summarizeresults`, and the inherited
 `search` (`--search-type 3`: the nucleotide contig search) and
@@ -15,8 +15,9 @@ flag selects fails when the arguments are parsed (DROPPED): `-k`,
 with `search --num-iterations > 1`; every protein-search flag with
 `search --search-type 3`; `-k`, `--spaced-kmer-mode` and `--search-mode`
 with `clustersearch --split-memory-limit`; the flags of the other search
-paths with `--multihost > 1` or `--multihost-local-devices > 1`;
-`--gff-type` and `--translation-table` without `--gff-dir`.
+paths with `--multihost > 1`; `--multihost-local-devices` without
+`--multihost > 1`; `--gff-type` and `--translation-table` without
+`--gff-dir`.
 
 Run as `python -m spacedust_tpu_torch <command> ...`.
 """
@@ -36,8 +37,8 @@ from .search.convert import DEFAULT_FORMAT
 
 
 _INT_MAX = 2147483647
-# the flags of the search paths that --multihost / --multihost-local-
-# devices (the sequence search of a setDB against itself) do not take
+# the flags of the search paths that --multihost (the sequence search of
+# a setDB against itself) does not take
 _NOT_MULTIHOST = {"kmer_size": 0, "spaced_kmer_mode": 1, "search_mode": 0,
                   "split_memory_limit": 0, "profile_cluster_search": False,
                   "cluster_db": None, "foldseek_db": None}
@@ -51,8 +52,9 @@ DROPPED = (
     ("split_memory_limit", lambda v: v > 0, "--split-memory-limit > 0",
      {"kmer_size": 0, "spaced_kmer_mode": 1, "search_mode": 0}),
     ("multihost", lambda v: v > 1, "--multihost > 1", _NOT_MULTIHOST),
-    ("multihost_local_devices", lambda v: v > 1,
-     "--multihost-local-devices > 1", _NOT_MULTIHOST),
+    # the target shards are those of each --multihost worker
+    ("multihost", lambda v: v <= 1, "one process (no --multihost > 1)",
+     {"multihost_local_devices": 1}),
     # the nucleotide search takes -e and --max-seqs only
     ("search_type", lambda v: v == 3, "--search-type 3",
      {"sensitivity": 5.7, "cov_thr": 0.0, "cov_mode": 0, "aln_len_thr": 0,
@@ -171,8 +173,8 @@ def _add_clustersearch_args(p: argparse.ArgumentParser) -> None:
                         "workers with SPACEDUST_{COORDINATOR,NUM_PROCS,"
                         "PROC_ID}")
     p.add_argument("--multihost-local-devices", type=int, default=1,
-                   help="D > 1: target shards a process (one alone "
-                        "without --multihost), dealt round-robin over the "
+                   help="with --multihost N > 1, D > 1: target shards "
+                        "a worker process, dealt round-robin over the "
                         "cards of --device cuda (several shards a card "
                         "where there are fewer cards)")
 
@@ -201,9 +203,9 @@ def _check_max_seq_len(db, max_seq_len: int) -> None:
 
 def _gff_args(p: argparse.ArgumentParser, required: bool) -> None:
     p.add_argument("--gff-dir", required=required,
-                   help="GFF3 files, one a genome: a file listing one "
-                        "path a line, or a directory of *.gff* files; "
-                        "the inputs are then contig FASTA files")
+                   help="a file listing the GFF3 files, one path a "
+                        "line and one file a genome; the inputs are then "
+                        "contig FASTA files")
     p.add_argument("--gff-type", default="CDS",
                    help="feature types to take (a comma list)")
     p.add_argument("--translation-table", type=int, default=1,
@@ -279,8 +281,8 @@ def cmd_clustersearch(argv: list[str]) -> int:
     _check_max_seq_len(qdb, a.max_seq_len)
     if tdb is not qdb:
         _check_max_seq_len(tdb, a.max_seq_len)
-    if a.multihost > 1 or a.multihost_local_devices > 1:
-        return _clustersearch_parallel(a, qdb, tdb, params, device)
+    if a.multihost > 1:
+        return _clustersearch_multihost(a, params, device)
     cdb = None
     if a.profile_cluster_search:
         from .workflow.clusterdb import cluster_db_cached
@@ -326,34 +328,19 @@ def _report_clustersearch(tag: str, tsv: str, output: str, t0: float,
     print(f"  detail: {json.dumps(timings)}")
 
 
-def _clustersearch_parallel(a: argparse.Namespace, qdb, tdb, params,
-                            device: torch.device) -> int:
+def _clustersearch_multihost(a: argparse.Namespace, params,
+                             device: torch.device) -> int:
     """--multihost N > 1: N worker processes (parallel/multihost.py), each
-    over --multihost-local-devices target shards; otherwise the one
-    process target-sharded over --multihost-local-devices shards
-    (parallel/pipeline.py::sharded_cluster_search)."""
+    over --multihost-local-devices target shards."""
     from pathlib import Path
+    from .parallel.multihost import read_seq_to_clu, run_multihost
     t0 = time.time()
-    if a.multihost > 1:
-        from .parallel.multihost import read_seq_to_clu, run_multihost
-        run_multihost(a.query_db, a.output, a.multihost, params,
-                      tmp_dir=a.tmp_dir,
-                      local_devices=a.multihost_local_devices,
-                      device=str(device))
-        tsv = Path(a.output).read_text()
-        _write_seq_to_clu(a.output, read_seq_to_clu(a.output))
-        tag, timings = f"clustersearch[multihost x{a.multihost}]", {}
-    else:
-        from .parallel.pipeline import sharded_cluster_search
-        res = sharded_cluster_search(qdb, tdb, params,
-                                     n_shards=a.multihost_local_devices,
-                                     device=device)
-        tsv = res.tsv
-        Path(a.output).write_text(tsv)
-        _write_seq_to_clu(a.output, res.seq_to_clu)
-        tag = f"clustersearch[{a.multihost_local_devices} target shards]"
-        timings = res.timings
-    _report_clustersearch(tag, tsv, a.output, t0, timings)
+    run_multihost(a.query_db, a.output, a.multihost, params,
+                  tmp_dir=a.tmp_dir, local_devices=a.multihost_local_devices,
+                  device=str(device))
+    _write_seq_to_clu(a.output, read_seq_to_clu(a.output))
+    _report_clustersearch(f"clustersearch[multihost x{a.multihost}]",
+                          Path(a.output).read_text(), a.output, t0, {})
     return 0
 
 

@@ -111,13 +111,10 @@ class DeviceAlignDB:
     def _target_alphabet(self) -> int:
         return self.sub.shape[0]
 
-    def with_targets(self, tdata: np.ndarray,
-                     starts: np.ndarray | None = None) -> "DeviceAlignDB":
+    def with_targets(self, tdata: np.ndarray) -> "DeviceAlignDB":
         """An engine over the target tokens `tdata` (uploaded now) that
         shares this one's resident query arrays (and matrix), with a
-        buffer and metrics of its own.  `starts` (the targets' start
-        offsets in tdata) is for a sharded engine, which cuts its shards
-        there; one array needs none."""
+        buffer and metrics of its own."""
         if self.CELL == "struct":
             raise NotImplementedError(
                 "with_targets serves one target channel only")

@@ -183,12 +183,10 @@ def _work(db_path: str, tmp: Path, out_path: str, params_json: str,
         return
 
     # rank 0: the merge and the aggregation tail (MMseqsMPI's master)
-    from ..cluster.aggregate import (besthit_by_set, combine_hits,
-                                     merge_results_by_set)
-    from ..cluster.clusterhits import cluster_hits
-    from ..cluster.summarize import seq_to_clu, summarize_results
+    from ..cluster.summarize import seq_to_clu
     from ..db.mmseqs_io import FlatDB
     from ..search.records import AlnRecord, expand_cigar
+    from ..workflow.clustersearch import aggregate_results
 
     def _cols(qk: int, ln: str) -> list[str]:
         rec = AlnRecord.parse(ln)
@@ -200,18 +198,8 @@ def _work(db_path: str, tmp: Path, out_path: str, params_json: str,
         fdb = FlatDB.open(tmp / f"result.{r}")
         for qk in fdb.keys():
             results[qk] = [_cols(qk, ln) for ln in fdb.lines(qk)]
-    agg = besthit_by_set(results, db, simple_best_hit=par.simple_best_hit,
-                         subopt_hits_factor=par.subopt_hits_factor)
-    merged = merge_results_by_set(agg, db)
-    matches = combine_hits(merged, db, db, alpha=par.alpha,
-                           aggregation_mode=par.aggregation_mode,
-                           filter_self_match=par.filter_self_match)
-    clusters = cluster_hits(matches, db, db,
-                            max_gene_gaps=par.max_gene_gaps,
-                            cluster_size=par.cluster_size,
-                            p_clu_thr=par.p_clu_thr,
-                            p_mh_thr=par.p_mh_thr, alpha=par.alpha)
-    Path(out_path).write_text(summarize_results(clusters, db, db))
+    _matches, clusters, tsv = aggregate_results(results, db, db, par)
+    Path(out_path).write_text(tsv)
     Path(seq_to_clu_path(out_path)).write_text(
         "".join(f"{k}\t{v}\n" for k, v in seq_to_clu(clusters).items()))
 

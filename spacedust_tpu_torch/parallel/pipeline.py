@@ -315,6 +315,11 @@ class ShardedAlignmentEngine(AlignmentEngine):
                 self.matrix.sub_int)
         return self._dev
 
+    def _masked_db(self, masked: np.ndarray, moff: np.ndarray
+                   ) -> ShardedAlignDB:
+        """The masked copy sharded too, cut at its targets' starts."""
+        return self._device_db().with_targets(masked, moff)
+
 
 def sharded_search(query_db: SetDB, target_db: SetDB,
                    devices: list | None = None, n_shards: int | None = None,
@@ -362,46 +367,13 @@ def sharded_cluster_search(query_db: SetDB, target_db: SetDB, params=None,
                            n_shards: int | None = None,
                            device: torch.device | str = "cuda"):
     """clustersearch (search mode 0) with the search stage target-sharded
-    (sharded_search) and the standard aggregation tail.  The alignment
-    controls of `params` (--max-accept, --max-rejected, --alt-ali) apply
-    as in cluster_search.  timings: `search` and `aggregate` seconds and
-    the search's metrics (`search_detail`)."""
-    from ..cluster.aggregate import (besthit_by_set, combine_hits,
-                                     merge_results_by_set)
-    from ..cluster.clusterhits import cluster_hits
-    from ..cluster.summarize import seq_to_clu, summarize_results
-    from ..workflow.clustersearch import (ClusterSearchParams,
-                                          ClusterSearchResult,
-                                          _sequence_aln_params)
-    par = params or ClusterSearchParams()
-    detail: dict = {}
-    t0 = time.perf_counter()
-    records = sharded_search(query_db, target_db, devices=devices,
-                             n_shards=n_shards,
-                             params=_sequence_aln_params(par),
-                             same_qt_db=query_db is target_db,
-                             sensitivity=par.sensitivity,
-                             max_seqs=par.max_seqs, mask=par.mask,
-                             device=device, metrics=detail)
-    t1 = time.perf_counter()
-    results = {qk: [[str(qk)] + r.columns() for r in recs]
-               for qk, recs in records.items()}
-    agg = besthit_by_set(results, target_db,
-                         simple_best_hit=par.simple_best_hit,
-                         subopt_hits_factor=par.subopt_hits_factor)
-    merged = merge_results_by_set(agg, query_db)
-    matches = combine_hits(merged, query_db, target_db, alpha=par.alpha,
-                           aggregation_mode=par.aggregation_mode,
-                           filter_self_match=par.filter_self_match)
-    clusters = cluster_hits(matches, query_db, target_db,
-                            max_gene_gaps=par.max_gene_gaps,
-                            cluster_size=par.cluster_size,
-                            p_clu_thr=par.p_clu_thr,
-                            p_mh_thr=par.p_mh_thr, alpha=par.alpha)
-    tsv = summarize_results(clusters, query_db, target_db)
-    return ClusterSearchResult(
-        tsv=tsv, clusters=clusters, matches=matches,
-        seq_to_clu=seq_to_clu(clusters),
-        timings={"search": t1 - t0,
-                 "aggregate": time.perf_counter() - t1,
-                 "search_detail": detail})
+    over `devices` (default make_mesh(n_shards, device)): cluster_search's
+    sharded branch, with its aggregation tail.  The alignment controls of
+    `params` (--max-accept, --max-rejected, --alt-ali) apply as in
+    cluster_search.  timings: `search` and `aggregate` seconds and the
+    search's metrics (`search_detail`, as sharded_search's `metrics`)."""
+    from ..workflow.clustersearch import cluster_search
+    if devices is None:
+        devices = make_mesh(n_shards, device)
+    return cluster_search(query_db, target_db, params, device=devices[0],
+                          shard_devices=devices)

@@ -158,23 +158,19 @@ class ShardedAlignDB:
 
     # ------------------------------------------- the DeviceAlignDB stream
     def with_targets(self, tdata: np.ndarray,
-                     starts: np.ndarray | None = None) -> "ShardedAlignDB":
+                     starts: np.ndarray) -> "ShardedAlignDB":
         """A sharded engine over the target tokens `tdata` (uploaded now,
         a shard a slice) that shares this one's resident query arrays.
         `starts`: the ascending start offsets of tdata's targets; the
-        shards are cut there, residue-balanced (without it, tdata is one
-        shard)."""
+        shards are cut there, residue-balanced."""
         n = len(tdata)
-        if starts is None or len(starts) == 0:
-            bounds = [(0, n)]
-        else:
-            starts = np.asarray(starts, dtype=np.int64)
-            lens = np.diff(np.concatenate((starts, [n])))
-            cuts = [int(s) for s, _ in residue_balanced_splits(
-                lens, self.n_shards)] + [len(starts)]
-            bounds = [(int(starts[a]) if a else 0,
-                       int(starts[b]) if b < len(starts) else n)
-                      for a, b in zip(cuts, cuts[1:])]
+        starts = np.asarray(starts, dtype=np.int64)
+        lens = np.diff(np.concatenate((starts, [n])))
+        cuts = [int(s) for s, _ in residue_balanced_splits(
+            lens, self.n_shards)] + [len(starts)]
+        bounds = [(int(starts[a]) if a else 0,
+                   int(starts[b]) if b < len(starts) else n)
+                  for a, b in zip(cuts, cuts[1:])]
         view = ShardedAlignDB.__new__(ShardedAlignDB)
         view._setup(self.devices[:len(bounds)],
                     [self.shards[d].with_targets(tdata[s:e])
@@ -248,6 +244,9 @@ class ShardedAlignDB:
             out += self.shards[d].collect(by_shard[d])
         for _parts, ev in pending:
             if ev is not None:
+                # the shards fetched above need not include one on the
+                # card whose stream recorded the events
+                ev[1].synchronize()
                 self._stages["stage_wall_ms"] += ev[0].elapsed_time(ev[1])
         return out
 

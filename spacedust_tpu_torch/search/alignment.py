@@ -414,6 +414,12 @@ class AlignmentEngine:
                     self.matrix.sub_int, device=self.device)
         return self._dev
 
+    def _masked_db(self, masked: np.ndarray, moff: np.ndarray):
+        """The device engine of an --alt-ali round: the resident queries
+        against `masked`, the masked copy of the chains' targets (moff:
+        their start offsets in it)."""
+        return self._device_db().with_targets(masked)
+
     def _profile_rows(self) -> np.ndarray:
         """The query profiles as one (n, 21) int8 array, row k for query
         element k (zero for queries without a profile)."""
@@ -628,7 +634,7 @@ class AlignmentEngine:
             k = len(alive)
             qk, tk = cqk[alive], ctk[alive]
             m["round_pairs"].append(k)
-            dev = self._device_db().with_targets(masked, moff)
+            dev = self._masked_db(masked, moff)
             score = np.zeros(k, np.int64)
             q_end = np.zeros(k, np.int64)
             t_end = np.full(k, -1, np.int64)

@@ -50,7 +50,8 @@ contig each, the genes at their Prodigal-style positions, seeded
 back-translation with table 1's codons and a stop codon, minus-strand
 genes reverse-complemented, random bases between them) and
 genome_a.gff / genome_b.gff (a `gene` and a `CDS` feature a gene, a
-`tRNA` feature, a comment and a CDS of 2 nt that the ingest skips).
+`tRNA` feature, a comment and a CDS of 2 nt that the ingest skips), and
+gffs.tsv, the listing of the two GFF3 files that `--gff-dir` takes.
 
 Nucleotide mode (`--nucl`, make_nucl_contigs, its own stream) writes two
 contig FASTAs for `search --search-type 3` (query_contigs.fna,
@@ -417,8 +418,9 @@ def _write_contigs(path: Path, contigs: list[tuple[str, str]]) -> None:
 
 def write_gff_set(out_dir: str | Path, size: str = "real",
                   seed: int = SEED) -> tuple[list[Path], list[Path]]:
-    """Write genome_{a,b}.fna and genome_{a,b}.gff for `size`; returns
-    (contig FASTA paths, GFF paths)."""
+    """Write genome_{a,b}.fna, genome_{a,b}.gff and their --gff-dir
+    listing gffs.tsv for `size`; returns (contig FASTA paths, GFF
+    paths)."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     fnas, gffs = [], []
@@ -428,6 +430,7 @@ def write_gff_set(out_dir: str | Path, size: str = "real",
         gp.write_text(gff)
         fnas.append(fna)
         gffs.append(gp)
+    (out / "gffs.tsv").write_text("".join(f"{g}\n" for g in gffs))
     return fnas, gffs
 
 

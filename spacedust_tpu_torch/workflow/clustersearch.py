@@ -173,7 +173,8 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
                    target_cluster_db=None,
                    query_mapping=None, target_mapping=None,
                    ckpt_dir: str | Path | None = None, *,
-                   device: torch.device | str) -> ClusterSearchResult:
+                   device: torch.device | str,
+                   shard_devices: list | None = None) -> ClusterSearchResult:
     """clustersearch of query_db against target_db; the SW passes run on
     `device` (CUDA: the hand-written kernels; CPU: their plain PyTorch
     version).  `target_cluster_db`: a workflow.clusterdb.ClusterDB of the
@@ -182,8 +183,17 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
     sidecars, data/clustersearch.sh:69-80).  `query_mapping`/
     `target_mapping`: workflow.aa2foldseek.FoldseekMapping artifacts
     (required for --search-mode 1, the reference's *_foldseek/_unmapped
-    sidecars)."""
+    sidecars).  `shard_devices`: one torch device a target shard; the
+    sequence search stage then runs target-sharded over them
+    (parallel/pipeline.py::sharded_search)."""
     par = params or ClusterSearchParams()
+    if shard_devices is not None and (
+            par.profile_cluster_search or par.search_mode
+            or par.split_memory_limit or par.kmer_size
+            or par.spaced_kmer_mode != 1):
+        raise ValueError("target shards serve the sequence search (search "
+                         "mode 0, no --split-memory-limit, no "
+                         "--profile-cluster-search, default k-mers)")
     if same_qt_db is None:
         same_qt_db = query_db is target_db
     timings: dict[str, float] = {}
@@ -275,6 +285,20 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
                                    metrics=detail)
         timings["structure_search"] = time.time() - t0
         timings["align_detail"] = detail
+    elif shard_devices is not None:
+        # target-sharded: the concurrent split prefilter, then the SW of
+        # each target shard on its device
+        from ..parallel.pipeline import sharded_search
+        t0 = time.time()
+        detail = {}
+        records = sharded_search(query_db, target_db, devices=shard_devices,
+                                 params=_sequence_aln_params(par),
+                                 same_qt_db=same_qt_db,
+                                 sensitivity=par.sensitivity,
+                                 max_seqs=par.max_seqs, mask=par.mask,
+                                 metrics=detail)
+        timings["search"] = time.time() - t0
+        timings["search_detail"] = detail
     elif par.split_memory_limit > 0:
         # out-of-core: sequential residue-balanced target splits bounded
         # by the memory budget; per-split hit lists are merged with the
@@ -373,6 +397,29 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
         ck.save_lines("result", {qk: [c[1:] for c in cols]
                                  for qk, cols in results.items()})
         agg_detail["ckpt_s"] = round(time.time() - ts, 2)
+    matches, clusters, tsv = aggregate_results(results, query_db, target_db,
+                                               par, ck, agg_detail)
+    timings["aggregate"] = time.time() - t0
+    timings["aggregate_detail"] = agg_detail
+
+    return ClusterSearchResult(tsv=tsv, clusters=clusters, matches=matches,
+                               seq_to_clu=seq_to_clu(clusters),
+                               timings=timings)
+
+
+def aggregate_results(results: dict[int, list[list[str]]],
+                      query_db: SetDB, target_db: SetDB,
+                      par: ClusterSearchParams,
+                      ck: StageCheckpoints | None = None,
+                      agg_detail: dict | None = None
+                      ) -> tuple[list[Match], list[Cluster], str]:
+    """The aggregation tail on the search results (query key -> prefixed
+    column lists): besthitbyset -> mergeresultsbyset -> combinehits ->
+    clusterhits -> summarizeresults, resuming from and saving to the
+    checkpoints `ck`.  Returns (matches, clusters, TSV); agg_detail, if
+    given, receives each step's seconds."""
+    ck = StageCheckpoints(None) if ck is None else ck
+    agg_detail = {} if agg_detail is None else agg_detail
     if ck.has("matches"):
         matches = ck.load_matches()
     else:
@@ -407,12 +454,7 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
     ts = time.time()
     tsv = summarize_results(clusters, query_db, target_db)
     agg_detail["summarize_s"] = round(time.time() - ts, 2)
-    timings["aggregate"] = time.time() - t0
-    timings["aggregate_detail"] = agg_detail
-
-    return ClusterSearchResult(tsv=tsv, clusters=clusters, matches=matches,
-                               seq_to_clu=seq_to_clu(clusters),
-                               timings=timings)
+    return matches, clusters, tsv
 
 
 def cluster_search_to_file(query_db: SetDB, target_db: SetDB, out_path: str,

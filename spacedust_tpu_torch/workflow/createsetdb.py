@@ -72,13 +72,10 @@ def create_setdb(inputs: list[str], out_path: str | None = None,
 
 
 def gff_files(gff_dir: str) -> list[str]:
-    """The GFF3 files of --gff-dir: a file listing one path a line (the
-    reference's form), or a directory, whose *.gff* files are taken in
-    name order."""
-    gd = Path(gff_dir)
-    if gd.is_dir():
-        return sorted(str(p) for p in gd.glob("*.gff*"))
-    return [ln.strip() for ln in gd.read_text().splitlines() if ln.strip()]
+    """The GFF3 files of --gff-dir, a file listing one path a line (the
+    reference's form, examples/gff.txt)."""
+    return [ln.strip() for ln in Path(gff_dir).read_text().splitlines()
+            if ln.strip()]
 
 
 def _looks_nucl(path: str, sample: int = 500) -> bool:

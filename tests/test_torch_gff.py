@@ -38,7 +38,7 @@ def gffset(tmp_path_factory):
     d = tmp_path_factory.mktemp("gff")
     fnas, gffs = synth.write_gff_set(d, "small")
     listing = d / "gffs.tsv"
-    listing.write_text("".join(f"{g}\n" for g in gffs))
+    assert listing.read_text() == "".join(f"{g}\n" for g in gffs)
     return d, fnas, gffs, listing
 
 
@@ -106,16 +106,15 @@ def test_real_ingest_equals_jax_digest(tmp_path):
 
 # ------------------------------------------------------------ CLI
 def test_cli_createsetdb_and_gff2db(gffset, tmp_path):
-    """createsetdb --gff-dir (a listing file, and a directory) and gff2db
-    write the library's SetDB; protein flags with contigs fail."""
-    d, fnas, gffs, listing = gffset
+    """createsetdb --gff-dir (a listing file, the reference's form) and
+    gff2db write the library's SetDB; protein flags with contigs fail."""
+    _d, fnas, gffs, listing = gffset
     want = gff.create_setdb_from_gff(gffs, fnas, gff_type="CDS,tRNA",
                                      translation_table=11)
     flags = ["--gff-type", "CDS,tRNA", "--translation-table", "11"]
     fna = [str(p) for p in fnas]
     for i, argv in enumerate((
             ["createsetdb", *fna, "OUT", "--gff-dir", str(listing), *flags],
-            ["createsetdb", *fna, "OUT", "--gff-dir", str(d), *flags],
             ["gff2db", *fna, "OUT", "--gff-dir", str(listing), *flags])):
         out = str(tmp_path / f"db{i}")
         assert cli.main([out if a == "OUT" else a for a in argv]) == 0

@@ -113,12 +113,12 @@ def small_db(tmp_path_factory):
 
 @pytest.mark.parametrize("flags", [
     ["--multihost", "2", "--multihost-local-devices", "2"],
-    ["--multihost-local-devices", "3"]], ids=["2x2", "1x3"])
+    ["--multihost", "2"]], ids=["2x2", "2x1"])
 def test_cli_equals_fixture(small_db, tmp_path, flags):
     """clustersearch --multihost 2 --multihost-local-devices 2 (2 worker
-    processes of 2 target shards) and --multihost-local-devices 3 alone
-    (3 shards in this process): the fixture's TSV, and the _seq_to_clu
-    sidecar of a single run."""
+    processes of 2 target shards) and --multihost 2 alone (2 workers of
+    the single engine): the fixture's TSV, and the _seq_to_clu sidecar
+    of a single run."""
     out = tmp_path / "out.tsv"
     assert cli.main(["clustersearch", small_db, small_db, str(out),
                      str(tmp_path / "tmp"), "--filter-self-match",

@@ -206,6 +206,56 @@ def test_stream_puts_results_back_in_job_order(small):
                               jobs2, 11, 1, False)))
 
 
+def test_stage_without_jobs_on_the_first_shard(small):
+    """A stage whose targets all lie in the later shards, forward and then
+    reverse from its end points: the first shard gets no pair, every
+    job gets the single engine's result under its own position, and the
+    stage is counted (on a card its wall time comes from events on the
+    first card's stream, which no shard of this stage fetched from)."""
+    db, _ = small
+    rng = np.random.default_rng(11)
+    n = 40
+    shards = residue_balanced_splits(db.lengths, 3)
+    short = np.nonzero(db.lengths <= 400)[0]
+    qk = rng.choice(short, n)
+    tk = np.concatenate([[shards[1][0], db.size - 1],
+                         rng.choice(short[short >= shards[1][0]], n - 2)])
+    mat = load_substitution_matrix()
+    qbias = np.zeros(len(db.seq_data), np.int8)
+    from spacedust_tpu_torch.ops.sw_engine import DeviceAlignDB
+    single = DeviceAlignDB(db.seq_data, qbias, db.seq_data, mat.sub_int, CPU)
+    toffs = db.offsets
+    sharded = ShardedAlignDB(make_mesh(3, CPU), db.seq_data, qbias,
+                             db.seq_data,
+                             [(int(toffs[s]), int(toffs[e]))
+                              for s, e in shards], mat.sub_int)
+
+    def by_pos(collected):
+        out = np.zeros((6, n), np.int64)
+        for pos, cols in collected:
+            out[:, pos] = np.stack(cols)
+        return out
+
+    perm = rng.permutation(n)
+    fwd = [(db.offsets[qk], db.lengths[qk], db.offsets[tk], db.lengths[tk],
+            np.full(n, -1), perm)]
+    want = by_pos(single.run_buckets(fwd, 11, 1, reverse=False))
+    got = by_pos(sharded.collect(sharded.enqueue(fwd, 11, 1, False)
+                                 + sharded.flush(11, 1, False)))
+    assert np.array_equal(got, want)
+    score, t_end, q_end = want[:3, perm]
+    rev = [(db.offsets[qk], q_end + 1, db.offsets[tk], t_end + 1, score,
+            np.arange(n))]
+    want = by_pos(single.run_buckets(rev, 11, 1, reverse=True))
+    assert np.array_equal(by_pos(sharded.run_buckets(rev, 11, 1, True)),
+                          want)
+    assert want[3].all()                      # every terminate found
+    m = sharded.metrics
+    assert m["stages"] == 2
+    assert m["shard_fwd_pairs"][0] == m["shard_rev_pairs"][0] == 0
+    assert min(m["shard_fwd_pairs"][1:] + m["shard_rev_pairs"][1:]) > 0
+
+
 def test_make_mesh():
     assert make_mesh(3, "cpu") == [CPU] * 3
     assert make_mesh(None, "cpu") == [CPU]
@@ -262,3 +312,18 @@ def test_sharded_cluster_search_equals_fixture(small):
     detail = res.timings["search_detail"]
     assert detail["align_detail"]["shards"] == 4
     assert len(detail["prefilter_detail"]["probe_s"]) == 4
+
+
+@pytest.mark.parametrize("change", [
+    dict(profile_cluster_search=True), dict(search_mode=2),
+    dict(split_memory_limit=1000), dict(kmer_size=5)],
+    ids=["profile", "structure", "split", "kmer"])
+def test_cluster_search_shards_only_the_sequence_search(small, change):
+    """cluster_search takes target shards on the sequence search alone:
+    the other paths, and -k, which the split prefilter does not take,
+    are refused before any work."""
+    from spacedust_tpu_torch.workflow.clustersearch import cluster_search
+    db, _ = small
+    with pytest.raises(ValueError, match="target shards serve"):
+        cluster_search(db, db, ClusterSearchParams(**change), device=CPU,
+                       shard_devices=make_mesh(2, CPU))

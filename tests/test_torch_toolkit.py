@@ -149,14 +149,16 @@ NOT_PORTED = [
      "--split-memory-limit 1000 has no effect with --multihost > 1"),
     (["clustersearch", "q", "t", "--split-memory-limit", "1000",
       "--multihost-local-devices", "2", "out", "--profile-cluster-search"],
-     "--split-memory-limit 1000 has no effect with "
-     "--multihost-local-devices > 1"),
+     "--multihost-local-devices 2 has no effect with one process "
+     "(no --multihost > 1)"),
     (["clustersearch", "q", "q", "out", "--multihost", "2", "--cluster-db",
       "clu"], "--cluster-db clu has no effect with --multihost > 1"),
     (["clustersearch", "q", "t", "out", "--multihost", "2"],
      "--multihost requires query_db == target_db"),
     (["clustersearch", "q", "t", "out", "--device", "cpu",
-      "--multihost-local-devices", "2"], FileNotFoundError),
+      "--multihost-local-devices", "2"],
+     "--multihost-local-devices 2 has no effect with one process "
+     "(no --multihost > 1)"),
     (["search", "q", "t", "out", "--search-type", "3", "--num-iterations",
       "2"], "--num-iterations 2 has no effect with --search-type 3"),
     (["search", "q", "t", "out", "--search-type", "3", "--e-profile",

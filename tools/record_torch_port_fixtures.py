@@ -270,8 +270,7 @@ def gff(size: str) -> None:
     from spacedust_tpu.db.setdb import SetDB
     from spacedust_tpu_torch.db.gff import ingest_digest
     with tempfile.TemporaryDirectory() as d:
-        fnas, gffs = synth.write_gff_set(d, size)
-        (Path(d) / "gffs.tsv").write_text("".join(f"{g}\n" for g in gffs))
+        fnas, _gffs = synth.write_gff_set(d, size)
         db = str(Path(d) / "db")
         t0 = time.time()
         assert jax_cli.main(["createsetdb", *map(str, fnas), db,
