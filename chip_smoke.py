@@ -138,18 +138,27 @@ the kernels line, the card and the result.
                 single index's (as sets a query); the sharded clustersearch
                 (parallel/pipeline.py::sharded_cluster_search), counters
                 reset just before and read just after, equal to
-                tests/fixtures/torch_port_real.json, every shard launching
-                both kernels on its own stream; each shard's kernels
-                against the plain version on an edge grid (its first and
-                last target among the pairs, forward and reverse); and the
-                largest sharded stage of each direction again, its wall on
-                the card against the plain version shard by shard.  Prints
-                the per-shard launches, pairs and kernel ms and the stages'
-                wall ms;
+                tests/fixtures/torch_port_real.json, each stage one short
+                launch over all shards (sw_*_shards) plus one long-pair
+                launch (sw_*_shards_block), both kernels of each direction
+                launched and every shard with pairs in them; an edge grid
+                (each shard's first and last target and its giant genes
+                among the pairs) through enqueue / flush / collect, forward
+                and reverse, planned as the engine plans and forced onto
+                the block path at every width W and class R, then without
+                shard 0's pairs, every shard equal to the plain version;
+                block_edge_batch (ties on strip boundaries of different
+                warps, gaps through the ring) at every W and R, all six
+                outputs equal; and the largest sharded stage of each
+                direction again: its wall on the card, the long-pair
+                launch, the short launch and the card's dispatch, at the
+                engine's W and at each W, against the plain version (the
+                long and the short pairs apart), and the stage's longest
+                pair alone on one warp and on the block path at each W;
  17. multihost -- the real set as 2 worker processes of 2 target shards,
                 all on the one card (parallel/multihost.py, a gloo group):
-                equal to torch_port_real.json, each rank launching K1 and
-                K2 (its metrics file);
+                equal to torch_port_real.json, each rank launching the
+                sharded stage's kernels (its metrics file);
  18. gff     -- contigs plus GFF3 (synth.py --gff): small through
                 createsetdb --gff-dir and clustersearch, equal to
                 tests/fixtures/torch_port_small_gff.tsv byte for byte; the
@@ -244,6 +253,14 @@ KERNELS = {
                  "FORWARD_PROF_LAUNCHES"),
     "rev_prof": ("sw_reverse_prof", "spacedust_tpu/ops/sw.py:137",
                  "REVERSE_PROF_LAUNCHES")}
+# the target-sharded stage (B8): its four kernels, the short pairs' and
+# the block path's of each direction -> (wrapper's C entry point, launch
+# counter)
+B8_KERNELS = {
+    "fwd_shards": ("sw_forward_shards", "FORWARD_SHARDS_LAUNCHES"),
+    "fwd_block": ("sw_forward_shards_block", "FORWARD_BLOCK_LAUNCHES"),
+    "rev_shards": ("sw_reverse_shards", "REVERSE_SHARDS_LAUNCHES"),
+    "rev_block": ("sw_reverse_shards_block", "REVERSE_BLOCK_LAUNCHES")}
 PROF_COLS = 21          # profile columns a residue (20 amino acids and X)
 GATHER = "spacedust_tpu/ops/sw_engine.py:82"     # fused into the kernels
 
@@ -523,6 +540,97 @@ def edge_batch(rows: int, sub: np.ndarray, seed: int = SEED, go: int = GO,
     jobs = np.stack([qoff, qlen, toff, tlen, np.full(len(qs), -1)])
     return (np.concatenate(qs), np.concatenate(bs), np.concatenate(ts),
             np.ascontiguousarray(jobs, dtype=np.int64), expect)
+
+
+def block_edge_batch(rows: int, warps: int, sub: np.ndarray,
+                     seed: int = SEED, go: int = GO):
+    """Pairs that stress the block path (strip k of a pair on warp
+    k % warps) at `rows` query rows a lane.  Returns resident (q, bias,
+    t), the (5, n) forward jobs and, for the planted ties, {pair: (score,
+    t_end, q_end)}, the forward result the design must give.
+
+    Grid: 1, 2, W, W + 1 and 2W + 1 strips (a query of whole strips, and
+    one 7 rows into its last) x tlen in {7, 40, 100}, random, the target a
+    mutated copy of a query segment, bias -3..3: warps with no strip, one
+    and several, the last strip on the first, the second and the last
+    warp, targets of one, two and four 32-column chunks.  Ties (edge_batch's motifs, no bias): one column,
+    rows on either side of the boundary of strips W - 1 and W, so that
+    the earlier strip, which keeps the tie, sits on the later warp; the
+    smaller column in strip 1 (warp 1) against strip 0 and against strip
+    W (warp 0).  Gaps: a query insert bridged by one gap across the
+    boundary of strips 0 and 1 and of strips W - 1 and W (F through the
+    ring, both of its slots for an even W)."""
+    rng = np.random.default_rng(seed + 100 * warps + rows)
+    strip, W = 32 * rows, warps
+    qs, bs, ts = [], [], []
+    for n_strips in sorted({1, 2, W, W + 1, 2 * W + 1}):
+        for ql in (n_strips * strip, (n_strips - 1) * strip + 7):
+            for tl in (7, 40, 100):
+                q = rng.integers(0, 20, ql).astype(np.uint8)
+                lo = int(rng.integers(0, max(ql - tl, 0) + 1))
+                t = q[lo:lo + tl].copy()
+                if len(t) < tl:
+                    t = np.concatenate([t, rng.integers(0, 20, tl - len(t))])
+                hit = rng.integers(0, 100, tl) < 25
+                t[hit] = rng.integers(0, 20, int(hit.sum()))
+                qs.append(q)
+                bs.append(rng.integers(-3, 4, ql).astype(np.int8))
+                ts.append(t.astype(np.uint8))
+    fq, ft, (a, b, c) = tie_letters(sub)
+    motif = {1: [a, b, c, a, b, c], 2: [c, b, a, c, b, a]}
+    score = 2 * int(sub[a, a] + sub[b, b] + sub[c, c])
+    expect = {}
+
+    def plant(qlen, tlen, q_ends, t_ends, want):
+        q = np.full(qlen, fq, np.uint8)
+        t = np.full(tlen, ft, np.uint8)
+        for seq, ends in ((q, q_ends), (t, t_ends)):
+            for end, m in ends:
+                seq[end - 5:end + 1] = motif[m]
+        expect[len(qs)] = (score, *want)
+        qs.append(q)
+        bs.append(np.zeros(qlen, np.int8))
+        ts.append(t)
+
+    last_w = W * strip - 2             # lane 31 of strip W - 1
+    plant(W * strip + 20, 40, [(last_w, 1), (W * strip + 8, 1)], [(33, 1)],
+          (33, last_w))
+    plant(2 * strip, 40, [(strip - 40, 2), (strip + 50, 1)],
+          [(9, 1), (30, 2)], (9, strip + 50))
+    plant(W * strip + 60, 40, [(strip + 50, 1), (W * strip + 40, 2)],
+          [(9, 1), (30, 2)], (9, strip + 50))
+    for start, n_ins in ((strip - 35, 10), (W * strip - 35, 10)):
+        left, right = (rng.integers(0, 20, 30).astype(np.uint8)
+                       for _ in range(2))
+        ins = rng.integers(0, 20, n_ins).astype(np.uint8)
+        q = np.concatenate([np.full(start, fq), left, ins, right,
+                            np.full(6, fq)]).astype(np.uint8)
+        t = np.concatenate([np.full(3, ft), left, right,
+                            np.full(3, ft)]).astype(np.uint8)
+        gapped = (int(sub[left, left].sum() + sub[right, right].sum())
+                  - go - GE * (n_ins - 1))
+        expect[len(qs)] = (gapped, 3 + 60 - 1, start + 60 + n_ins - 1)
+        qs.append(q)
+        bs.append(np.zeros(len(q), np.int8))
+        ts.append(t)
+    qlen = np.array([len(q) for q in qs], np.int64)
+    tlen = np.array([len(t) for t in ts], np.int64)
+    qoff = np.concatenate(([0], np.cumsum(qlen)[:-1]))
+    toff = np.concatenate(([0], np.cumsum(tlen)[:-1]))
+    jobs = np.stack([qoff, qlen, toff, tlen, np.full(len(qs), -1)])
+    return (np.concatenate(qs), np.concatenate(bs), np.concatenate(ts),
+            np.ascontiguousarray(jobs, dtype=np.int64), expect)
+
+
+def two_shards(t: np.ndarray, jobs: np.ndarray):
+    """The targets of a (5, n) job array cut into two shards at the start
+    of its middle job: the two token arrays and the (6, n) sharded jobs
+    (shard-local toff, the shard in row 5)."""
+    cut = int(jobs[2, jobs.shape[1] // 2])
+    shard = (jobs[2] >= cut).astype(np.int64)
+    js = np.concatenate([jobs, shard[None]])
+    js[2] -= shard * cut
+    return [t[:cut], t[cut:]], np.ascontiguousarray(js)
 
 
 # structure mode's edge batch: letter k of edge_batch stands for the token
@@ -837,7 +945,8 @@ def small_slice(work: Path) -> None:
 
 def read_counts() -> dict:
     from spacedust_tpu_torch.ops import sw_cuda
-    return {d: getattr(sw_cuda, k[2]) for d, k in KERNELS.items()}
+    return {**{d: getattr(sw_cuda, k[2]) for d, k in KERNELS.items()},
+            **{d: getattr(sw_cuda, k[1]) for d, k in B8_KERNELS.items()}}
 
 
 @contextlib.contextmanager
@@ -1668,17 +1777,76 @@ def recording_flushes(stages: dict):
         sw_sharded.ShardedAlignDB.flush = orig
 
 
+def check_block_edges(sub: torch.Tensor, errs: dict) -> None:
+    """The block path at every compiled width W and class R on
+    block_edge_batch (targets cut into two shards), every pair forced
+    onto it (sw_cuda.shard_plan(force=True, rows=R), handed to the
+    wrappers' launcher): forward with the planted ties where the design
+    puts them, reverse on the same pairs (terminate = their score) and on
+    the derived prefixes, all six outputs equal to the plain version."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.ops.sw import sw_shards_jobs_ref
+    dev = sub.device
+    tab = sub.cpu().numpy().astype(np.int32)
+    for warps in sw_cuda.BLOCK_WARP_CHOICES:
+        for rows in sw_cuda.LANE_ROWS:
+            q, b, t, jobs, expect = block_edge_batch(rows, warps, tab)
+            tparts, js = two_shards(t, jobs)
+            qd, bd = (torch.from_numpy(a).to(dev) for a in (q, b))
+            targets = sw_cuda.ShardTargets(
+                [torch.from_numpy(x).to(dev) for x in tparts])
+
+            def both(reverse, js6, what):
+                d = "rev_block" if reverse else "fwd_block"
+                got = sw_cuda._launch_shards(
+                    reverse, (qd, bd, targets, sub),
+                    sw_cuda.shard_plan(js6, reverse, warps, force=True,
+                                       rows=rows), GO, GE, warps=warps)
+                ref = sw_shards_jobs_ref(qd, bd, targets.tensors, sub, js6,
+                                         GO, GE, reverse)
+                errs[d] = max(errs[d], compare(
+                    f"block edges W={warps} R={rows} {what}", got, ref))
+                return got.cpu().numpy()
+
+            fwd = both(False, js, "fwd")
+            for p, want in expect.items():
+                if tuple(fwd[:3, p]) != want:
+                    fail(f"block edges W={warps} R={rows}: planted tie {p} "
+                         f"gave {tuple(fwd[:3, p])}, the design says {want}")
+            whole = js.copy()
+            whole[4] = fwd[0]
+            keep = np.nonzero(fwd[0] > 0)[0]
+            derived = js[:, keep].copy()
+            derived[1], derived[3], derived[4] = (fwd[2, keep] + 1,
+                                                  fwd[1, keep] + 1,
+                                                  fwd[0, keep])
+            both(True, whole, "rev whole")
+            got = both(True, np.ascontiguousarray(derived), "rev prefix")
+            if not got[3].all():
+                fail(f"block edges W={warps} R={rows}: a prefix job missed "
+                     f"its terminate score")
+        print(f"[sharded] block path W={warps}: every class on "
+              f"{jobs.shape[1]} edge pairs over two shards ({len(expect)} "
+              f"planted), forward and reverse, all six outputs equal")
+
+
 def shard_edge_grid(db, shards, rng, per_shard: int = 48) -> np.ndarray:
     """(5, D, B) forward grid: in every shard its first and last target
-    (the reverse pass reads a target backwards from its end point) and
-    random others, against random queries; shard-local target offsets."""
+    (the reverse pass reads a target backwards from its end point), each
+    of its giant genes (over 5,000 aa) against each giant gene of the set
+    as query, and random others, against random queries; shard-local
+    target offsets."""
     toffs = db.offsets
+    giants = np.nonzero(db.lengths > 5000)[0]
     grid = np.zeros((5, len(shards), per_shard), dtype=np.int64)
     for d, (s, e) in enumerate(shards):
         tk = np.concatenate([[s, e - 1, s, e - 1],
                              rng.integers(s, e, per_shard - 4)])
         qk = rng.integers(0, db.size, per_shard)
         qk[:2] = tk[:2]                      # each end target against itself
+        big = [(g, h) for h in giants if s <= h < e for g in giants]
+        for k, (g, h) in enumerate(big[:per_shard - 8]):
+            qk[4 + k], tk[4 + k] = g, h
         grid[0, d], grid[1, d] = db.offsets[qk], db.lengths[qk]
         grid[2, d] = toffs[tk] - toffs[s]
         grid[3, d] = db.lengths[tk]
@@ -1691,12 +1859,18 @@ def check_shard_grid(sdb, db, shards, errs: dict) -> int:
     (ShardedAlignDB.enqueue / flush / collect, global target offsets, all
     shards' jobs in one stage under shuffled positions), forward and then
     reverse from the forward end points, each shard's results against the
-    plain version over that shard's own resident tensors.  Then the same
-    without the first shard's jobs, so that the shard on whose card's
-    stream the stage is timed gets none.  Returns the pairs a shard."""
+    plain version over that shard's own resident tensors: planned as the
+    engine plans, then with every pair forced onto the block path at each
+    width W and class R.  Then, planned as the engine plans, without the
+    first shard's jobs, so that the shard on whose card's stream the
+    stage is timed gets none.  Returns the pairs a shard."""
+    from spacedust_tpu_torch.ops import sw_cuda
     rng = np.random.default_rng(SEED)
     grid = shard_edge_grid(db, shards, rng)
     n_sh, per = grid.shape[1:]
+    plans = [{}] + [dict(warps=w, force=True, rows=r)
+                    for w in sw_cuda.BLOCK_WARP_CHOICES
+                    for r in sw_cuda.LANE_ROWS]
     err = 0
     for first in (0, 1):
         glob = grid[:, first:].copy()
@@ -1712,90 +1886,187 @@ def check_shard_grid(sdb, db, shards, errs: dict) -> int:
                 got[:, p] = np.stack(c)
             return got[:, pos]                # back in job order
 
-        fwd = run(fcols, False)
-        rcols = [fcols[0], fwd[2] + 1, fcols[2], fwd[1] + 1, fwd[0]]
-        rev = run(rcols, True)
-        if not rev[3].all():
-            fail("sharded: a reverse job of the edge grid missed its "
-                 "terminate score")
-        for d in range(first, n_sh):
-            sl = slice((d - first) * per, (d - first + 1) * per)
-            for name, cols, got in (("fwd", fcols, fwd),
-                                    ("rev", rcols, rev)):
-                local = np.stack([c[sl] for c in cols])
-                local[2] -= sdb.tok_starts[d]
-                ref = plain(name)(*sdb.shards[d]._resident(),
-                                  np.ascontiguousarray(local), GO, GE)
-                ref = ref.cpu().numpy()
-                e = int(np.abs(got[:, sl] - ref).max())
-                if e > TOL or not np.array_equal(got[:, sl], ref):
-                    fail(f"sharded: shard {d} {name} on the edge grid "
-                         f"differs from the plain version (max abs err "
-                         f"{e})")
-                err = max(err, e)
-    errs["sharded"] = max(errs.get("sharded", 0), err)
+        refs = {}
+        for kw in (plans if first == 0 else plans[:1]):
+            sdb.plan_kw = kw
+            fwd = run(fcols, False)
+            rcols = [fcols[0], fwd[2] + 1, fcols[2], fwd[1] + 1, fwd[0]]
+            rev = run(rcols, True)
+            if not rev[3].all():
+                fail("sharded: a reverse job of the edge grid missed its "
+                     f"terminate score ({kw})")
+            for d in range(first, n_sh):
+                sl = slice((d - first) * per, (d - first + 1) * per)
+                for name, cols, got in (("fwd", fcols, fwd),
+                                        ("rev", rcols, rev)):
+                    if (d, name) not in refs:
+                        local = np.stack([c[sl] for c in cols])
+                        local[2] -= sdb.tok_starts[d]
+                        refs[d, name] = plain(name)(
+                            *sdb.resident(d), np.ascontiguousarray(local),
+                            GO, GE).cpu().numpy()
+                    ref = refs[d, name]
+                    e = int(np.abs(got[:, sl] - ref).max())
+                    if e > TOL or not np.array_equal(got[:, sl], ref):
+                        fail(f"sharded: shard {d} {name} on the edge grid "
+                             f"({kw or 'the engine plan'}) differs from the "
+                             f"plain version (max abs err {e})")
+                    err = max(err, e)
+    sdb.plan_kw = {}
+    for k in B8_KERNELS:
+        errs[k] = max(errs[k], err)
     return per
 
 
-def time_sharded_stage(d: str, stage: tuple, card: str) -> dict:
+def shard_cols(sdb, buf: list):
+    """A recorded stage's buffered jobs as the engine routes and orders
+    them (ShardedAlignDB.flush, one card): the (6, n) jobs (shard-local
+    toff, the shard in row 5), longest first, and their positions."""
+    cols = [np.concatenate([b[i] for b in buf]).astype(np.int64)
+            for i in range(6)]
+    shard = np.searchsorted(sdb.tok_starts, cols[2], side="right") - 1
+    js = np.stack(cols[:5] + [shard])
+    js[2] -= sdb.tok_starts[shard]
+    order = np.argsort(-(js[1] * js[3]))
+    return np.ascontiguousarray(js[:, order]), cols[5][order]
+
+
+def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
     """The largest sharded stage of direction d again, on the engine that
-    ran it: wall ms on the card (the events round the stage, from before
-    the first shard's launch to the end of the last shard's work, 3 runs
-    after a warm one) against the plain version shard by shard (host
-    clock), outputs equal, beside the bound of its cells."""
+    ran it: at the engine's width and at each compiled width W of the
+    block path, its wall on the card (the events round the stage, 3 runs
+    after a warm one) and the long-pair launch, the short launch and the
+    card's whole dispatch (the wrapper's events); outputs equal to the
+    plain version (host clock, the long pairs and the short pairs apart,
+    shard by shard); the stage's longest pair alone on one warp (the
+    single engine's kernel) and on the block path at each W.  Returns the
+    kernels line's entries of the stage's two kernels."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.ops.sw import sw_shards_jobs_ref
     sdb, buf, go, ge, n = stage
+    if len(sdb.cards) != 1:
+        fail("the sharded phase times a stage of one card")
     reverse = d == "rev"
+    js, pos = shard_cols(sdb, buf)
+    qdata, qbias, sub = sdb.queries[sdb.cards[0]]
+    targets = sdb.targets[0]
 
     def run():
         return sdb.collect(sdb.enqueue(buf, go, ge, reverse)
                            + sdb.flush(go, ge, reverse))
 
-    def by_pos(collected):
-        out = np.zeros((6, n), np.int64)
-        for pos, cols in collected:
-            out[:, pos] = np.stack(cols)
-        return out
-
-    got = by_pos(run())
-    w0 = sdb._stages["stage_wall_ms"]
-    for _ in range(3):
+    def walls(kw):
+        sdb.plan_kw = kw
         run()
-    wall = (sdb._stages["stage_wall_ms"] - w0) / 3
-    cols = [np.concatenate([b[i] for b in buf]).astype(np.int64)
-            for i in range(6)]
-    shard = np.searchsorted(sdb.tok_starts, cols[2], side="right") - 1
+        w0 = sdb._metrics["stage_wall_ms"]
+        for _ in range(3):
+            run()
+        wall = (sdb._metrics["stage_wall_ms"] - w0) / 3
+        evs = []
+        for _ in range(3):
+            ev: dict = {}
+            sw_cuda._run_shards(reverse, qdata, qbias, targets, sub, js, go,
+                                ge, ev, kw.get("warps", sw_cuda.BLOCK_WARPS),
+                                False, None)
+            evs.append(ev)
+        torch.cuda.synchronize()
+        ms = {k: sum(e[0].elapsed_time(e[1]) for e in (x[k] for x in evs))
+              / 3 for k in ("card", "long", "short") if k in evs[0]}
+        sdb.plan_kw = {}
+        return wall, ms
+
+    got = np.zeros((6, n), np.int64)
+    for p, c in run():
+        got[:, p] = np.stack(c)
+    got = got[:, pos]
+    plan = sw_cuda.shard_plan(js, reverse)
+    long_js = js[:, plan.order[:plan.n_long]]
+    short_js = js[:, plan.order[plan.n_long:]]
     ref = np.zeros((6, n), np.int64)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for s, db_s in enumerate(sdb.shards):
-        sel = np.nonzero(shard == s)[0]
-        js = np.stack([c[sel] for c in cols[:5]])
-        js[2] -= sdb.tok_starts[s]
-        ref[:, cols[5][sel]] = plain(d)(*db_s._resident(),
-                                        np.ascontiguousarray(js), go,
-                                        ge).cpu().numpy()
-    torch.cuda.synchronize()
-    p_ms = 1e3 * (time.perf_counter() - t0)
+    p_ms = {}
+    for part, cols in (("long", plan.order[:plan.n_long]),
+                       ("short", plan.order[plan.n_long:])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref[:, cols] = sw_shards_jobs_ref(
+            qdata, qbias, targets.tensors, sub,
+            np.ascontiguousarray(js[:, cols]), go, ge, reverse).cpu().numpy()
+        torch.cuda.synchronize()
+        p_ms[part] = 1e3 * (time.perf_counter() - t0)
     err = int(np.abs(got - ref).max())
     if err > TOL:
         fail(f"sharded {d} stage: kernels != plain (max abs err {err})")
-    js = np.stack(cols[:5])
-    b_ms, b_by = bound_ms(d, js)
-    per = [int((shard == s).sum()) for s in range(sdb.n_shards)]
+    per = np.bincount(js[5], minlength=sdb.n_shards).tolist()
+    b_ms, b_by = bound_ms(d, js[:5])
+    wall, ms = walls({})
     print(f"[sharded] {d} stage of the main path, {n} pairs over "
-          f"{sdb.n_shards} shards ({per}), {cells(js) / 1e9:.3f} G cells: "
-          f"wall on the card {wall:.2f} ms; plain shard by shard "
-          f"{p_ms:.2f} ms; bound {b_ms:.2f} ms by {b_by}; equal; {card}")
-    name = KERNELS[d][0]
-    return {"name": f"{name} over {sdb.n_shards} target shards (B8)",
-            "route": "cuda",
-            "source": "spacedust_tpu_torch/parallel/sw_sharded.py",
-            "kernel_source": "spacedust_tpu_torch/csrc/sw.cu",
-            "replaces": B8_REPLACES,
-            "launches": None, "max_abs_err": err, "ms": wall,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "share_of_bound": b_ms / wall,
-            "pairs": n, "pairs_per_shard": per, "cells": cells(js)}
+          f"{sdb.n_shards} shards ({per}), {cells(js) / 1e9:.3f} G cells, "
+          f"{plan.n_long} on the block path (W={sw_cuda.BLOCK_WARPS}): wall "
+          f"on the card {wall:.2f} ms; the card's dispatch {ms['card']:.2f} "
+          f"ms = long-pair launch {ms.get('long', 0):.2f} ms beside the "
+          f"short launch {ms.get('short', 0):.2f} ms; plain (long + short, "
+          f"shard by shard) {p_ms['long']:.2f} + {p_ms['short']:.2f} ms; "
+          f"bound {b_ms:.2f} ms by {b_by} ({b_ms / wall:.1%} of it "
+          f"reached); equal; {card}")
+    by_w = {}
+    for w in sw_cuda.BLOCK_WARP_CHOICES:
+        by_w[w] = walls({"warps": w})
+        print(f"[sharded] {d} stage at W={w}: wall {by_w[w][0]:.2f} ms; "
+              f"long-pair launch {by_w[w][1].get('long', 0):.2f} ms, short "
+              f"launch {by_w[w][1].get('short', 0):.2f} ms; {card}")
+    # the same pairs on the single engine's kernel, one launch over the
+    # shards' targets as one array (global offsets)
+    whole = torch.cat(targets.tensors)
+    glob = js[:5].copy()
+    glob[2] += sdb.tok_starts[js[5]]
+    k1_ms = launch_ms(getattr(sw_cuda, KERNELS[d][0]),
+                      (qdata, qbias, whole, sub, glob, go, ge))
+    print(f"[sharded] {d} stage's pairs on the single engine's "
+          f"{KERNELS[d][0]}, one launch, longest first: {k1_ms:.2f} ms; "
+          f"{card}")
+    # the stage's longest pair (by cells) alone
+    top = int(np.argmax(js[1] * js[3]))
+    one = np.ascontiguousarray(js[:, top:top + 1])
+    shard_res = (qdata, qbias, sdb.tparts[int(one[5, 0])], sub)
+    warp_ms = event_ms(lambda: sw_cuda._launch_warp(
+        reverse, shard_res, sw_cuda.warp_plan(
+            np.ascontiguousarray(one[:5]), sw_cuda.WARP_SCRATCH[reverse]),
+        go, ge))
+    block_ms = {w: event_ms(lambda w=w: sw_cuda._launch_shards(
+        reverse, (qdata, qbias, targets, sub),
+        sw_cuda.shard_plan(one, reverse, w, force=True), go, ge, warps=w))
+        for w in sw_cuda.BLOCK_WARP_CHOICES}
+    rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
+               for w in sw_cuda.BLOCK_WARP_CHOICES}
+    print(f"[sharded] {d} stage's longest pair ({int(one[1, 0])} x "
+          f"{int(one[3, 0])}, {int(one[1, 0] * one[3, 0]) / 1e6:.1f} M "
+          f"cells) alone: one warp {warp_ms:.2f} ms; block path "
+          + ", ".join(f"W={w} (R={rows_of[w]}) {t:.2f} ms"
+                      for w, t in block_ms.items())
+          + f"; {card}")
+    out = []
+    for kind, part, k_ms in (("block", long_js, ms.get("long")),
+                             ("shards", short_js, ms.get("short"))):
+        key = f"{d}_{kind}"
+        pb_ms, pb_by = bound_ms(d, part[:5]) if part.shape[1] else (0.0, "-")
+        out.append({
+            "name": B8_KERNELS[key][0], "route": "cuda",
+            "source": "spacedust_tpu_torch/csrc/sw.cu",
+            "replaces": B8_REPLACES, "launches": None, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms["long" if kind == "block"
+                                         else "short"],
+            "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None,
+            "share_of_bound": pb_ms / k_ms if k_ms else None,
+            "pairs": int(part.shape[1]), "cells": cells(part),
+            "block_warps": sw_cuda.BLOCK_WARPS,
+            "stage_wall_ms": wall, "stage_bound_ms": b_ms,
+            "stage_share_of_bound": b_ms / wall,
+            "stage_wall_ms_by_warps": {w: v[0] for w, v in by_w.items()},
+            "single_engine_one_launch_ms": k1_ms,
+            "longest_pair_one_warp_ms": warp_ms,
+            "longest_pair_block_ms_by_warps": block_ms,
+            "pairs_per_shard": per})
+    return out
 
 
 def sharded_phase(work: Path, dev: torch.device, errs: dict,
@@ -1857,21 +2128,34 @@ def sharded_phase(work: Path, dev: torch.device, errs: dict,
     equal_to_real("sharded", res.tsv, fx)
     det = res.timings["search_detail"]
     ad = det["align_detail"]
+    # one card: each stage is one short launch over all shards, plus one
+    # long-pair launch when the stage has such pairs
     for d in ("fwd", "rev"):
-        if min(ad[f"shard_{d}_launches"]) <= 0:
-            fail(f"sharded: a shard launched no {d} kernel: "
-                 f"{ad[f'shard_{d}_launches']}")
+        if min(ad[f"shard_{d}_pairs"]) <= 0:
+            fail(f"sharded: a shard got no {d} pair in its card's launches: "
+                 f"{ad[f'shard_{d}_pairs']}")
+        if launches[f"{d}_shards"] <= 0 or launches[f"{d}_block"] <= 0:
+            fail(f"sharded: the {d} stage did not launch both of its "
+                 f"kernels: {launches}")
+    if ad["cards"] != 1 or launches["fwd_shards"] + launches["rev_shards"] \
+            != ad["stages"] or max(launches["fwd_block"],
+                                   launches["rev_block"]) > ad["stages"]:
+        fail(f"sharded: {ad['stages']} stages on {ad['cards']} card(s) "
+             f"took launches {launches}; one short launch a stage and card "
+             f"expected")
     print(f"[sharded] real over {SHARDS} shards on {dev}: clustersearch "
           f"{t_search:.2f} s = search {res.timings['search']:.2f} "
           f"(prefilter {det['prefilter_s']:.2f}, align {det['align_s']:.2f}) "
           f"+ aggregate {res.timings['aggregate']:.2f}; launches {launches}; "
           f"{ad['stages']} stages, wall on the card {ad['stage_wall_ms']:.2f} "
-          f"ms; per shard: fwd launches {ad['shard_fwd_launches']}, pairs "
-          f"{ad['shard_fwd_pairs']}, kernel ms "
-          f"{[round(x, 2) for x in ad['shard_fwd_kernel_ms']]}; rev launches "
-          f"{ad['shard_rev_launches']}, pairs {ad['shard_rev_pairs']}, kernel "
-          f"ms {[round(x, 2) for x in ad['shard_rev_kernel_ms']]}; equal to "
-          f"torch_port_real.json; {card}")
+          f"ms; per card: fwd launches {ad['card_fwd_launches']}, block "
+          f"pairs {ad['card_fwd_block_pairs']}, kernel ms "
+          f"{[round(x, 2) for x in ad['card_fwd_kernel_ms']]}; rev launches "
+          f"{ad['card_rev_launches']}, block pairs "
+          f"{ad['card_rev_block_pairs']}, kernel ms "
+          f"{[round(x, 2) for x in ad['card_rev_kernel_ms']]}; pairs per "
+          f"shard fwd {ad['shard_fwd_pairs']}, rev {ad['shard_rev_pairs']}; "
+          f"equal to torch_port_real.json; {card}")
     print(f"[sharded] align detail {json.dumps(ad)}")
 
     mat = load_substitution_matrix()
@@ -1885,24 +2169,33 @@ def sharded_phase(work: Path, dev: torch.device, errs: dict,
     sdb = ShardedAlignDB(make_mesh(SHARDS, dev), db.seq_data, qbias,
                          db.seq_data, [(int(toffs[s]), int(toffs[e]))
                                        for s, e in shards], mat.sub_int)
+    t0 = time.perf_counter()
     n = check_shard_grid(sdb, db, shards, errs)
     print(f"[sharded] edge grid through enqueue / flush / collect: {n} "
-          f"pairs a shard (its first and last target among them), forward "
-          f"and reverse, and again without shard 0's pairs; every shard "
-          f"equal to the plain version")
-    report = [time_sharded_stage(d, stages[d], card) for d in ("fwd", "rev")]
-    for entry, d in zip(report, ("fwd", "rev")):
-        entry["launches"] = launches[d]
-        entry["max_abs_err"] = max(entry["max_abs_err"], errs["sharded"])
-        entry["shard_launches"] = ad[f"shard_{d}_launches"]
-        entry["stage_wall_ms_main_path"] = ad["stage_wall_ms"]
+          f"pairs a shard (its first and last target and its giant genes "
+          f"among them), forward and reverse, planned as the engine plans "
+          f"and forced onto the block path at every width and class, and "
+          f"again without shard 0's pairs; every shard equal to the plain "
+          f"version ({time.perf_counter() - t0:.1f} s)")
+    check_block_edges(torch.from_numpy(mat.sub_int.astype(np.int8)).to(dev),
+                      errs)
+    report = []
+    for d in ("fwd", "rev"):
+        for entry in time_sharded_stage(d, stages[d], card):
+            key = f"{d}_{'block' if 'block' in entry['name'] else 'shards'}"
+            entry["launches"] = launches[key]
+            entry["max_abs_err"] = max(entry["max_abs_err"], errs[key])
+            entry["card_launches"] = ad[f"card_{d}_launches"]
+            entry["stage_wall_ms_main_path"] = ad["stage_wall_ms"]
+            report.append(entry)
     return launches, report
 
 
 def multihost_phase(work: Path) -> dict:
     """clustersearch of the real set as 2 worker processes of 2 target
     shards each, all on the card (parallel/multihost.py::run_multihost):
-    equal to torch_port_real.json; each worker must launch K1 and K2.
+    equal to torch_port_real.json; each worker must launch the sharded
+    stage's short kernels (the 2 shards of a rank share its card).
     Returns the workers' launch counts summed."""
     from spacedust_tpu_torch.parallel.multihost import run_multihost
     from spacedust_tpu_torch.workflow.clustersearch import ClusterSearchParams
@@ -1914,19 +2207,25 @@ def multihost_phase(work: Path) -> dict:
                   tmp_dir=str(tmp), local_devices=2, device="cuda")
     t_run = time.perf_counter() - t0
     equal_to_real("multihost", out.read_text(), fx)
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys([*KERNELS, *B8_KERNELS], 0)
     for r in range(2):
         m = json.loads((tmp / f"metrics.{r}.json").read_text())
         lc = {d: m["launches"][KERNELS[d][2]] for d in KERNELS}
-        if lc["fwd"] <= 0 or lc["rev"] <= 0:
-            fail(f"multihost: rank {r} did not launch K1 and K2: {lc}")
-        for d in KERNELS:
+        ld = {k: m["launches"][v[1]] for k, v in B8_KERNELS.items()}
+        if ld["fwd_shards"] <= 0 or ld["rev_shards"] <= 0:
+            fail(f"multihost: rank {r} did not launch the sharded stage's "
+                 f"kernels: {ld}")
+        lc.update(ld)
+        for d in total:
             total[d] += lc[d]
         ad = m["align_detail"]
         print(f"[multihost] rank {r}: search {m['search_s']:.2f} s; "
-              f"launches {lc}; shard fwd launches "
-              f"{ad['shard_fwd_launches']}, rev {ad['shard_rev_launches']}; "
-              f"stage wall {ad['stage_wall_ms']:.2f} ms")
+              f"launches {lc}; card fwd launches "
+              f"{ad['card_fwd_launches']} ({ad['card_fwd_block_pairs']} "
+              f"block pairs), rev {ad['card_rev_launches']} "
+              f"({ad['card_rev_block_pairs']}); pairs per shard fwd "
+              f"{ad['shard_fwd_pairs']}, rev {ad['shard_rev_pairs']}; stage "
+              f"wall {ad['stage_wall_ms']:.2f} ms")
     print(f"[multihost] real, 2 processes x 2 shards on one card: "
           f"{t_run:.2f} s from launch to rank 0's TSV; equal to "
           f"torch_port_real.json")
@@ -2210,7 +2509,7 @@ def main(argv: list | None = None) -> int:
 
     sub = torch.from_numpy(
         load_substitution_matrix().sub_int.astype(np.int8)).to(dev)
-    errs = dict.fromkeys(KERNELS, 0)
+    errs = dict.fromkeys([*KERNELS, *B8_KERNELS], 0)
     launches: dict = {}
     stages: dict = {}
     if "kernels" in phases:
@@ -2276,14 +2575,20 @@ def main(argv: list | None = None) -> int:
         entry["launches_iterative"] = it_launches[d]
         entry["launches_split"] = split_launches[d]
         # the sharded clustersearch (in this process and as 2 workers of
-        # 2 shards) and the clustersearch over the GFF ingest, real size
+        # 2 shards: the sharded kernels, none of these) and the
+        # clustersearch over the GFF ingest, real size
         entry["launches_sharded"] = sh_launches[d]
         entry["launches_multihost"] = mh_launches[d]
         entry["launches_gff"] = gff_launches[d]
-        for path, n in (("sharded", sh_launches), ("multihost", mh_launches),
-                        ("gff", gff_launches)):
-            if d in ("fwd", "rev") and n[d] <= 0:
-                fail(f"the {path} path did not launch {entry['name']}")
+        if d in ("fwd", "rev") and gff_launches[d] <= 0:
+            fail(f"the gff path did not launch {entry['name']}")
+    # the sharded kernels: their launches in this process's sharded run
+    # (checked in the sharded phase) and in the 2 workers
+    for entry in b8:
+        key = next(k for k, v in B8_KERNELS.items() if v[0] == entry["name"])
+        entry["launches_multihost"] = mh_launches[key]
+        if mh_launches[key] <= 0:
+            fail(f"the multihost path did not launch {entry['name']}")
     report += b8
 
     print(json.dumps({"kernels": report}))

@@ -6,7 +6,10 @@
 //   * sw_reverse: ops/sw_pallas.py::_kernel (per_column=True) -- the same DP
 //     on the flipped prefixes, with the per-column max and the terminate
 //     tracker that gives the alignment start;
-//   * both kernels also take over ops/sw_engine.py::panel_gather: they read
+//   * sw_forward_shards / sw_reverse_shards (and their block path):
+//     parallel/sw_sharded.py::_sharded_bucket_fn, the target-sharded
+//     stage (see below);
+//   * the kernels also take over ops/sw_engine.py::panel_gather: they read
 //     query tokens, the int8 composition bias and target tokens straight
 //     from the resident 1-D arrays at per-pair int64 offsets (forward or
 //     flipped), so there are no panels, no alignment padding and no
@@ -119,9 +122,58 @@
 //   * A block is 4 warps = 4 pairs; the engine orders a stage longest
 //     pair first, so the hardware's in-order block dispatch ends a launch
 //     on its short pairs.
+//
+// The target-sharded stage (spacedust_tpu/parallel/sw_sharded.py::
+// _sharded_bucket_fn, the shard_map of the SW over the `targets` axis):
+// each shard keeps only its own targets resident.  sw_forward_shards /
+// sw_reverse_shards score a card's stage over all of its shards in one
+// launch of the sequence body (sw_shards_kernel: the job table's eighth
+// row is the pair's shard, whose tokens start at tbase[shard], toff
+// shard-local), the pairs sorted longest first across the shards; the
+// few pairs that would outlast an even share of the stage on one warp
+// (ops/sw_cuda.py::shard_plan) take the block path, sw_forward_shards_
+// block / sw_reverse_shards_block (sw_block_kernel<kReverse, W>, a block
+// of W warps a pair), launched first on a side stream so that its blocks
+// are resident before the short launch fills the card.
+//   * Why: a lone warp floors a stage at its longest pair (~21.5 ms for
+//     5,917 x 5,496), while one SM could run ~10.6 G reverse cells/s (64
+//     int32 lanes x 1.98 GHz / 12).  Warp w of the block sweeps strips
+//     w, w + W, ... with the lone warp's sweep (sw_strips), behind the
+//     warp of the strip before.  R for such a pair minimises
+//     ceil(strips / W) * (R + 3) (ops/sw_cuda.py::block_rows): a smaller
+//     R gives more strips to share.
+//   * The boundary lane 31 hands to the next strip goes to a ring of two
+//     slots of tlen columns a pair in global scratch: strip k writes slot
+//     k % 2 and reads slot (k - 1) % 2.  Every 32 columns, and at the
+//     last, lane 31 publishes how many 32-column chunks its warp has
+//     written over all of its strips (__threadfence_block, then a
+//     block-scope release store to the warp's counter in shared memory);
+//     before it loads the chunk of columns c0 .. c0 + 31, every lane of a
+//     warp waits (block-scope acquire loads, __nanosleep back-off) until
+//     the warp of strip k - 1 has published that chunk.  The chunk feed
+//     reads 32 to 63 columns ahead of its step and lane 31 writes column
+//     j at step j + 31, so a strip runs at least 94 steps behind the one
+//     above (its first load, of columns 0-31, waits for that strip's step
+//     62).  Two slots are enough: strip k + 2, which overwrites slot
+//     k % 2, reads what strip k + 1 writes and so cannot pass it, and
+//     strip k + 1 has read a column of slot k % 2 before it writes that
+//     column of its own slot.  (One slot would do as well, by the
+//     in-place argument above, as the numpy model of this schedule in
+//     tests/test_torch_sw_block.py shows; the ring keeps a strip's input
+//     and output apart.)
+//   * Forward: each warp merges its lanes as a lone warp does, then the
+//     warps' (score, j, i) merge through shared memory in full
+//     lexicographic order (strips interleave over the warps, so a warp's
+//     index says nothing of its rows), after a named barrier (bar.sync 1,
+//     32 W) that every warp reaches, with or without a strip.  Reverse:
+//     lane 31 of the warp of the last strip ran the trackers and writes.
+//   * W in {4, 8, 16} is a template argument; __launch_bounds__(32 W,
+//     16 / W) keeps a thread at 128 registers whatever W, so R = 16 holds
+//     its rows without spilling.
 
 #include <cstdint>
 #include <type_traits>
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
@@ -160,18 +212,75 @@ __device__ void load_table(int8_t* s_tab, const int8_t* tab, int alpha) {
 template <bool kReverse> struct Boundary { using type = int2; };
 template <> struct Boundary<true> { using type = int4; };
 
-// One pair on the calling warp, R query rows a lane; writes the pair's six
-// outputs at out[. * out_stride].  s_tab: the first channel's table, then
-// (kStructCell) the second's; kProfCell: the warp's profile region, and
-// qdata the resident int8 profile rows.
-template <bool kReverse, int kCell, int R>
-__device__ __forceinline__ void sw_warp_pair(
+// How the boundary lane 31 leaves after a column reaches lane 0 of the
+// next strip.  InPlace: one warp sweeps the strips in order and strip
+// k + 1 reads column c where strip k left it.
+template <bool kReverse>
+struct InPlace {
+  using B = typename Boundary<kReverse>::type;
+  B* bnd;
+  __device__ __forceinline__ int first() const { return 0; }
+  static constexpr int kStride = 1;
+  __device__ __forceinline__ B* in(int) const { return bnd; }
+  __device__ __forceinline__ B* out(int) const { return bnd; }
+  __device__ __forceinline__ void wait(int, int) const {}
+  __device__ __forceinline__ void publish(int, int) const {}
+};
+
+// The block path: warp w of W sweeps strips w, w + W, ...; strip k
+// writes slot k % 2 of a ring of two slots of tlen columns and reads slot
+// (k - 1) % 2.  prog[w] counts the 32-column chunks warp w has published,
+// over all of its strips (strip k is its (k / W)-th).
+template <bool kReverse, int W>
+struct Ring {
+  using B = typename Boundary<kReverse>::type;
+  B* ring;
+  int* prog;                           // shared memory, W counters
+  int tlen, nchunks, warp;
+  __device__ __forceinline__ int first() const { return warp; }
+  static constexpr int kStride = W;
+  __device__ __forceinline__ B* in(int strip) const {
+    return ring + static_cast<int64_t>((strip - 1) & 1) * tlen;
+  }
+  __device__ __forceinline__ B* out(int strip) const {
+    return ring + static_cast<int64_t>(strip & 1) * tlen;
+  }
+  // before a chunk of columns [c0, c0 + 32) is loaded: until strip - 1
+  // has written all of them (all lanes wait, so that each lane's loads
+  // follow its own acquire)
+  __device__ __forceinline__ void wait(int strip, int c0) const {
+    if (strip == 0 || c0 >= tlen) return;
+    const int need = ((strip - 1) / W) * nchunks + (c0 >> 5) + 1;
+    cuda::atomic_ref<int, cuda::thread_scope_block> p(prog[(strip - 1) % W]);
+    int ns = 32;
+    while (p.load(cuda::memory_order_acquire) < need) {
+      __nanosleep(ns);
+      if (ns < 1024) ns *= 2;
+    }
+  }
+  // lane 31, after writing column j: every 32 columns and at the last
+  __device__ __forceinline__ void publish(int strip, int j) const {
+    if ((j & 31) != 31 && j != tlen - 1) return;
+    __threadfence_block();
+    cuda::atomic_ref<int, cuda::thread_scope_block>(prog[warp]).store(
+        (strip / W) * nchunks + (j >> 5) + 1, cuda::memory_order_release);
+  }
+};
+
+// The strips of one pair that the calling warp sweeps (all of them for a
+// lone warp), R query rows a lane.  Carries, for the forward pass, this
+// lane's best (lb, lj, li) over its strips, and for the reverse pass the
+// trackers of lane 31 of the last strip.  s_tab: the first channel's
+// table, then (kStructCell) the second's; kProfCell: the warp's profile
+// region, and qdata the resident int8 profile rows.
+template <bool kReverse, int kCell, int R, typename Link>
+__device__ __forceinline__ void sw_strips(
     const int8_t* s_tab, const uint8_t* __restrict__ qdata,
     const int8_t* __restrict__ qbias, const uint8_t* __restrict__ tdata,
     const uint8_t* __restrict__ qdata2, const uint8_t* __restrict__ tdata2,
     int64_t qoff, int qlen, int64_t toff, int tlen, int term, int go,
-    int ge, typename Boundary<kReverse>::type* __restrict__ bnd,
-    int32_t* __restrict__ out, int64_t out_stride) {
+    int ge, const Link& link, int& lb, int& lj, int& li, int& best,
+    int& bj, int& bi, int& found, int& fj, int& fi) {
   constexpr bool kStruct = kCell == kStructCell;
   constexpr bool kProf = kCell == kProfCell;
   const int lane = threadIdx.x & 31;
@@ -187,13 +296,12 @@ __device__ __forceinline__ void sw_warp_pair(
                                   : 4 * g;
   }
 
-  int lb = 0, lj = -1, li = 0;         // forward: this lane's best so far
-  int best = 0, bj = -1, bi = 0;       // reverse: lane 31, last strip
-  int found = 0, fj = -1, fi = 0;
-
-  for (int i0 = 0; i0 < qlen; i0 += 32 * R) {
+  for (int strip = link.first(), i0 = strip * 32 * R; i0 < qlen;
+       strip += Link::kStride, i0 += Link::kStride * 32 * R) {
     const bool first = (i0 == 0);
     const bool last = (qlen - i0 <= 32 * R);
+    const auto* bin = link.in(strip);
+    auto* bout = link.out(strip);
     const int r0 = i0 + lane * R;      // this lane's first row
     const int nvalid = min(max(qlen - r0, 0), R);
     int qt[kProf ? 1 : R], qt2[kStruct ? R : 1], qb[kProf ? 1 : R];
@@ -231,15 +339,16 @@ __device__ __forceinline__ void sw_warp_pair(
         if constexpr (kStruct) ntok |= tdata2[tj] << 8;
         if (!first) {
           if constexpr (kReverse) {
-            nb = bnd[c];
+            nb = bin[c];
           } else {
-            const int2 b = bnd[c];
+            const int2 b = bin[c];
             nb = make_int4(b.x, b.y, -1, 0);
           }
         }
       }
     };
     __syncwarp();                      // the previous strip's stores
+    link.wait(strip, 0);
     load_chunk(lane);
     const int nsteps = tlen + 31;
     for (int s = 0; s < nsteps; ++s) {
@@ -248,6 +357,7 @@ __device__ __forceinline__ void sw_warp_pair(
         ctok = ntok;
         cb = nb;
         __syncwarp();
+        link.wait(strip, s + 32);
         load_chunk(s + 32 + lane);
       }
       int tok = __shfl_up_sync(kFull, tok_o, 1);
@@ -320,10 +430,11 @@ __device__ __forceinline__ void sw_warp_pair(
         if (lane == 31) {
           if (!last) {
             if constexpr (kReverse) {
-              bnd[j] = make_int4(h_o, f_o, cmax, ci);
+              bout[j] = make_int4(h_o, f_o, cmax, ci);
             } else {
-              bnd[j] = make_int2(h_o, f_o);
+              bout[j] = make_int2(h_o, f_o);
             }
+            link.publish(strip, j);
           } else if (kReverse) {
             if (cmax > best) { best = cmax; bj = j; bi = ci; }
             if (!found && cmax == term) { found = 1; fj = j; fi = ci; }
@@ -337,21 +448,26 @@ __device__ __forceinline__ void sw_warp_pair(
       lb = sb; lj = sj; li = si;
     }
   }
-  if constexpr (kReverse) {
-    if (lane != 31) return;
-  } else {
+}
+
+// The warp's lanes' (score, j, i) merged lexicographically (score, then
+// smaller j, then smaller i); every lane ends with the result.
+__device__ __forceinline__ void warp_merge(int& lb, int& lj, int& li) {
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const int ob = __shfl_xor_sync(kFull, lb, d);
-      const int oj = __shfl_xor_sync(kFull, lj, d);
-      const int oi = __shfl_xor_sync(kFull, li, d);
-      if (ob > lb || (ob == lb && (oj < lj || (oj == lj && oi < li)))) {
-        lb = ob; lj = oj; li = oi;
-      }
+  for (int d = 16; d > 0; d >>= 1) {
+    const int ob = __shfl_xor_sync(kFull, lb, d);
+    const int oj = __shfl_xor_sync(kFull, lj, d);
+    const int oi = __shfl_xor_sync(kFull, li, d);
+    if (ob > lb || (ob == lb && (oj < lj || (oj == lj && oi < li)))) {
+      lb = ob; lj = oj; li = oi;
     }
-    if (lane != 0) return;
-    best = lb; bj = lj; bi = li;
   }
+}
+
+__device__ __forceinline__ void write_out(int32_t* __restrict__ out,
+                                          int64_t out_stride, int best,
+                                          int bj, int bi, int found, int fj,
+                                          int fi) {
   out[0] = best;
   out[out_stride] = bj;
   out[2 * out_stride] = bi;
@@ -360,9 +476,109 @@ __device__ __forceinline__ void sw_warp_pair(
   out[5 * out_stride] = fi;
 }
 
+// One pair on the calling warp, R query rows a lane; writes the pair's six
+// outputs at out[. * out_stride].
+template <bool kReverse, int kCell, int R>
+__device__ __forceinline__ void sw_warp_pair(
+    const int8_t* s_tab, const uint8_t* __restrict__ qdata,
+    const int8_t* __restrict__ qbias, const uint8_t* __restrict__ tdata,
+    const uint8_t* __restrict__ qdata2, const uint8_t* __restrict__ tdata2,
+    int64_t qoff, int qlen, int64_t toff, int tlen, int term, int go,
+    int ge, typename Boundary<kReverse>::type* __restrict__ bnd,
+    int32_t* __restrict__ out, int64_t out_stride) {
+  int lb = 0, lj = -1, li = 0;         // forward: this lane's best so far
+  int best = 0, bj = -1, bi = 0;       // reverse: lane 31, last strip
+  int found = 0, fj = -1, fi = 0;
+  sw_strips<kReverse, kCell, R>(s_tab, qdata, qbias, tdata, qdata2, tdata2,
+                                qoff, qlen, toff, tlen, term, go, ge,
+                                InPlace<kReverse>{bnd}, lb, lj, li, best, bj,
+                                bi, found, fj, fi);
+  const int lane = threadIdx.x & 31;
+  if constexpr (kReverse) {
+    if (lane != 31) return;
+  } else {
+    warp_merge(lb, lj, li);
+    if (lane != 0) return;
+    best = lb; bj = lj; bi = li;
+  }
+  write_out(out, out_stride, best, bj, bi, found, fj, fi);
+}
+
+// One pair on the block's W warps (the block path), R query rows a lane:
+// warp w sweeps strips w, w + W, ... behind the warp of the strip before
+// (Ring); ring: the pair's two slots of tlen boundary columns; prog and
+// s_best: W ints and W int3 of shared memory, prog zeroed before.  Every
+// warp reaches the forward merge's barrier, with or without a strip.
+template <bool kReverse, int kCell, int R, int W>
+__device__ __forceinline__ void sw_block_pair(
+    const int8_t* s_tab, const uint8_t* __restrict__ qdata,
+    const int8_t* __restrict__ qbias, const uint8_t* __restrict__ tdata,
+    int64_t qoff, int qlen, int64_t toff, int tlen, int term, int go,
+    int ge, typename Boundary<kReverse>::type* ring, int* prog,
+    int3* s_best, int32_t* __restrict__ out, int64_t out_stride) {
+  static_assert(kCell == kSeqCell, "the block path serves the sequence cell");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int lb = 0, lj = -1, li = 0;
+  int best = 0, bj = -1, bi = 0;
+  int found = 0, fj = -1, fi = 0;
+  sw_strips<kReverse, kCell, R>(
+      s_tab, qdata, qbias, tdata, nullptr, nullptr, qoff, qlen, toff, tlen,
+      term, go, ge, Ring<kReverse, W>{ring, prog, tlen, (tlen + 31) >> 5, warp},
+      lb, lj, li, best, bj, bi, found, fj, fi);
+  if constexpr (kReverse) {
+    // lane 31 of the warp of the last strip ran the trackers
+    const int strips = (qlen + 32 * R - 1) / (32 * R);
+    if (warp != (strips - 1) % W || lane != 31) return;
+  } else {
+    // strips interleave over the warps: the whole (score, j, i) decides
+    warp_merge(lb, lj, li);
+    if (lane == 0) s_best[warp] = make_int3(lb, lj, li);
+    asm volatile("bar.sync 1, %0;" ::"r"(32 * W) : "memory");
+    if (threadIdx.x != 0) return;
+    for (int w = 1; w < W; ++w) {
+      const int3 o = s_best[w];
+      if (o.x > lb || (o.x == lb && (o.y < lj || (o.y == lj && o.z < li)))) {
+        lb = o.x; lj = o.y; li = o.z;
+      }
+    }
+    best = lb; bj = lj; bi = li;
+  }
+  write_out(out, out_stride, best, bj, bi, found, fj, fi);
+}
+
+// A job of the table: pair p on the calling warp, its targets in tdata.
 // jobs rows: qoff, qlen, toff, tlen, terminate, rows (the pair's class R),
 // soff (its first boundary column in `scratch`; read only when
 // qlen > 32 * R).
+template <bool kReverse, int kCell>
+__device__ __forceinline__ void warp_job(
+    const int8_t* s_warp, const uint8_t* __restrict__ qdata,
+    const int8_t* __restrict__ qbias, const uint8_t* __restrict__ tdata,
+    const Second& ch2, const int64_t* __restrict__ jobs, int64_t job_stride,
+    int p, int go, int ge, void* __restrict__ scratch,
+    int32_t* __restrict__ out, int64_t out_stride) {
+  const int64_t qoff = jobs[p];
+  const int qlen = static_cast<int>(jobs[job_stride + p]);
+  const int64_t toff = jobs[2 * job_stride + p];
+  const int tlen = static_cast<int>(jobs[3 * job_stride + p]);
+  const int term = static_cast<int>(jobs[4 * job_stride + p]);
+  const int rows = static_cast<int>(jobs[5 * job_stride + p]);
+  auto* bnd = static_cast<typename Boundary<kReverse>::type*>(scratch) +
+              (qlen > 32 * rows ? jobs[6 * job_stride + p] : 0);
+  auto run = [&](auto r) {
+    sw_warp_pair<kReverse, kCell, decltype(r)::value>(
+        s_warp, qdata, qbias, tdata, ch2.qdata, ch2.tdata, qoff, qlen, toff,
+        tlen, term, go, ge, bnd, out + p, out_stride);
+  };
+  // warp-uniform: the wrapper writes one of these classes
+  switch (rows) {
+    case 4: run(std::integral_constant<int, 4>{}); break;
+    case 8: run(std::integral_constant<int, 8>{}); break;
+    case 12: run(std::integral_constant<int, 12>{}); break;
+    case 16: run(std::integral_constant<int, 16>{}); break;
+  }
+}
+
 template <bool kReverse, int kCell>
 __global__ void __launch_bounds__(32 * kWarps, kCell == kStructCell ? 3 : 4)
 sw_warp_kernel(const uint8_t* __restrict__ qdata,
@@ -383,23 +599,70 @@ sw_warp_kernel(const uint8_t* __restrict__ qdata,
 
   const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (p >= n) return;                  // the whole warp leaves
+  const int8_t* s_warp =
+      kCell == kProfCell ? s_tab + (threadIdx.x >> 5) * kProfRegion : s_tab;
+  warp_job<kReverse, kCell>(s_warp, qdata, qbias, tdata, ch2, jobs,
+                            job_stride, p, go, ge, scratch, out, out_stride);
+}
+
+// The target-sharded stage of a card (B8), its short pairs: the sequence
+// kernel over jobs from all of the card's shards, pair p's targets in
+// shard jobs[7][p], whose tokens start at tbase[shard] (toff shard-local).
+template <bool kReverse>
+__global__ void __launch_bounds__(32 * kWarps, 4)
+sw_shards_kernel(const uint8_t* __restrict__ qdata,
+                 const int8_t* __restrict__ qbias,
+                 const uint8_t* const* __restrict__ tbase,
+                 const int8_t* __restrict__ sub, int alpha,
+                 const int64_t* __restrict__ jobs, int64_t job_stride,
+                 int n, int go, int ge, void* __restrict__ scratch,
+                 int32_t* __restrict__ out, int64_t out_stride) {
+  __shared__ int8_t s_tab[kTable];
+  load_table(s_tab, sub, alpha);
+  __syncthreads();
+  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= n) return;
+  warp_job<kReverse, kSeqCell>(s_tab, qdata, qbias,
+                               tbase[jobs[7 * job_stride + p]], Second{},
+                               jobs, job_stride, p, go, ge, scratch, out,
+                               out_stride);
+}
+
+// Its long pairs (the block path): block p sweeps pair p on W warps.
+// jobs rows as above; soff is the pair's ring, two slots of tlen columns.
+// At most 128 registers a thread whatever W, as the warp kernels.
+template <bool kReverse, int W>
+__global__ void __launch_bounds__(32 * W, 16 / W)
+sw_block_kernel(const uint8_t* __restrict__ qdata,
+                const int8_t* __restrict__ qbias,
+                const uint8_t* const* __restrict__ tbase,
+                const int8_t* __restrict__ sub, int alpha,
+                const int64_t* __restrict__ jobs, int64_t job_stride, int n,
+                int go, int ge, void* scratch, int32_t* __restrict__ out,
+                int64_t out_stride) {
+  __shared__ int8_t s_tab[kTable];
+  __shared__ int s_prog[W];
+  __shared__ int3 s_best[W];
+  load_table(s_tab, sub, alpha);
+  if (threadIdx.x < W) s_prog[threadIdx.x] = 0;
+  __syncthreads();
+  const int p = blockIdx.x;
+  if (p >= n) return;                  // the whole block leaves
   const int64_t qoff = jobs[p];
   const int qlen = static_cast<int>(jobs[job_stride + p]);
   const int64_t toff = jobs[2 * job_stride + p];
   const int tlen = static_cast<int>(jobs[3 * job_stride + p]);
   const int term = static_cast<int>(jobs[4 * job_stride + p]);
   const int rows = static_cast<int>(jobs[5 * job_stride + p]);
-  auto* bnd = static_cast<typename Boundary<kReverse>::type*>(scratch) +
-              (qlen > 32 * rows ? jobs[6 * job_stride + p] : 0);
-  // warp-uniform: the wrapper writes one of these classes
-  const int8_t* s_warp =
-      kCell == kProfCell ? s_tab + (threadIdx.x >> 5) * kProfRegion : s_tab;
+  const uint8_t* tdata = tbase[jobs[7 * job_stride + p]];
+  auto* ring = static_cast<typename Boundary<kReverse>::type*>(scratch) +
+               (qlen > 32 * rows ? jobs[6 * job_stride + p] : 0);
   auto run = [&](auto r) {
-    sw_warp_pair<kReverse, kCell, decltype(r)::value>(
-        s_warp, qdata, qbias, tdata, ch2.qdata, ch2.tdata, qoff, qlen, toff,
-        tlen, term, go, ge, bnd, out + p, out_stride);
+    sw_block_pair<kReverse, kSeqCell, decltype(r)::value, W>(
+        s_tab, qdata, qbias, tdata, qoff, qlen, toff, tlen, term, go, ge,
+        ring, s_prog, s_best, out + p, out_stride);
   };
-  switch (rows) {
+  switch (rows) {                      // block-uniform
     case 4: run(std::integral_constant<int, 4>{}); break;
     case 8: run(std::integral_constant<int, 8>{}); break;
     case 12: run(std::integral_constant<int, 12>{}); break;
@@ -426,6 +689,57 @@ int launch_warp(const void* qdata, const void* qbias, const void* tdata,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kReverse>
+int launch_shards(const void* qdata, const void* qbias, const void* tbase,
+                  const void* sub, int alpha, const void* jobs,
+                  long long job_stride, int n, int go, int ge, void* scratch,
+                  void* out, long long out_stride, void* stream) {
+  if (n <= 0) return 0;
+  if (alpha > kAlphaPad) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + kWarps - 1) / kWarps;
+  sw_shards_kernel<kReverse><<<blocks, 32 * kWarps, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(qdata), static_cast<const int8_t*>(qbias),
+      static_cast<const uint8_t* const*>(tbase),
+      static_cast<const int8_t*>(sub), alpha,
+      static_cast<const int64_t*>(jobs), job_stride, n, go, ge, scratch,
+      static_cast<int32_t*>(out), out_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kReverse, int W>
+void launch_block_w(const void* qdata, const void* qbias, const void* tbase,
+                    const void* sub, int alpha, const void* jobs,
+                    long long job_stride, int n, int go, int ge,
+                    void* scratch, void* out, long long out_stride,
+                    void* stream) {
+  sw_block_kernel<kReverse, W><<<n, 32 * W, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(qdata), static_cast<const int8_t*>(qbias),
+      static_cast<const uint8_t* const*>(tbase),
+      static_cast<const int8_t*>(sub), alpha,
+      static_cast<const int64_t*>(jobs), job_stride, n, go, ge, scratch,
+      static_cast<int32_t*>(out), out_stride);
+}
+
+template <bool kReverse>
+int launch_block(const void* qdata, const void* qbias, const void* tbase,
+                 const void* sub, int alpha, const void* jobs,
+                 long long job_stride, int n, int warps, int go, int ge,
+                 void* scratch, void* out, long long out_stride,
+                 void* stream) {
+  if (n <= 0) return 0;
+  if (alpha > kAlphaPad) return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = warps == 4    ? launch_block_w<kReverse, 4>
+                 : warps == 8  ? launch_block_w<kReverse, 8>
+                 : warps == 16 ? launch_block_w<kReverse, 16>
+                               : nullptr;
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  launch(qdata, qbias, tbase, sub, alpha, jobs, job_stride, n, go, ge,
+         scratch, out, out_stride, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Second second(const void* qaa, const void* taa, const void* aasc,
               int alpha2) {
   return Second{static_cast<const uint8_t*>(qaa),
@@ -443,9 +757,9 @@ int load_kernel(K* kernel) {
 
 extern "C" {
 
-// Loads the six kernels onto the current device (CUDA loads a kernel at
-// its first use otherwise, inside whatever times that launch).  Returns
-// the first CUDA error, or 0.
+// Loads the kernels onto the current device (CUDA loads a kernel at its
+// first use otherwise, inside whatever times that launch).  Returns the
+// first CUDA error, or 0.
 int sw_load() {
   int rc = load_kernel(sw_warp_kernel<false, kSeqCell>);
   if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kSeqCell>);
@@ -453,6 +767,14 @@ int sw_load() {
   if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kStructCell>);
   if (rc == 0) rc = load_kernel(sw_warp_kernel<false, kProfCell>);
   if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kProfCell>);
+  if (rc == 0) rc = load_kernel(sw_shards_kernel<false>);
+  if (rc == 0) rc = load_kernel(sw_shards_kernel<true>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<false, 4>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<true, 4>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<false, 8>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<true, 8>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<false, 16>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<true, 16>);
   return rc;
 }
 
@@ -529,6 +851,53 @@ int sw_reverse_prof(const void* qprof, const void* tdata, const void* jobs,
                                       kProfCols, Second{}, jobs, job_stride,
                                       n, go, ge, scratch, out, out_stride,
                                       stream);
+}
+
+// The target-sharded stage of a card (B8): its short pairs on the
+// sequence kernel (a warp a pair), jobs as above with an eighth row, the
+// pair's shard, whose target tokens start at tbase[shard] (a device array
+// of the card's shard pointers; toff shard-local).
+int sw_forward_shards(const void* qdata, const void* qbias, const void* tbase,
+                      const void* sub, int alpha, const void* jobs,
+                      long long job_stride, int n, int go, int ge,
+                      void* scratch, void* out, long long out_stride,
+                      void* stream) {
+  return launch_shards<false>(qdata, qbias, tbase, sub, alpha, jobs,
+                              job_stride, n, go, ge, scratch, out,
+                              out_stride, stream);
+}
+
+int sw_reverse_shards(const void* qdata, const void* qbias, const void* tbase,
+                      const void* sub, int alpha, const void* jobs,
+                      long long job_stride, int n, int go, int ge,
+                      void* scratch, void* out, long long out_stride,
+                      void* stream) {
+  return launch_shards<true>(qdata, qbias, tbase, sub, alpha, jobs,
+                             job_stride, n, go, ge, scratch, out, out_stride,
+                             stream);
+}
+
+// Its long pairs: a block of `warps` (4, 8 or 16) warps a pair; soff is
+// the pair's ring of two slots of tlen columns (int2 forward, int4
+// reverse) when qlen > 32 * rows.
+int sw_forward_shards_block(const void* qdata, const void* qbias,
+                            const void* tbase, const void* sub, int alpha,
+                            const void* jobs, long long job_stride, int n,
+                            int warps, int go, int ge, void* scratch,
+                            void* out, long long out_stride, void* stream) {
+  return launch_block<false>(qdata, qbias, tbase, sub, alpha, jobs,
+                             job_stride, n, warps, go, ge, scratch, out,
+                             out_stride, stream);
+}
+
+int sw_reverse_shards_block(const void* qdata, const void* qbias,
+                            const void* tbase, const void* sub, int alpha,
+                            const void* jobs, long long job_stride, int n,
+                            int warps, int go, int ge, void* scratch,
+                            void* out, long long out_stride, void* stream) {
+  return launch_block<true>(qdata, qbias, tbase, sub, alpha, jobs,
+                            job_stride, n, warps, go, ge, scratch, out,
+                            out_stride, stream);
 }
 
 }  // extern "C"

@@ -272,3 +272,23 @@ def sw_prof_jobs_ref(qprof: torch.Tensor, tdata: torch.Tensor,
         return sw_scan_ref(prof, tdata[t_idx].to(torch.int32), j[1], j[3],
                            gap_open, gap_extend, j[4])
     return _jobs_ref(qprof.device, jobs, scan)
+
+
+def sw_shards_jobs_ref(qdata: torch.Tensor, qbias: torch.Tensor,
+                       tparts: list, sub: torch.Tensor, jobs: np.ndarray,
+                       gap_open: int, gap_extend: int,
+                       reverse: bool) -> torch.Tensor:
+    """Plain version of the target-sharded kernels (`sw_forward_shards` /
+    `sw_reverse_shards`): a (6, n) int64 job array whose sixth row is the
+    job's shard, an index into `tparts` (the shards' target tokens, toff
+    shard-local); each shard's jobs go through sw_jobs_ref over that
+    shard's tokens.  The (6, n) int32 result, job p in column p."""
+    out = torch.empty((6, jobs.shape[1]), dtype=torch.int32,
+                      device=qdata.device)
+    for d in np.unique(jobs[5]):
+        sel = np.nonzero(jobs[5] == d)[0]
+        out[:, torch.from_numpy(sel).to(qdata.device)] = sw_jobs_ref(
+            qdata, qbias, tparts[int(d)], sub,
+            np.ascontiguousarray(jobs[:5, sel]), gap_open, gap_extend,
+            reverse)
+    return out

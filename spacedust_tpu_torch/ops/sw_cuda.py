@@ -33,9 +33,26 @@ qbias, tdata, sub); the profile wrappers take two, the queries' profile
 rows as one flat int8 array (21 values a residue, row-major, at the
 element offsets of the jobs) and the target tokens.
 
+`sw_forward_shards` / `sw_reverse_shards` run the target-sharded stage of
+one card (B8, the JAX package's `parallel/sw_sharded.py::
+_sharded_bucket_fn`): jobs from all of the card's shards in one table
+with a sixth row, the job's shard, each shard's target tokens resident on
+their own (`ShardTargets`: the tensors and the device array of their base
+pointers that the kernels read).  `shard_plan` splits the jobs: a pair
+whose one-warp lane-steps exceed the stage's even share of the card's
+warps (CARD_WARPS) goes to the block path (`sw_*_shards_block`, a block
+of BLOCK_WARPS warps a pair, launched first on a side stream of the
+card), the rest to the sequence kernel with a per-pair shard
+(`sw_*_shards`) on the current stream; the current stream waits for the
+side stream once.  For CPU tensors they run `ops/sw.py::
+sw_shards_jobs_ref`.
+
 FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
-REVERSE_STRUCT_LAUNCHES / FORWARD_PROF_LAUNCHES / REVERSE_PROF_LAUNCHES
-count kernel launches.  A caller that wants the
+REVERSE_STRUCT_LAUNCHES / FORWARD_PROF_LAUNCHES / REVERSE_PROF_LAUNCHES and
+the sharded stage's FORWARD_SHARDS_LAUNCHES / REVERSE_SHARDS_LAUNCHES
+(short pairs) / FORWARD_BLOCK_LAUNCHES / REVERSE_BLOCK_LAUNCHES (long
+pairs) count kernel launches (COUNTERS names them all).  A caller that
+wants the
 kernels' own time passes a list as `events`: the launcher appends one
 (start, end) pair of CUDA events recorded round its launches, after the
 job table is on the card, so that neither the host planning nor that
@@ -45,6 +62,7 @@ copy lies between them (nothing is appended for CPU tensors).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -56,7 +74,7 @@ import numpy as np
 import torch
 
 from .sw import (PROF_COLS, sw_jobs_ref, sw_prof_jobs_ref,
-                 sw_struct_jobs_ref)
+                 sw_shards_jobs_ref, sw_struct_jobs_ref)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "sw.cu"
@@ -80,12 +98,27 @@ STEP_OVERHEAD_CELLS = 3
 # direction (reverse?): (H, F), and the column max with its row
 WARP_SCRATCH = {False: 8, True: 16}
 
+# the target-sharded stage (B8): the warps the card runs at once on the
+# sequence kernel (132 SMs x 4 blocks x 4 warps), the compiled widths W of
+# the block path and the one the wrappers take: chip_smoke.py's sharded
+# phase times the giant pair and both stages at each W; on an H100 80GB
+# HBM3 at 700 W, W = 16 took the 5,917 x 5,496 pair in 3.74 ms (W = 8:
+# 4.63, W = 4: 6.60; one warp 21.51) and the reverse stage of `real` in
+# 6.10 ms (7.51, 9.34), the forward stage being set by its short launch
+CARD_WARPS = 132 * 16
+BLOCK_WARP_CHOICES = (4, 8, 16)
+BLOCK_WARPS = 16
+
 FORWARD_LAUNCHES = 0
 REVERSE_LAUNCHES = 0
 FORWARD_STRUCT_LAUNCHES = 0
 REVERSE_STRUCT_LAUNCHES = 0
 FORWARD_PROF_LAUNCHES = 0
 REVERSE_PROF_LAUNCHES = 0
+FORWARD_SHARDS_LAUNCHES = 0
+REVERSE_SHARDS_LAUNCHES = 0
+FORWARD_BLOCK_LAUNCHES = 0
+REVERSE_BLOCK_LAUNCHES = 0
 
 # (reverse?, cell) -> the C entry point (and wrapper) and its launch
 # counter; the cell is "seq", "struct" or "prof"
@@ -97,13 +130,23 @@ ENTRY = {(False, "seq"): ("sw_forward", "FORWARD_LAUNCHES"),
          (True, "prof"): ("sw_reverse_prof", "REVERSE_PROF_LAUNCHES")}
 # a wrapper's count of leading resident tensors -> its cell
 CELL_OF_RESIDENT = {4: "seq", 7: "struct", 2: "prof"}
+# reverse? -> the sharded stage's (short-pair entry point, its counter,
+# long-pair entry point, its counter)
+SHARD_ENTRY = {
+    False: ("sw_forward_shards", "FORWARD_SHARDS_LAUNCHES",
+            "sw_forward_shards_block", "FORWARD_BLOCK_LAUNCHES"),
+    True: ("sw_reverse_shards", "REVERSE_SHARDS_LAUNCHES",
+           "sw_reverse_shards_block", "REVERSE_BLOCK_LAUNCHES")}
+COUNTERS = tuple(c for _n, c in ENTRY.values()) + tuple(
+    e[k] for e in SHARD_ENTRY.values() for k in (1, 3))
 
 _LIB = None
 _LOCK = threading.Lock()
+_SIDE: dict = {}                # card index -> the block path's side stream
 
 
 def reset_counts() -> None:
-    for _name, counter in ENTRY.values():
+    for counter in COUNTERS:
         globals()[counter] = 0
 
 
@@ -157,6 +200,14 @@ def load() -> ctypes.CDLL:
             for fn in (lib.sw_forward_prof, lib.sw_reverse_prof):
                 fn.restype = i
                 fn.argtypes = [p, p, p, ll, i, i, i, p, p, ll, p]
+            for fn in (lib.sw_forward_shards, lib.sw_reverse_shards):
+                fn.restype = i
+                fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, ll, p]
+            # ..., jobs, job_stride, n, warps, go, ge, scratch, out, ...
+            for fn in (lib.sw_forward_shards_block,
+                       lib.sw_reverse_shards_block):
+                fn.restype = i
+                fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, i, p, p, ll, p]
             lib.sw_load.restype = i
             rc = lib.sw_load()
             if rc != 0:
@@ -169,8 +220,12 @@ def load() -> ctypes.CDLL:
 def lane_rows(qlen: np.ndarray) -> np.ndarray:
     """Per pair, the class of LANE_ROWS that sweeps its query in the
     fewest lane-steps: ceil(qlen / 32R) strips, each step costing R cells
-    and STEP_OVERHEAD_CELLS; ties go to the larger class (fewer strips)."""
+    and STEP_OVERHEAD_CELLS; ties go to the larger class.  (Looked up in
+    a table over 0 .. max(qlen) when that is shorter than the batch.)"""
     qlen = np.asarray(qlen, dtype=np.int64)
+    top = int(qlen.max(initial=0))
+    if top + 1 < len(qlen):
+        return lane_rows(np.arange(top + 1))[qlen]
     classes = np.array(LANE_ROWS[::-1], dtype=np.int64)[:, None]
     cost = -(-qlen[None, :] // (32 * classes)) * (classes
                                                  + STEP_OVERHEAD_CELLS)
@@ -191,10 +246,17 @@ def warp_plan(jobs: np.ndarray, bytes_per_column: int,
     scratch, one column per target residue; the pairs are split where a
     launch's scratch would pass `budget` bytes (a lone pair may exceed
     it)."""
-    n = jobs.shape[1]
-    table = np.empty((7, n), dtype=np.int64)
+    table = np.empty((7, jobs.shape[1]), dtype=np.int64)
     table[:5] = jobs
     table[5] = lane_rows(jobs[1]) if rows is None else rows
+    return table, _scratch_launches(table, bytes_per_column, budget)
+
+
+def _scratch_launches(table: np.ndarray, bytes_per_column: int,
+                      budget: int) -> list[tuple[int, int, int]]:
+    """warp_plan's row 6 and launches over a table whose rows 0-5 are
+    filled (a view will do)."""
+    n = table.shape[1]
     cols = np.where(table[1] > 32 * table[5], table[3], 0)
     cum = np.concatenate(([0], np.cumsum(cols)))
     limit = budget // bytes_per_column
@@ -206,7 +268,81 @@ def warp_plan(jobs: np.ndarray, bytes_per_column: int,
         table[6, s:e] = cum[s:e] - cum[s]
         launches.append((s, e, int(cum[e] - cum[s])))
         s = e
-    return table, launches
+    return launches
+
+
+def block_rows(qlen: np.ndarray, warps: int) -> np.ndarray:
+    """Per pair of the block path, the class of LANE_ROWS that sweeps its
+    query soonest on `warps` warps: ceil(ceil(qlen / 32R) / warps) strips
+    a warp, each step costing R cells and STEP_OVERHEAD_CELLS (a smaller R
+    gives more strips to share); ties go to the larger class."""
+    qlen = np.asarray(qlen, dtype=np.int64)
+    classes = np.array(LANE_ROWS[::-1], dtype=np.int64)[:, None]
+    strips = -(-qlen[None, :] // (32 * classes))
+    cost = -(-strips // warps) * (classes + STEP_OVERHEAD_CELLS)
+    return classes[np.argmin(cost, axis=0), 0]
+
+
+@dataclasses.dataclass
+class ShardPlan:
+    """The launches of a card's target-sharded stage.  table: the (8, n)
+    rows the kernels read (qoff, qlen, toff, tlen, terminate, rows, soff,
+    shard), its columns in launch order: the n_long pairs of the block
+    path, then the short pairs; perm[c]: the caller's job of column c
+    (None: the caller's order);
+    long_cols: the block path's ring columns (two slots of tlen for each
+    pair longer than one strip), soff counting them from 0; launches: the
+    short pairs' launches (start, end, scratch columns) over the table's
+    columns, as warp_plan cuts them."""
+    table: np.ndarray
+    perm: np.ndarray | None
+    n_long: int
+    long_cols: int
+    launches: list
+
+    @property
+    def order(self) -> np.ndarray:
+        """The caller's job of each column."""
+        return (np.arange(self.table.shape[1]) if self.perm is None
+                else self.perm)
+
+
+def shard_plan(jobs: np.ndarray, reverse: bool, warps: int = BLOCK_WARPS,
+               force: bool = False, rows: int | None = None,
+               budget: int = SCRATCH_BYTES) -> ShardPlan:
+    """Plan a card's stage of (6, n) jobs (qoff, qlen, toff, tlen,
+    terminate, shard).  A pair goes to the block path when its one-warp
+    lane-steps ceil(qlen / 32R) * (tlen + 31) (R its lane_rows class)
+    exceed the stage's total over CARD_WARPS: it would outlast an even
+    share of the stage.  There its class is block_rows(qlen, warps).
+    The checks pass `force` (every pair to the block path) and `rows`
+    (one class for every pair); the wrappers leave both."""
+    if warps not in BLOCK_WARP_CHOICES:
+        raise ValueError(f"the block path is compiled for {BLOCK_WARP_CHOICES}"
+                         f" warps, not {warps}")
+    n = jobs.shape[1]
+    one = lane_rows(jobs[1]) if rows is None else np.full(n, rows)
+    steps = -(-jobs[1] // (32 * one)) * (jobs[3] + 31)
+    long = (np.ones(n, dtype=bool) if force
+            else steps * CARD_WARPS > steps.sum())
+    li = np.nonzero(long)[0]
+    nl = len(li)
+    # the caller's order when the long pairs lead it (as a stage sorted
+    # longest first mostly has them)
+    perm = (None if (li == np.arange(nl)).all()
+            else np.concatenate([li, np.nonzero(~long)[0]]))
+    table = np.empty((8, n), dtype=np.int64)
+    table[:5] = jobs[:5] if perm is None else jobs[:5, perm]
+    table[7] = jobs[5] if perm is None else jobs[5, perm]
+    table[5] = one if perm is None else one[perm]
+    if rows is None:
+        table[5, :nl] = block_rows(table[1, :nl], warps)
+    ring = np.where(table[1, :nl] > 32 * table[5, :nl], 2 * table[3, :nl], 0)
+    table[6, :nl] = np.cumsum(ring) - ring
+    launches = _scratch_launches(table[:, nl:], WARP_SCRATCH[reverse],
+                                 budget)
+    return ShardPlan(table, perm, nl, int(ring.sum()),
+                     [(s + nl, e + nl, c) for s, e, c in launches])
 
 
 def _check(named, tables, qlen_all: int, tlen_all: int, jobs: np.ndarray,
@@ -398,3 +534,154 @@ def sw_reverse_prof(qprof, tdata, jobs: np.ndarray, gap_open: int,
     """Profile-query reverse pass: as sw_reverse, with the profile cell of
     sw_forward_prof (flipped rows qoff + qlen - 1 - i)."""
     return _run_prof(True, qprof, tdata, jobs, gap_open, gap_extend, events)
+
+
+class ShardTargets:
+    """The target tokens of a card's shards: one uint8 tensor a shard (on
+    one device, kept alive here) and, on a card, the device array of
+    their base pointers that the sharded kernels read."""
+
+    def __init__(self, tensors: list):
+        self.tensors = list(tensors)
+        dev = self.tensors[0].device
+        self.base = (torch.tensor([t.data_ptr() for t in self.tensors],
+                                  dtype=torch.int64, device=dev)
+                     if dev.type == "cuda" else None)
+
+
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The card's side stream of the block path, high priority, so that
+    the long pairs' blocks are dispatched ahead of the short launch's."""
+    with _LOCK:
+        if dev.index not in _SIDE:
+            _SIDE[dev.index] = torch.cuda.Stream(dev, priority=-1)
+        return _SIDE[dev.index]
+
+
+def _launch_shards(reverse: bool, resident: tuple, plan: ShardPlan,
+                   gap_open: int, gap_extend: int,
+                   events: dict | None = None,
+                   warps: int = BLOCK_WARPS) -> torch.Tensor:
+    """Launch a card's sharded stage over a shard_plan: the block path on
+    the side stream (after what the current stream queued), the short
+    pairs on the current stream, which then waits for the side stream;
+    counts the launches and returns the (6, n) result in the caller's job
+    order.  resident: (qdata, qbias, ShardTargets, sub).  events: if a
+    dict, gets the (start, end) CUDA events of the whole ("card": from
+    before the fork to after the join), of the long launch ("long") and
+    of the short launches ("short"), of those that ran, and the count of
+    block-path pairs ("n_long")."""
+    qdata, qbias, targets, sub = resident
+    short_name, short_counter, long_name, long_counter = SHARD_ENTRY[reverse]
+    lib = load()
+    dev = qdata.device
+    n = plan.table.shape[1]
+    out = torch.empty((6, n), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    args = (qdata.data_ptr(), qbias.data_ptr(), targets.base.data_ptr(),
+            sub.data_ptr(), int(sub.shape[0]))
+    cell = WARP_SCRATCH[reverse]
+    table_d = torch.from_numpy(plan.table).to(dev, non_blocking=False)
+    main = torch.cuda.current_stream(dev)
+
+    def mark(key: str, end: int, stream) -> None:
+        if events is not None:
+            if not end:
+                events[key] = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+            events[key][end].record(stream)
+
+    # every buffer before the fork: the side stream uses them too, and no
+    # allocation lies inside the card's events
+    ring = torch.empty(max(plan.long_cols, 1) * cell, dtype=torch.uint8,
+                       device=dev)
+    scratch = [torch.empty(max(cols, 1) * cell, dtype=torch.uint8,
+                           device=dev) for _s, _e, cols in plan.launches]
+    mark("card", 0, main)
+    if events is not None:
+        events["n_long"] = plan.n_long
+    if plan.n_long:
+        side = _side_stream(dev)
+        side.wait_stream(main)
+        mark("long", 0, side)
+        rc = getattr(lib, long_name)(*args, table_d.data_ptr(), n,
+                                     plan.n_long, int(warps), int(gap_open),
+                                     int(gap_extend), ring.data_ptr(),
+                                     out.data_ptr(), n, side.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{long_name} launch failed: CUDA error {rc}")
+        globals()[long_counter] += 1
+        mark("long", 1, side)
+    if plan.launches:
+        mark("short", 0, main)
+        for (s, e, _cols), buf in zip(plan.launches, scratch):
+            rc = getattr(lib, short_name)(
+                *args, table_d.data_ptr() + 8 * s, n, e - s, int(gap_open),
+                int(gap_extend), buf.data_ptr(), out.data_ptr() + 4 * s,
+                n, main.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{short_name} launch failed: CUDA error "
+                                   f"{rc}")
+            globals()[short_counter] += 1
+        mark("short", 1, main)
+    if plan.n_long:
+        # the one join; what the side stream used was allocated on this one
+        # and is freed after it
+        main.wait_stream(side)
+    mark("card", 1, main)
+    if plan.perm is not None:
+        out = out[:, torch.from_numpy(np.argsort(plan.perm)).to(dev)]
+    return out
+
+
+def _run_shards(reverse: bool, qdata, qbias, targets: ShardTargets, sub,
+                jobs: np.ndarray, gap_open: int, gap_extend: int,
+                events: dict | None, warps: int, force: bool,
+                rows: int | None) -> torch.Tensor:
+    nq = len(qbias)
+    if jobs.dtype != np.int64 or jobs.ndim != 2 or jobs.shape[0] != 6:
+        raise ValueError("sharded jobs must be a (6, n) int64 array")
+    lens = np.array([len(t) for t in targets.tensors], dtype=np.int64)
+    _check((("qbias", qbias, torch.int8, nq),
+            ("query tokens", qdata, torch.uint8, nq),
+            *((f"shard {d} target tokens", t, torch.uint8, len(t))
+              for d, t in enumerate(targets.tensors))),
+           (("sub", sub),), nq, int(lens.max()), jobs[:5], gap_open,
+           gap_extend)
+    shard = jobs[5]
+    if jobs.shape[1] and not (
+            (shard >= 0).all() and (shard < len(lens)).all()
+            and (jobs[2] + jobs[3] <= lens[np.clip(shard, 0,
+                                                   len(lens) - 1)]).all()):
+        raise ValueError("each sharded job must lie inside its shard's "
+                         "target tokens")
+    if _device_of(qdata).type == "cpu":
+        return sw_shards_jobs_ref(qdata, qbias, targets.tensors, sub, jobs,
+                                  gap_open, gap_extend, reverse)
+    return _launch_shards(reverse, (qdata, qbias, targets, sub),
+                          shard_plan(jobs, reverse, warps, force, rows),
+                          gap_open, gap_extend, events, warps)
+
+
+def sw_forward_shards(qdata, qbias, targets: ShardTargets, sub,
+                      jobs: np.ndarray, gap_open: int, gap_extend: int,
+                      events: dict | None = None, warps: int = BLOCK_WARPS,
+                      force: bool = False, rows: int | None = None
+                      ) -> torch.Tensor:
+    """A card's target-sharded forward stage (B8): sw_forward's result for
+    (6, n) jobs (qoff, qlen, shard-local toff, tlen, terminate, shard)
+    over the card's shards `targets`, in one launch of the short pairs and
+    one of the long pairs (shard_plan; warps / force / rows go to it)."""
+    return _run_shards(False, qdata, qbias, targets, sub, jobs, gap_open,
+                       gap_extend, events, warps, force, rows)
+
+
+def sw_reverse_shards(qdata, qbias, targets: ShardTargets, sub,
+                      jobs: np.ndarray, gap_open: int, gap_extend: int,
+                      events: dict | None = None, warps: int = BLOCK_WARPS,
+                      force: bool = False, rows: int | None = None
+                      ) -> torch.Tensor:
+    """The reverse stage of sw_forward_shards: sw_reverse's result."""
+    return _run_shards(True, qdata, qbias, targets, sub, jobs, gap_open,
+                       gap_extend, events, warps, force, rows)

@@ -18,8 +18,10 @@ lib/mmseqs/src/commons/MMseqsMPI.h:26-34).  Here:
     one-card host share the card);
   * rendezvous: each process writes its records as a reference-format
     flat DB into the shared tmp dir (db/mmseqs_io.py), with its search
-    seconds, kernel launches and SW engine metrics beside them
-    (`metrics.RANK.json`); rank 0 merges the records
+    seconds, kernel launches (every counter of sw_cuda.COUNTERS) and SW
+    engine metrics beside them (`metrics.RANK.json`; the sharded engine's
+    launches and kernel ms a card, `card_{fwd,rev}_*`); rank 0 merges the
+    records
     and runs the aggregation tail (besthit -> combinehits -> clusterhits
     -> summarize), as MMseqsMPI's master does;
   * process identity and the barrier: SPACEDUST_COORDINATOR (host:port),
@@ -165,8 +167,7 @@ def _work(db_path: str, tmp: Path, out_path: str, params_json: str,
     from ..ops import sw_cuda
     (tmp / f"metrics.{proc_id}.json").write_text(json.dumps({
         "search_s": time.time() - t0,
-        "launches": {c: getattr(sw_cuda, c)
-                     for _name, c in sw_cuda.ENTRY.values()},
+        "launches": {c: getattr(sw_cuda, c) for c in sw_cuda.COUNTERS},
         "align_detail": eng._device_db().metrics}))
 
     # shared-filesystem rendezvous: a reference-format result DB a rank

@@ -26,7 +26,8 @@ its k-mers, then probes every shard with its part of the beam.
 
 The target-sharded search (`ShardedAlignmentEngine`, `sharded_search`,
 `sharded_cluster_search`) runs that prefilter and aligns on a list of
-devices, each shard's target tokens resident on its own device
+devices, each shard's target tokens resident on its own device and one
+launch a card and stage over all of that card's shards
 (parallel/sw_sharded.py, ROADMAP B8): the per-pair SW and the per-target
 prefilter state machine are split-invariant, so an n-shard search gives
 the single engine's records and TSV.
@@ -287,9 +288,10 @@ def query_split_prefilter(query_db: SetDB, target_db: SetDB,
 
 class ShardedAlignmentEngine(AlignmentEngine):
     """AlignmentEngine whose forward and reverse stages run target-sharded
-    on a list of devices (one a shard, parallel/sw_sharded.py): every
-    other step, the alignment controls and the --alt-ali rounds among
-    them, is the single engine's."""
+    on a list of devices (one a shard, parallel/sw_sharded.py: one launch
+    a card and stage; its metrics count launches and kernel ms a card,
+    pairs a shard): every other step, the alignment controls and the
+    --alt-ali rounds among them, is the single engine's."""
 
     def __init__(self, query_db: SetDB, target_db: SetDB,
                  params: AlignmentParams | None, devices: list,

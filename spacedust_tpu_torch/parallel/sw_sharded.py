@@ -5,18 +5,21 @@ mesh axis, `_sharded_bucket_fn`, and its `all_gather`).
 Each shard keeps only its own contiguous slice of the target tokens
 resident, addressed by shard-local offsets (the reference's target-split
 mode keeps one split's index per MPI rank, Prefiltering.cpp:575-722);
-the query tokens and their bias are resident once a device and shared by
-every shard on it (`ops/sw_engine.py::DeviceAlignDB.with_targets`).  A
-shard scores only the pairs whose targets lie in it, with the same kernels
-as the single engine (`csrc/sw.cu::sw_forward` / `sw_reverse`, one launch
-a shard and stage), so a sharded search gives the single engine's records.
+the query tokens, their bias and the matrix are resident once a device
+and serve every shard on it.  A stage is one launch a card over all of
+that card's shards (`ops/sw_cuda.py::sw_forward_shards` /
+`sw_reverse_shards`): the jobs carry their shard, whose base pointer the
+kernels read from the card's table (`ShardTargets`), sorted longest
+first across the shards; the few pairs that would outlast an even share
+of the stage take the block path, a block of warps a pair, launched
+first on a side stream (`sw_cuda.shard_plan`).  Each card's launches go
+on its current stream, which waits for the side stream once; a stage's
+events bracket all cards.  A sharded search gives the single engine's
+records.  On the CPU the plain version scores each job against its
+shard (`ops/sw.py::sw_shards_jobs_ref`).
 
 A mesh is a plain list of torch devices, one a shard (`make_mesh`): shards
-may share a card.  On CUDA every shard launches on a stream of its own,
-so that the shards of one card overlap; a stage starts after the work
-already queued on the device's current stream and that stream waits for
-every shard's stream once, when the stage has been dispatched.  On the CPU
-the shards run the kernels' plain version one after another.
+may share a card.
 
 `ShardedAlignDB` serves two callers:
   * `run_grid` / `gather_scores`, the JAX interface: a (D, B) grid of
@@ -24,20 +27,20 @@ the shards run the kernels' plain version one after another.
     the per-shard result blocks gathered to the host in shard order;
   * `enqueue` / `flush` / `collect` / `run_buckets` / `with_targets`, the
     interface of `DeviceAlignDB` that `search/alignment.py` streams
-    through, with global target offsets: a stage's jobs are split by the
-    shard their target lies in and every result goes back under its job's
-    position (parallel/pipeline.py::ShardedAlignmentEngine).
+    through, with global target offsets: a stage's jobs are routed to
+    the shard their target lies in and every result goes back under its
+    job's position (parallel/pipeline.py::ShardedAlignmentEngine).
 """
 
 from __future__ import annotations
 
-import contextlib
+import time
 
 import numpy as np
 import torch
 
 from ..ops import sw_cuda
-from ..ops.sw_engine import DISPATCH_PAIRS, DeviceAlignDB
+from ..ops.sw_engine import DISPATCH_PAIRS, _check_tokens, _device, _upload
 from .split import residue_balanced_splits
 
 
@@ -67,57 +70,92 @@ def make_mesh(n: int | None = None, device: torch.device | str = "cuda",
 
 
 class ShardedAlignDB:
-    """Resident arrays of a target-sharded SW: query tokens and bias once a
-    device, target shard d (tokens tok_bounds[d] of tdata) on devices[d]."""
+    """Resident arrays of a target-sharded SW: query tokens, bias and
+    matrix once a device, target shard d (tokens tok_bounds[d] of tdata)
+    on devices[d].
 
-    CELL = "seq"
+    `plan_kw` goes to the wrappers' plan (sw_cuda.shard_plan: `warps`,
+    `force`, `rows`); the engine leaves it empty, a check sets it."""
 
     def __init__(self, devices: list, qdata: np.ndarray, qbias: np.ndarray,
                  tdata: np.ndarray, tok_bounds: list[tuple[int, int]],
                  sub: np.ndarray):
         """tok_bounds: per-shard [start, end) ranges into `tdata` (token
         positions, one entry a device of `devices`)."""
-        devices = [_card(d) for d in devices]
+        devices = [_device(_card(d)) for d in devices]
         if len(tok_bounds) != len(devices):
             raise ValueError(f"{len(tok_bounds)} shards for "
                              f"{len(devices)} devices")
-        base: dict = {}
-        shards = []
-        for dev, (s, e) in zip(devices, tok_bounds):
-            if dev not in base:
-                base[dev] = DeviceAlignDB(qdata, qbias, tdata[s:e], sub,
-                                          device=dev)
-                shards.append(base[dev])
-            else:
-                shards.append(base[dev].with_targets(tdata[s:e]))
-        self._setup(devices, shards, tok_bounds)
+        for name, a in (("query", qdata), ("target", tdata)):
+            _check_tokens(name, a, sub.shape[0])
+        queries = {dev: tuple(_upload(a, dt, dev) for a, dt in (
+            (qdata, np.uint8), (qbias, np.int8), (sub, np.int8)))
+            for dev in dict.fromkeys(devices)}
+        self._setup(devices, queries, tdata, tok_bounds)
 
-    def _setup(self, devices: list, shards: list,
+    def _setup(self, devices: list, queries: dict, tdata: np.ndarray,
                tok_bounds: list[tuple[int, int]]) -> None:
+        """Upload each shard's targets; group the shards by card."""
         self.devices = devices
-        self.shards = shards
+        self.queries = queries         # device -> (qdata, qbias, sub)
+        self.tparts = [_upload(tdata[s:e], np.uint8, dev)
+                       for dev, (s, e) in zip(devices, tok_bounds)]
         self.tok_starts = np.array([s for s, _ in tok_bounds], dtype=np.int64)
         self.tok_ends = np.array([e for _, e in tok_bounds], dtype=np.int64)
-        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
-                        for d in devices]
+        self.cards = list(dict.fromkeys(devices))
+        self.card_of = np.array([self.cards.index(d) for d in devices])
+        # each shard's index among its card's shards (the jobs' shard row)
+        self.local = np.zeros(len(devices), dtype=np.int64)
+        self.targets = []
+        for c in range(len(self.cards)):
+            ds = np.nonzero(self.card_of == c)[0]
+            self.local[ds] = np.arange(len(ds))
+            self.targets.append(sw_cuda.ShardTargets(
+                [self.tparts[d] for d in ds]))
+        if any(d.type == "cuda" for d in self.cards):
+            # build and load the kernels now, outside every timed stage
+            sw_cuda.load()
+        self.plan_kw: dict = {}
         self._buf: dict[tuple, list] = {}
-        self._stages = {"stages": 0, "stage_wall_ms": 0.0}
+        nd, nc = len(devices), len(self.cards)
+        self._metrics = {"n_batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
+                         "stages": 0, "stage_wall_ms": 0.0}
+        for d in ("fwd", "rev"):
+            self._metrics.update({
+                f"{d}_launches": 0, f"{d}_pairs": 0, f"{d}_cells": 0,
+                f"{d}_kernel_ms": 0.0, f"{d}_wrapper_ms": 0.0,
+                f"shard_{d}_pairs": [0] * nd,
+                f"card_{d}_launches": [0] * nc,
+                f"card_{d}_block_pairs": [0] * nc,
+                f"card_{d}_kernel_ms": [0.0] * nc})
 
     @property
     def n_shards(self) -> int:
-        return len(self.shards)
+        return len(self.tparts)
 
-    def _on(self, d: int):
-        s = self.streams[d]
-        return torch.cuda.stream(s) if s is not None else \
-            contextlib.nullcontext()
+    def resident(self, d: int) -> tuple:
+        """Shard d's resident arrays as the single engine's wrappers take
+        them: (qdata, qbias, its target tokens, sub)."""
+        qdata, qbias, sub = self.queries[self.devices[d]]
+        return (qdata, qbias, self.tparts[d], sub)
 
-    def _follow(self, d: int) -> None:
-        """Shard d's next work follows what its device already queued
-        (the resident arrays' uploads among it)."""
-        s = self.streams[d]
-        if s is not None:
-            s.wait_stream(torch.cuda.current_stream(s.device))
+    def _launch(self, c: int, jobs: np.ndarray, gap_open: int,
+                gap_extend: int, reverse: bool, events: dict | None = None):
+        """Card c's stage: (6, n) jobs (qoff, qlen, shard-local toff,
+        tlen, terminate, shard within the card) through the sharded
+        wrapper of the direction, launches counted a card."""
+        qdata, qbias, sub = self.queries[self.cards[c]]
+        name = sw_cuda.SHARD_ENTRY[reverse]
+        before = [getattr(sw_cuda, name[k]) for k in (1, 3)]
+        out = getattr(sw_cuda, name[0])(
+            qdata, qbias, self.targets[c], sub, np.ascontiguousarray(jobs),
+            gap_open, gap_extend, events=events, **self.plan_kw)
+        d = "rev" if reverse else "fwd"
+        launched = sum(getattr(sw_cuda, name[k]) - b
+                       for k, b in zip((1, 3), before))
+        self._metrics[f"card_{d}_launches"][c] += launched
+        self._metrics[f"{d}_launches"] += launched
+        return out
 
     # ------------------------------------------------------ the JAX grid
     def run_grid(self, bucket: tuple[int, int], qoff, qlen, toff, tlen,
@@ -132,20 +170,19 @@ class ShardedAlignDB:
         if grid.shape[1] != self.n_shards:
             raise ValueError(f"a grid of {grid.shape[1]} rows for "
                              f"{self.n_shards} shards")
-        rows = (0, 4, 5, 3) if reverse else (0, 1, 2)
-        name = sw_cuda.ENTRY[reverse, self.CELL][0]
+        B = grid.shape[2]
+        res = np.zeros((6, self.n_shards, B), dtype=np.int32)
         outs = []
-        for d, shard in enumerate(self.shards):
-            self._follow(d)
-            with self._on(d):
-                outs.append(getattr(sw_cuda, name)(
-                    *shard._resident(), np.ascontiguousarray(grid[:, d]),
-                    gap_open, gap_extend))
-        res = []
-        for d, o in enumerate(outs):
-            with self._on(d):
-                res.append(o.cpu().numpy())
-        return tuple(np.stack([r[i] for r in res]) for i in rows)
+        for c in range(len(self.cards)):
+            ds = np.nonzero(self.card_of == c)[0]
+            jobs = np.concatenate([grid[:, ds].reshape(5, -1),
+                                   np.repeat(self.local[ds], B)[None]])
+            outs.append((ds, self._launch(c, jobs, gap_open, gap_extend,
+                                          reverse)))
+        for ds, o in outs:
+            res[:, ds] = o.cpu().numpy().reshape(6, len(ds), B)
+        rows = (0, 4, 5, 3) if reverse else (0, 1, 2)
+        return tuple(res[i] for i in rows)
 
     def gather_scores(self, scores) -> np.ndarray:
         """The per-shard score blocks (a (D, B) array, or one tensor or
@@ -160,9 +197,12 @@ class ShardedAlignDB:
     def with_targets(self, tdata: np.ndarray,
                      starts: np.ndarray) -> "ShardedAlignDB":
         """A sharded engine over the target tokens `tdata` (uploaded now,
-        a shard a slice) that shares this one's resident query arrays.
-        `starts`: the ascending start offsets of tdata's targets; the
-        shards are cut there, residue-balanced."""
+        a shard a slice, with pointer tables of its own) that shares this
+        one's resident query arrays.  `starts`: the ascending start
+        offsets of tdata's targets; the shards are cut there,
+        residue-balanced."""
+        sub = self.queries[self.devices[0]][2]
+        _check_tokens("target", tdata, sub.shape[0])
         n = len(tdata)
         starts = np.asarray(starts, dtype=np.int64)
         lens = np.diff(np.concatenate((starts, [n])))
@@ -172,9 +212,9 @@ class ShardedAlignDB:
                    int(starts[b]) if b < len(starts) else n)
                   for a, b in zip(cuts, cuts[1:])]
         view = ShardedAlignDB.__new__(ShardedAlignDB)
-        view._setup(self.devices[:len(bounds)],
-                    [self.shards[d].with_targets(tdata[s:e])
-                     for d, (s, e) in enumerate(bounds)], bounds)
+        devices = self.devices[:len(bounds)]
+        view._setup(devices, {d: self.queries[d] for d in devices}, tdata,
+                    bounds)
         return view
 
     def enqueue(self, jobs, gap_open: int, gap_extend: int,
@@ -191,63 +231,101 @@ class ShardedAlignDB:
         return []
 
     def flush(self, gap_open: int, gap_extend: int, reverse: bool):
-        """Dispatch whatever is buffered for this direction: each shard
-        its own pairs, at shard-local target offsets, on its stream."""
+        """Dispatch whatever is buffered for this direction as one stage:
+        each job routed to the shard its target lies in (offsets made
+        shard-local), each card's jobs sorted longest first across its
+        shards and launched at once."""
         buf = self._buf.pop((gap_open, gap_extend, reverse), [])
         if not buf or sum(len(b[0]) for b in buf) == 0:
             return []
+        t0 = time.perf_counter()
         cols = [np.concatenate([b[i] for b in buf]).astype(np.int64)
                 for i in range(6)]
         shard = np.searchsorted(self.tok_starts, cols[2], side="right") - 1
-        cards = list(dict.fromkeys(d for d in self.devices
-                                   if d.type == "cuda"))
+        jobs = np.stack(cols[:5])
+        jobs[2] -= self.tok_starts[shard]
+        cells = jobs[1] * jobs[3]
+        d = "rev" if reverse else "fwd"
+        m = self._metrics
+        cuda = [c for c in self.cards if c.type == "cuda"]
         ev = None
-        if cards:
+        if cuda:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
-            ev[0].record(torch.cuda.current_stream(cards[0]))
+            ev[0].record(torch.cuda.current_stream(cuda[0]))
         parts = []
-        for d, db in enumerate(self.shards):
-            sel = np.nonzero(shard == d)[0]
+        for c, dev in enumerate(self.cards):
+            sel = np.nonzero(self.card_of[shard] == c)[0]
             if len(sel) == 0:
                 continue
-            part = [c[sel] for c in cols]
-            part[2] = part[2] - self.tok_starts[d]
-            self._follow(d)
-            with self._on(d):
-                parts.append((d, db._dispatch(part, gap_open, gap_extend,
-                                              reverse)))
-        # the one synchronisation of the stage: each card's current stream
-        # waits for its shards' streams
-        for d, stream in enumerate(self.streams):
-            if stream is not None:
-                torch.cuda.current_stream(stream.device).wait_stream(stream)
-                if stream.device != cards[0]:
-                    torch.cuda.current_stream(cards[0]).wait_stream(stream)
+            sel = sel[np.argsort(-cells[sel])]
+            part = np.empty((6, len(sel)), dtype=np.int64)
+            part[:5] = jobs[:, sel]
+            part[5] = self.local[shard[sel]]
+            events: dict | None = None
+            if dev.type == "cuda":
+                stream = torch.cuda.current_stream(dev)
+                events = {"wrapper": (torch.cuda.Event(enable_timing=True),
+                                      torch.cuda.Event(enable_timing=True))}
+                events["wrapper"][0].record(stream)
+            out = self._launch(c, part, gap_open, gap_extend, reverse,
+                               events)
+            if events is not None:
+                events["wrapper"][1].record(stream)
+                m[f"card_{d}_block_pairs"][c] += events["n_long"]
+            m["n_batches"] += 1
+            parts.append((c, cols[5][sel], out, events))
+        for k, n_k in enumerate(np.bincount(shard, minlength=self.n_shards)):
+            m[f"shard_{d}_pairs"][k] += int(n_k)
+        m[f"{d}_pairs"] += len(shard)
+        m[f"{d}_cells"] += int(cells.sum())
+        for other in cuda[1:]:
+            # the stage ends on the first card once every card's work has
+            # ended
+            torch.cuda.current_stream(cuda[0]).wait_stream(
+                torch.cuda.current_stream(other))
         if ev is not None:
-            ev[1].record(torch.cuda.current_stream(cards[0]))
-        self._stages["stages"] += 1
-        return [(parts, ev)]
+            ev[1].record(torch.cuda.current_stream(cuda[0]))
+        m["stages"] += 1
+        m["dispatch_s"] += time.perf_counter() - t0
+        return [(parts, ev, d)]
 
     def collect(self, pending):
-        """Fetch every pending stage, one device-to-host copy a shard.
-        Returns (positions, (score, t_end, q_end, found, fj, fi)) per
-        shard and stage, positions the jobs' own."""
+        """Fetch every pending stage, one device-to-host copy a card.
+        Returns (positions, (score, t_end, q_end, found, fj, fi)) per card
+        and stage, positions the jobs' own."""
         if not pending:
             return []
-        by_shard: dict[int, list] = {}
-        for parts, _ev in pending:
-            for d, stage in parts:
-                by_shard.setdefault(d, []).append(stage)
+        t1 = time.perf_counter()
+        by_card: dict[int, list] = {}
+        for parts, _ev, _d in pending:
+            for part in parts:
+                by_card.setdefault(part[0], []).append(part)
         out = []
-        for d in sorted(by_shard):
-            out += self.shards[d].collect(by_shard[d])
-        for _parts, ev in pending:
+        for c in sorted(by_card):
+            flat = torch.cat([o for _c, _p, o, _e in by_card[c]],
+                             dim=1).cpu().numpy()
+            col = 0
+            for _c, pos, o, _e in by_card[c]:
+                n = o.shape[1]
+                out.append((pos, tuple(flat[i, col:col + n]
+                                       for i in range(6))))
+                col += n
+        m = self._metrics
+        m["fetch_s"] += time.perf_counter() - t1
+        for parts, ev, d in pending:
+            for c, _pos, _o, events in parts:
+                if events is None:
+                    continue
+                m[f"{d}_wrapper_ms"] += _ms(events["wrapper"])
+                ms = _ms(events["card"])
+                m[f"{d}_kernel_ms"] += ms
+                m[f"card_{d}_kernel_ms"][c] += ms
             if ev is not None:
-                # the shards fetched above need not include one on the
-                # card whose stream recorded the events
+                # the cards fetched above need not include the one whose
+                # stream recorded the stage's events
                 ev[1].synchronize()
-                self._stages["stage_wall_ms"] += ev[0].elapsed_time(ev[1])
+                m["stage_wall_ms"] += _ms(ev)
         return out
 
     def run_buckets(self, jobs, gap_open: int, gap_extend: int,
@@ -258,15 +336,19 @@ class ShardedAlignDB:
 
     @property
     def metrics(self) -> dict:
-        """The shards' engine metrics summed, each shard's launches, pairs
-        and kernel ms (`shard_*`), the stages dispatched and their wall ms
-        on the card (from before the first shard's launch to the end of
-        the last shard's work)."""
-        ms = [db.metrics for db in self.shards]
-        out = {k: sum(m[k] for m in ms) for k in ms[0]}
-        out.update(self._stages)
+        """The engine's metrics: those of DeviceAlignDB over all cards
+        (launches, pairs, cells, kernel and wrapper ms a direction), the
+        stages dispatched and their wall ms on the card (from before a
+        stage is routed and planned to the end of every card's work), each
+        shard's pairs (`shard_{fwd,rev}_pairs`), and each card's launches,
+        block-path pairs and kernel ms (`card_{fwd,rev}_*`: CUDA events
+        from before the card's fork to after its join)."""
+        out = {k: list(v) if isinstance(v, list) else v
+               for k, v in self._metrics.items()}
         out["shards"] = self.n_shards
-        for d in ("fwd", "rev"):
-            for k in ("launches", "pairs", "kernel_ms"):
-                out[f"shard_{d}_{k}"] = [m[f"{d}_{k}"] for m in ms]
+        out["cards"] = len(self.cards)
         return out
+
+
+def _ms(ev: tuple) -> float:
+    return ev[0].elapsed_time(ev[1])

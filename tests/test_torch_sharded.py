@@ -156,6 +156,51 @@ def test_run_grid_matches_jax(small):
                           theirs.gather_scores(score))
 
 
+def test_stream_matches_jax_grid(small):
+    """The per-card dispatch of enqueue / flush / collect (the edge grid's
+    pairs at global offsets, one stage, shuffled positions) equals the
+    JAX package's shard_map (_sharded_bucket_fn through its run_grid)
+    on the same pairs, forward and reverse."""
+    db, _ = small
+    shards = residue_balanced_splits(db.lengths, 4)
+    grid, bounds = edge_grid(db, shards, seed=17)
+    mat = load_substitution_matrix()
+    qbias = np.zeros(len(db.seq_data), np.int8)
+    ours = ShardedAlignDB(make_mesh(4, CPU), db.seq_data, qbias,
+                          db.seq_data, bounds, mat.sub_int)
+    theirs = jax_sharded.ShardedAlignDB(
+        jax_sharded.make_mesh(jax.devices()[:4]), db.seq_data, qbias,
+        db.seq_data, bounds, mat.sub_int)
+    from spacedust_tpu.ops.sw_engine import bucket_len
+    starts = np.array([s for s, _ in bounds])[:, None]
+    rng = np.random.default_rng(4)
+
+    def stream(g, reverse):
+        cols = [g[0], g[1], g[2] + starts, g[3], g[4]]
+        cols = [c.reshape(-1) for c in cols]
+        pos = rng.permutation(len(cols[0]))
+        out = np.zeros((6, len(pos)), np.int64)
+        for p, c in ours.run_buckets([(*cols, pos)], 11, 1, reverse):
+            out[:, p] = np.stack(c)
+        return out[:, pos].reshape(6, *g.shape[1:])
+
+    def jax_grid(g, reverse):
+        return theirs.run_grid((bucket_len(int(g[1].max())),
+                                bucket_len(int(g[3].max()))), *g, 11, 1,
+                               reverse=reverse)
+
+    fwd = stream(grid, False)
+    for i, b in enumerate(jax_grid(grid, False)):
+        assert np.array_equal(fwd[i], np.asarray(b))
+    rgrid = grid.copy()
+    rgrid[1], rgrid[3], rgrid[4] = fwd[2] + 1, fwd[1] + 1, fwd[0]
+    rev = stream(rgrid, True)
+    for i, b in zip((0, 4, 5, 3), jax_grid(rgrid, True)):
+        assert np.array_equal(rev[i], np.asarray(b))
+    assert rev[3].all()
+    assert ours.metrics["stages"] == 2
+
+
 def test_stream_puts_results_back_in_job_order(small):
     """The DeviceAlignDB stream over shards: jobs with global target
     offsets, split by shard, give every job its single-engine result
@@ -190,8 +235,14 @@ def test_stream_puts_results_back_in_job_order(small):
     assert np.array_equal(by_pos(sharded.run_buckets(jobs, 11, 1, False)),
                           want)
     m = sharded.metrics
-    assert m["shards"] == 3 and m["stages"] == 1
+    assert m["shards"] == 3 and m["stages"] == 1 and m["cards"] == 1
     assert sum(m["shard_fwd_pairs"]) == n == m["fwd_pairs"]
+    # launches and kernel ms a card, pairs a shard (the plain version
+    # launches nothing)
+    assert m["card_fwd_launches"] == [0] and m["card_fwd_kernel_ms"] == [0.0]
+    assert m["card_rev_block_pairs"] == [0]
+    assert not any(k.startswith("shard_") and not k.endswith("_pairs")
+                   for k in m)
     # masked-copy targets (the --alt-ali rounds), cut at their starts
     tl = db.lengths[tk].astype(np.int64)
     starts = np.cumsum(tl) - tl
@@ -199,6 +250,10 @@ def test_stream_puts_results_back_in_job_order(small):
     view = sharded.with_targets(copy, starts)
     assert view.n_shards == 3
     assert view.tok_starts[0] == 0 and set(view.tok_starts) <= set(starts)
+    # its own shards and pointer table, the resident queries shared
+    assert view.targets[0].tensors == view.tparts
+    assert all(a is b for a, b in zip(view.queries[CPU],
+                                      sharded.queries[CPU]))
     jobs2 = [(db.offsets[qk], db.lengths[qk], starts, tl, np.full(n, -1),
               np.arange(n))]
     assert np.array_equal(by_pos(view.run_buckets(jobs2, 11, 1, False)),

@@ -259,128 +259,169 @@ FAULTS = {
 }
 
 
+def _scores(S, tokens):
+    """(qlen, tlen, cell, tokens) of lane_model's S and tokens."""
+    if tokens is None:
+        qlen, tlen = S.shape
+
+        def cell(srow, tok):
+            return S[srow, tok[:, None]]
+
+        return qlen, tlen, cell, np.arange(tlen)
+    (qlen, cell), tlen = S, len(tokens)
+    return qlen, tlen, cell, tokens
+
+
+def new_trackers():
+    """What a warp carries over its strips: per lane the forward best
+    (lb, lj, li); lane 31's reverse trackers of the last strip."""
+    return {"lb": np.zeros(LANES, np.int64), "lj": np.full(LANES, -1),
+            "li": np.zeros(LANES, np.int64), "best": 0, "bj": -1, "bi": 0,
+            "found": 0, "fj": -1, "fi": 0}
+
+
+def lane_strip(i0, qlen, tlen, cell, tokens, go, ge, term, R, reverse,
+               bin_, bout, acc, fault=None):
+    """One strip (rows i0 .. i0 + 32 R - 1) on one warp, as the CUDA body's
+    sw_strips sweeps it, a generator: it yields ("wait", c0) before it
+    loads the chunk of columns c0 .. c0 + 31 (target tokens and, past the
+    first strip, the boundary in bin_), ("wrote", j) after lane 31 left
+    column j's boundary in bout (every strip but the last) and ("step",
+    s) after wavefront step s, so that a scheduler can interleave warps.
+    acc: the warp's trackers (new_trackers), updated in place."""
+    lane = np.arange(LANES)
+    strip = LANES * R
+    first, last = i0 == 0, qlen - i0 <= strip
+    rows = i0 + lane[:, None] * R + np.arange(R)[None, :]
+    valid = rows < qlen
+    srow = np.minimum(rows, qlen - 1)
+    H = np.zeros((LANES, R), np.int64)
+    E = np.full((LANES, R), NEG, np.int64)
+    sb, sj, si = (np.zeros(LANES, np.int64), np.full(LANES, -1),
+                  np.zeros(LANES, np.int64))
+    diag_up = np.zeros(LANES, np.int64)
+    col_o = np.zeros(LANES, np.int64)        # the target token's stand-in
+    h_o, f_o = np.zeros(LANES, np.int64), np.full(LANES, NEG)
+    c_o, ci_o = np.full(LANES, -1), np.zeros(LANES, np.int64)
+
+    def load_chunk(c0):
+        cols = c0 + lane
+        ok = cols < tlen
+        # a token past tlen is junk
+        tok = np.where(ok, tokens[np.minimum(cols, tlen - 1)], -7)
+        b = np.tile(np.array([0, NEG, -1, 0]), (LANES, 1))
+        if not first:
+            b[ok] = bin_[cols[ok]]
+            if fault == "strip_f_lost":
+                b[:, 1] = NEG
+            if fault == "strip_cmax_lost":
+                b[:, 2:] = (-1, 0)
+        return tok, b
+
+    yield ("wait", 0)
+    nxt = load_chunk(0)
+    for s in range(tlen + LANES - 1):
+        k = s % LANES
+        if k == 0:
+            ctok, cb = nxt
+            yield ("wait", s + LANES)
+            nxt = load_chunk(s + LANES)
+        col = _shfl_up(col_o, ctok[k])
+        hin, fin = _shfl_up(h_o, cb[k, 0]), _shfl_up(f_o, cb[k, 1])
+        if fault == "lane_f_lost":
+            fin[1:] = NEG
+        cin, ciin = _shfl_up(c_o, cb[k, 2]), _shfl_up(ci_o, cb[k, 3])
+        j = s - lane
+        act = (j >= 0) & (j < tlen)
+        # the token travelled right
+        assert (col[act] == tokens[j[act]]).all()
+        sc = cell(srow, np.where(act, col, tokens[0]))
+        F, diag = fin.copy(), diag_up.copy()
+        cmax, ci = cin.copy(), ciin.copy()
+        newH, newE = H.copy(), E.copy()
+        m = np.zeros(LANES, np.int64)
+        for r in range(R):
+            e = np.maximum(E[:, r] - ge, H[:, r] - go)
+            hb = np.maximum(np.maximum(diag + sc[:, r], e), 0)
+            h = np.where(valid[:, r], np.maximum(hb, F), 0)
+            F = np.maximum(F - ge, hb - go)
+            diag = H[:, r]
+            newH[:, r], newE[:, r] = h, e
+            if reverse:
+                up = (h >= cmax if fault == "later_row_takes_tie"
+                      else h > cmax)
+                cmax, ci = (np.where(up, h, cmax),
+                            np.where(up, rows[:, r], ci))
+            else:
+                m = np.maximum(m, h)
+        # commit the active lanes only
+        a2 = act[:, None]
+        H, E = np.where(a2, newH, H), np.where(a2, newE, E)
+        diag_up = np.where(act, hin, diag_up)
+        up = act & (m > sb)
+        first_row = rows[lane, np.argmax(H == m[:, None], axis=1)]
+        sb, sj, si = (np.where(up, m, sb), np.where(up, j, sj),
+                      np.where(up, first_row, si))
+        col_o, h_o, f_o = (np.where(act, col, col_o),
+                           np.where(act, H[:, -1], h_o),
+                           np.where(act, F, f_o))
+        c_o, ci_o = np.where(act, cmax, c_o), np.where(act, ci, ci_o)
+        if act[31]:
+            j31 = int(j[31])
+            if not last:
+                bout[j31] = (h_o[31], f_o[31], c_o[31], ci_o[31])
+                yield ("wrote", j31)
+            elif reverse:
+                if c_o[31] > acc["best"]:
+                    acc["best"], acc["bj"], acc["bi"] = (int(c_o[31]), j31,
+                                                         int(ci_o[31]))
+                if not acc["found"] and c_o[31] == term:
+                    acc["found"], acc["fj"], acc["fi"] = 1, j31, int(ci_o[31])
+        yield ("step", s)
+    lb, lj, li = acc["lb"], acc["lj"], acc["li"]
+    up = sb > lb
+    if fault != "strip_merge_score_only":
+        up |= (sb == lb) & (sj < lj)
+    acc["lb"], acc["lj"], acc["li"] = (np.where(up, sb, lb),
+                                       np.where(up, sj, lj),
+                                       np.where(up, si, li))
+
+
+def warp_merge(acc, fault=None):
+    """The forward lanes' (score, j, i) merged by the xor butterfly;
+    returns the warp's (score, j, i)."""
+    lane = np.arange(LANES)
+    lb, lj, li = acc["lb"], acc["lj"], acc["li"]
+    d = LANES // 2
+    while d:
+        ob, oj, oi = lb[lane ^ d], lj[lane ^ d], li[lane ^ d]
+        rowwise = (oi < li) & (fault != "lane_merge_any_row")
+        up = (ob > lb) | ((ob == lb) & ((oj < lj) | ((oj == lj) & rowwise)))
+        lb, lj, li = (np.where(up, ob, lb), np.where(up, oj, lj),
+                      np.where(up, oi, li))
+        d //= 2
+    assert (lb == lb[0]).all() and (lj == lj[0]).all()
+    return int(lb[0]), int(lj[0]), int(li[0])
+
+
 def lane_model(S, go, ge, term, R, reverse, fault=None, tokens=None):
     """One pair.  S: (qlen, tlen) cell scores, already flipped for the
     reverse pass.  Returns (score, t_end, q_end, found, fj, fi).  fault:
     one of FAULTS, planted.  tokens: the value that travels down the
     lanes for each target column (default: the column's index); when
-    given, S is (qlen, a function of (rows, tokens) -> cell scores)."""
+    given, S is (qlen, a function of (rows, tokens) -> cell scores).
+    One warp sweeps the strips in order, the boundary in place."""
     assert fault is None or fault in FAULTS
-    if tokens is None:
-        qlen, tlen = S.shape
-        tokens = np.arange(tlen)
-
-        def cell(srow, tok):
-            return S[srow, tok[:, None]]
-    else:
-        (qlen, cell), tlen = S, len(tokens)
-    lane = np.arange(LANES)
-    strip = LANES * R
-    lb, lj, li = (np.zeros(LANES, np.int64), np.full(LANES, -1),
-                  np.zeros(LANES, np.int64))
-    best, bj, bi, found, fj, fi = 0, -1, 0, 0, -1, 0
+    qlen, tlen, cell, tokens = _scores(S, tokens)
+    acc = new_trackers()
     bnd = np.zeros((tlen, 4), np.int64)          # lane 31's hand-over
-    for i0 in range(0, qlen, strip):
-        first, last = i0 == 0, qlen - i0 <= strip
-        rows = i0 + lane[:, None] * R + np.arange(R)[None, :]
-        valid = rows < qlen
-        srow = np.minimum(rows, qlen - 1)
-        H = np.zeros((LANES, R), np.int64)
-        E = np.full((LANES, R), NEG, np.int64)
-        sb, sj, si = (np.zeros(LANES, np.int64), np.full(LANES, -1),
-                      np.zeros(LANES, np.int64))
-        diag_up = np.zeros(LANES, np.int64)
-        col_o = np.zeros(LANES, np.int64)        # the target token's stand-in
-        h_o, f_o = np.zeros(LANES, np.int64), np.full(LANES, NEG)
-        c_o, ci_o = np.full(LANES, -1), np.zeros(LANES, np.int64)
-
-        def load_chunk(c0):
-            cols = c0 + lane
-            ok = cols < tlen
-            # a token past tlen is junk
-            tok = np.where(ok, tokens[np.minimum(cols, tlen - 1)], -7)
-            b = np.tile(np.array([0, NEG, -1, 0]), (LANES, 1))
-            if not first:
-                b[ok] = bnd[cols[ok]]
-                if fault == "strip_f_lost":
-                    b[:, 1] = NEG
-                if fault == "strip_cmax_lost":
-                    b[:, 2:] = (-1, 0)
-            return tok, b
-
-        nxt = load_chunk(0)
-        for s in range(tlen + LANES - 1):
-            k = s % LANES
-            if k == 0:
-                ctok, cb = nxt
-                nxt = load_chunk(s + LANES)
-            col = _shfl_up(col_o, ctok[k])
-            hin, fin = _shfl_up(h_o, cb[k, 0]), _shfl_up(f_o, cb[k, 1])
-            if fault == "lane_f_lost":
-                fin[1:] = NEG
-            cin, ciin = _shfl_up(c_o, cb[k, 2]), _shfl_up(ci_o, cb[k, 3])
-            j = s - lane
-            act = (j >= 0) & (j < tlen)
-            # the token travelled right
-            assert (col[act] == tokens[j[act]]).all()
-            sc = cell(srow, np.where(act, col, tokens[0]))
-            F, diag = fin.copy(), diag_up.copy()
-            cmax, ci = cin.copy(), ciin.copy()
-            newH, newE = H.copy(), E.copy()
-            m = np.zeros(LANES, np.int64)
-            for r in range(R):
-                e = np.maximum(E[:, r] - ge, H[:, r] - go)
-                hb = np.maximum(np.maximum(diag + sc[:, r], e), 0)
-                h = np.where(valid[:, r], np.maximum(hb, F), 0)
-                F = np.maximum(F - ge, hb - go)
-                diag = H[:, r]
-                newH[:, r], newE[:, r] = h, e
-                if reverse:
-                    up = (h >= cmax if fault == "later_row_takes_tie"
-                          else h > cmax)
-                    cmax, ci = (np.where(up, h, cmax),
-                                np.where(up, rows[:, r], ci))
-                else:
-                    m = np.maximum(m, h)
-            # commit the active lanes only
-            a2 = act[:, None]
-            H, E = np.where(a2, newH, H), np.where(a2, newE, E)
-            diag_up = np.where(act, hin, diag_up)
-            up = act & (m > sb)
-            first_row = rows[lane, np.argmax(H == m[:, None], axis=1)]
-            sb, sj, si = (np.where(up, m, sb), np.where(up, j, sj),
-                          np.where(up, first_row, si))
-            col_o, h_o, f_o = (np.where(act, col, col_o),
-                               np.where(act, H[:, -1], h_o),
-                               np.where(act, F, f_o))
-            c_o, ci_o = np.where(act, cmax, c_o), np.where(act, ci, ci_o)
-            if act[31]:
-                j31 = int(j[31])
-                if not last:
-                    bnd[j31] = (h_o[31], f_o[31], c_o[31], ci_o[31])
-                elif reverse:
-                    if c_o[31] > best:
-                        best, bj, bi = int(c_o[31]), j31, int(ci_o[31])
-                    if not found and c_o[31] == term:
-                        found, fj, fi = 1, j31, int(ci_o[31])
-        up = sb > lb
-        if fault != "strip_merge_score_only":
-            up |= (sb == lb) & (sj < lj)
-        lb, lj, li = np.where(up, sb, lb), np.where(up, sj, lj), np.where(
-            up, si, li)
+    for i0 in range(0, qlen, LANES * R):
+        for _ in lane_strip(i0, qlen, tlen, cell, tokens, go, ge, term, R,
+                            reverse, bnd, bnd, acc, fault):
+            pass
     if not reverse:
-        d = LANES // 2
-        while d:
-            ob, oj, oi = lb[lane ^ d], lj[lane ^ d], li[lane ^ d]
-            rowwise = (oi < li) & (fault != "lane_merge_any_row")
-            up = (ob > lb) | ((ob == lb) & ((oj < lj)
-                                            | ((oj == lj) & rowwise)))
-            lb, lj, li = (np.where(up, ob, lb), np.where(up, oj, lj),
-                          np.where(up, oi, li))
-            d //= 2
-        assert (lb == lb[0]).all() and (lj == lj[0]).all()
-        best, bj, bi = int(lb[0]), int(lj[0]), int(li[0])
-    return best, bj, bi, found, fj, fi
+        return (*warp_merge(acc, fault), 0, -1, 0)
+    return tuple(acc[k] for k in ("best", "bj", "bi", "found", "fj", "fi"))
 
 
 def _job_scores(q, qb, t, sub, job, reverse):
