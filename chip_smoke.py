@@ -92,20 +92,29 @@ the kernels line, the card and the result.
                 9,000 and a 40,000 x 600 pair; all six outputs equal.  Then
                 every compiled class on edge_batch_prof (edge_batch's pairs
                 as profile rows, noise off the planted pairs), as in
-                phase 3;
+                phase 3.  Then the profile reverse stage's block path
+                (sw_reverse_prof_block) with every pair forced onto it at
+                each width W and class R, on the batch's reverse jobs and on
+                block_edge_batch_prof (whole pairs and prefixes), and the
+                engine's mixed plan (long pairs on the block path, the rest
+                on the warp kernel) through sw_reverse_prof; all six
+                outputs equal;
  11. profile-small -- through the CLI on the small set: createsetdb,
                 clusterdb (and --single-step-clustering 0), each ClusterDB
                 equal to the JAX-recorded directory
                 tests/fixtures/torch_port_small_clu{,_cascade} (clusters,
                 every array, the clu_aln lines), then clustersearch
                 --filter-self-match --profile-cluster-search --cluster-db
-                over the port's directory and over the JAX-written one: both
-                TSVs equal tests/fixtures/torch_port_small_profile.tsv byte
-                for byte, and the prof kernels and K1/K2 launch;
+                over the port's directory and over the JAX-written one, on
+                --device cuda:0 (a card named by its index): both TSVs equal
+                tests/fixtures/torch_port_small_profile.tsv byte for byte,
+                and K1/K2 and the prof kernels launch (the reverse stage on
+                its warp kernel, its block path or both);
  12. profile-real -- clusterdb and the profile cluster search through
                 cluster_db / cluster_search_to_file on the real-size set,
                 counters reset just before and read just after (both prof
-                kernels and K1/K2 must launch), held to invariants: every
+                kernels, the profile reverse stage's block path and K1/K2
+                must launch), held to invariants: every
                 key in exactly one cluster, every representative's clu_aln
                 holding its self alignment, every representative of >= 100
                 aa finding its own profile with E < 1e-10;
@@ -114,11 +123,16 @@ the kernels line, the card and the result.
                 set (synth.py --size families: chains of divergence, where
                 the profile round adds records): each TSV equal to
                 tests/fixtures/torch_port_{small,families}_iterN.tsv byte for
-                byte; K1/K2 and both prof kernels must launch;
+                byte; K1/K2, the forward profile kernel and the profile
+                reverse stage's (its warp kernel, its block path or both:
+                a small stage's pairs may all exceed its even share of the
+                card) must launch;
  14. iterative-real -- `search --num-iterations 2` through the CLI on the
                 real-size set, counters reset just before and read just
-                after (K1/K2 and both prof kernels must launch), held to
-                invariants: every gene of >= 100 aa finds itself with
+                after (K1/K2, the forward profile kernel and the profile
+                reverse stage's block path must launch), held to
+                invariants: every
+                gene of >= 100 aa finds itself with
                 E < 1e-10; no round-1 record's target is one that round 0
                 found at E <= --e-profile; every record of round 0 carries
                 the score and E-value the acceptance pass gave it.  Prints
@@ -180,7 +194,11 @@ the kernels line, the card and the result.
                 stage (bound_ms: the larger of its bytes over the memory
                 rate and its integer instructions over the int32
                 instruction rate).  For each stage also the longest pair
-                alone and what the classes of query rows per lane buy.
+                alone and what the classes of query rows per lane buy.  For
+                B10 reverse also the card's fork to join with the block
+                launch and the short launch beside each other, at each width
+                W; the stage on the warp kernel alone in one launch; its
+                longest pair on one warp and on a block at each W.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object {"kernels": [...]}; the last line is
@@ -261,6 +279,9 @@ B8_KERNELS = {
     "fwd_block": ("sw_forward_shards_block", "FORWARD_BLOCK_LAUNCHES"),
     "rev_shards": ("sw_reverse_shards", "REVERSE_SHARDS_LAUNCHES"),
     "rev_block": ("sw_reverse_shards_block", "REVERSE_BLOCK_LAUNCHES")}
+# the profile reverse stage's block path (B10 reverse, its long pairs):
+# (C entry point, launch counter)
+PROF_BLOCK = ("sw_reverse_prof_block", "REVERSE_PROF_BLOCK_LAUNCHES")
 PROF_COLS = 21          # profile columns a residue (20 amino acids and X)
 GATHER = "spacedust_tpu/ops/sw_engine.py:82"     # fused into the kernels
 
@@ -740,6 +761,24 @@ def edge_batch_prof(rows: int, sub: np.ndarray, seed: int = SEED):
     return [prof.reshape(-1), t], jobs, expect
 
 
+def block_edge_batch_prof(rows: int, warps: int, sub: np.ndarray,
+                          seed: int = SEED):
+    """block_edge_batch as profile rows, as edge_batch_prof makes them
+    (the row sub[q_i] + bias_i, noise in -3..3 off the planted pairs).
+    Returns resident (profile rows, targets), the forward jobs and the
+    planted ties' results."""
+    q, b, t, jobs, expect = block_edge_batch(rows, warps, sub, seed + 300)
+    prof = (sub[q].astype(np.int32) + b[:, None]).astype(np.int8)
+    rng = np.random.default_rng(seed + 500 + 100 * warps + rows)
+    for p in range(jobs.shape[1]):
+        if p in expect:
+            continue
+        off, n = jobs[:2, p]
+        noise = rng.integers(-3, 4, (n, PROF_COLS))
+        prof[off:off + n] = (prof[off:off + n] + noise).astype(np.int8)
+    return [prof.reshape(-1), t], jobs, expect
+
+
 def reverse_jobs(jobs: np.ndarray, fwd: np.ndarray) -> np.ndarray:
     """Reverse-pass jobs for the pairs with a positive forward score:
     prefixes [0..q_end] x [0..t_end], terminate = the forward score."""
@@ -909,6 +948,75 @@ def check_kernels_prof(sub: torch.Tensor, errs: dict) -> None:
     check_batch("kernels-prof", resident, jobs, GO, ("fwd_prof", "rev_prof"),
                 errs)
     check_edges([sub], errs, cell="prof")
+    check_prof_block(sub, resident, jobs, errs)
+
+
+def check_prof_block(sub: torch.Tensor, resident: list, jobs: np.ndarray,
+                     errs: dict) -> None:
+    """sw_reverse_prof_block, the profile reverse stage's block path,
+    against the plain version at tolerance 0: with every pair forced onto
+    it (sw_reverse_prof(force=True, rows=R)) at each compiled width W and
+    class R, on kernel_batch_prof's reverse jobs and on
+    block_edge_batch_prof (reverse on the whole pairs, terminate = their
+    score, and on the derived prefixes; the planted ties of the forward
+    pass where the design puts them); then the engine's own mixed plan
+    (long pairs on the block path, the rest on the warp kernel) through
+    the public wrapper on kernel_batch_prof's reverse jobs."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.ops.sw import sw_prof_jobs_ref
+    dev = sub.device
+    tab = sub.cpu().numpy().astype(np.int32)
+
+    def held(res, js, what, ref=None, **kw):
+        got = sw_cuda.sw_reverse_prof(*res, js, GO, GE, **kw)
+        if ref is None:
+            ref = sw_prof_jobs_ref(*res, js, GO, GE, True)
+        errs["rev_prof_block"] = max(errs["rev_prof_block"],
+                                     compare(what, got, ref))
+        if not bool(got[3].all()):
+            fail(f"{what}: a reverse job missed its terminate score")
+
+    # the forward kernel, held to the plain version by check_batch
+    fwd = sw_cuda.sw_forward_prof(*resident, jobs, GO, GE).cpu().numpy()
+    rjobs = reverse_jobs(jobs, fwd)
+    rref = sw_prof_jobs_ref(*resident, rjobs, GO, GE, True)
+    t0 = time.perf_counter()
+    for warps in sw_cuda.BLOCK_WARP_CHOICES:
+        for rows in sw_cuda.LANE_ROWS:
+            held(resident, rjobs, f"kernels-prof block W={warps} R={rows}",
+                 rref, warps=warps, force=True, rows=rows)
+            arrays, ejobs, expect = block_edge_batch_prof(rows, warps, tab)
+            res = [torch.from_numpy(a).to(dev) for a in arrays]
+            efwd = sw_cuda.sw_forward_prof(*res, ejobs, GO, GE).cpu().numpy()
+            for p, want in expect.items():
+                if tuple(efwd[:3, p]) != want:
+                    fail(f"prof block edges W={warps} R={rows}: planted tie "
+                         f"{p} gave {tuple(efwd[:3, p])}, the design says "
+                         f"{want}")
+            whole = ejobs.copy()
+            whole[4] = efwd[0]
+            for js, what in ((whole, "whole"),
+                             (reverse_jobs(ejobs, efwd), "prefix")):
+                held(res, js, f"prof block edges W={warps} R={rows} {what}",
+                     warps=warps, force=True, rows=rows)
+    print(f"[kernels-prof] sw_reverse_prof_block, every pair forced onto "
+          f"it at W = {sw_cuda.BLOCK_WARP_CHOICES} and every class: "
+          f"{rjobs.shape[1]} reverse pairs of the seeded batch and "
+          f"block_edge_batch_prof (whole pairs and prefixes, planted ties "
+          f"where the design puts them), all six outputs equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+    ev: dict = {}
+    before = sw_cuda.REVERSE_PROF_BLOCK_LAUNCHES
+    held(resident, rjobs, "kernels-prof mixed plan", rref, events=ev)
+    n_long = ev["n_long"]
+    if not (0 < n_long < rjobs.shape[1]) or \
+            sw_cuda.REVERSE_PROF_BLOCK_LAUNCHES != before + 1:
+        fail(f"kernels-prof: the mixed plan put {n_long} of "
+             f"{rjobs.shape[1]} pairs on the block path")
+    print(f"[kernels-prof] sw_reverse_prof, the engine's plan: {n_long} of "
+          f"{rjobs.shape[1]} pairs on the block path (W = "
+          f"{sw_cuda.BLOCK_WARPS}), the rest on the warp kernel, all six "
+          f"outputs equal")
 
 
 def check_kernels_struct(dev: torch.device, errs: dict) -> None:
@@ -946,7 +1054,21 @@ def small_slice(work: Path) -> None:
 def read_counts() -> dict:
     from spacedust_tpu_torch.ops import sw_cuda
     return {**{d: getattr(sw_cuda, k[2]) for d, k in KERNELS.items()},
-            **{d: getattr(sw_cuda, k[1]) for d, k in B8_KERNELS.items()}}
+            **{d: getattr(sw_cuda, k[1]) for d, k in B8_KERNELS.items()},
+            "rev_prof_block": getattr(sw_cuda, PROF_BLOCK[1])}
+
+
+def prof_unlaunched(launched: dict, block: bool = False) -> list:
+    """What a profile path did not launch of K1/K2, the forward profile
+    kernel and the profile reverse stage's kernels: its short pairs' warp
+    kernel or its block path, either of which may take the whole stage (a
+    small stage's pairs may all exceed its even share of the card), and
+    with `block` the block path itself."""
+    need = ["fwd", "rev", "fwd_prof"] + (["rev_prof_block"] if block else [])
+    missed = [d for d in need if launched[d] <= 0]
+    if launched["rev_prof"] + launched["rev_prof_block"] <= 0:
+        missed.append("rev_prof or rev_prof_block")
+    return missed
 
 
 @contextlib.contextmanager
@@ -1389,15 +1511,16 @@ def profile_small(work: Path) -> None:
     want = (fixtures / "torch_port_small_profile.tsv").read_bytes()
     for cdir in (db + "_clu", fixtures / "torch_port_small_clu"):
         out = work / "prof_small.tsv"
+        # an explicit card index: the launches enter the card they name
         run_cli(["clustersearch", db, db, str(out), "--filter-self-match",
                  "--profile-cluster-search", "--cluster-db", str(cdir),
-                 "--device", "cuda"])
+                 "--device", "cuda:0"])
         if out.read_bytes() != want:
             fail(f"profile-small: the TSV over {cdir} differs from "
                  f"torch_port_small_profile.tsv")
     launched = {d: n - before[d] for d, n in read_counts().items()}
-    if any(launched[d] <= 0 for d in ("fwd", "rev", "fwd_prof", "rev_prof")):
-        fail(f"profile-small did not launch K1/K2 and both prof kernels: "
+    if prof_unlaunched(launched):
+        fail(f"profile-small did not launch {prof_unlaunched(launched)}: "
              f"{launched}")
     print(f"[profile-small] clusterdb (both clusterings) equal to the JAX "
           f"directories; the profile search over the port's and over the "
@@ -1437,9 +1560,9 @@ def profile_real(work: Path, dev: torch.device) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         t_search = time.perf_counter() - t0
         launches = read_counts()
-    if any(launches[d] <= 0 for d in ("fwd", "rev", "fwd_prof", "rev_prof")):
-        fail(f"profile-real did not launch K1/K2 and both prof kernels: "
-             f"{launches}")
+    if prof_unlaunched(launches, block=True) or launches["rev_prof"] <= 0:
+        fail(f"profile-real did not launch K1/K2, both prof kernels and the "
+             f"profile reverse stage's block path: {launches}")
     keys = sorted(k for ms in cdb.clusters.values() for k in ms)
     if keys != list(range(db.size)) or sorted(cdb.clusters) != cdb.rep_keys:
         fail("profile-real: the clusters do not hold every key exactly once")
@@ -1523,8 +1646,8 @@ def iterative_small(work: Path) -> None:
             print(f"[iterative-small] {size}, {n} iterations: records a "
                   f"round {[m['records'] for m in rounds]}, equal to {name}")
     launched = {d: k - before[d] for d, k in read_counts().items()}
-    if any(launched[d] <= 0 for d in ("fwd", "rev", "fwd_prof", "rev_prof")):
-        fail(f"iterative-small did not launch K1/K2 and both prof kernels: "
+    if prof_unlaunched(launched):
+        fail(f"iterative-small did not launch {prof_unlaunched(launched)}: "
              f"{launched}")
     print(f"[iterative-small] launches {launched} "
           f"({time.perf_counter() - t0:.1f} s)")
@@ -1598,9 +1721,9 @@ def iterative_real(work: Path) -> dict:
         alignment.AlignmentEngine.forward_accepts = forward_accepts
         iterative.PrefilterEngine = engine
     peak = peak_rss_mb()
-    if any(launches[d] <= 0 for d in ("fwd", "rev", "fwd_prof", "rev_prof")):
-        fail(f"iterative-real did not launch K1/K2 and both prof kernels: "
-             f"{launches}")
+    if prof_unlaunched(launches, block=True):
+        fail(f"iterative-real did not launch "
+             f"{prof_unlaunched(launches, block=True)}: {launches}")
     lines = collections.defaultdict(list)
     for ln in out.read_text().splitlines():
         c = ln.split("\t")
@@ -1798,10 +1921,12 @@ def check_block_edges(sub: torch.Tensor, errs: dict) -> None:
 
             def both(reverse, js6, what):
                 d = "rev_block" if reverse else "fwd_block"
-                got = sw_cuda._launch_shards(
+                got = sw_cuda._launch_split(
                     reverse, (qd, bd, targets, sub),
                     sw_cuda.shard_plan(js6, reverse, warps, force=True,
-                                       rows=rows), GO, GE, warps=warps)
+                                       rows=rows,
+                                       card_warps=sw_cuda.card_warps(dev)),
+                    GO, GE, warps=warps)
                 ref = sw_shards_jobs_ref(qd, bd, targets.tensors, sub, js6,
                                          GO, GE, reverse)
                 errs[d] = max(errs[d], compare(
@@ -1979,7 +2104,8 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
     for p, c in run():
         got[:, p] = np.stack(c)
     got = got[:, pos]
-    plan = sw_cuda.shard_plan(js, reverse)
+    plan = sw_cuda.shard_plan(js, reverse,
+                              card_warps=sw_cuda.card_warps(qdata.device))
     long_js = js[:, plan.order[:plan.n_long]]
     short_js = js[:, plan.order[plan.n_long:]]
     ref = np.zeros((6, n), np.int64)
@@ -2032,9 +2158,11 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
         reverse, shard_res, sw_cuda.warp_plan(
             np.ascontiguousarray(one[:5]), sw_cuda.WARP_SCRATCH[reverse]),
         go, ge))
-    block_ms = {w: event_ms(lambda w=w: sw_cuda._launch_shards(
+    block_ms = {w: event_ms(lambda w=w: sw_cuda._launch_split(
         reverse, (qdata, qbias, targets, sub),
-        sw_cuda.shard_plan(one, reverse, w, force=True), go, ge, warps=w))
+        sw_cuda.shard_plan(one, reverse, w, force=True,
+                           card_warps=sw_cuda.card_warps(qdata.device)),
+        go, ge, warps=w))
         for w in sw_cuda.BLOCK_WARP_CHOICES}
     rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
                for w in sw_cuda.BLOCK_WARP_CHOICES}
@@ -2357,16 +2485,25 @@ def event_ms(fn, reps: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def card_ms(fn, reps: int = 3) -> dict:
+    """Milliseconds of each pair of events a launcher records into its
+    `events` dict ("card", and "long" / "short" where the stage takes the
+    block path), fn(events=...) called reps times after a warm one."""
+    fn(events={})
+    events = [{} for _ in range(reps)]
+    for ev in events:
+        fn(events=ev)
+    torch.cuda.synchronize()
+    return {k: sum(e[k][0].elapsed_time(e[k][1]) for e in events) / reps
+            for k, v in events[0].items() if isinstance(v, tuple)}
+
+
 def launch_ms(fn, args: tuple, reps: int = 3) -> float:
     """Milliseconds of a wrapper's launches alone, by the events it
-    records round them (after its job table is on the card), over reps
-    calls after a warm one."""
-    fn(*args)
-    events: list = []
-    for _ in range(reps):
-        fn(*args, events=events)
-    torch.cuda.synchronize()
-    return sum(e0.elapsed_time(e1) for e0, e1 in events) / reps
+    records round them (after its job table is on the card; from the fork
+    to the join where the stage takes the block path), over reps calls
+    after a warm one."""
+    return card_ms(lambda events: fn(*args, events=events), reps)["card"]
 
 
 def stage_detail(d: str, args: tuple) -> None:
@@ -2460,6 +2597,96 @@ def time_stages(stages: dict, launches: dict, errs: dict,
     return report
 
 
+def time_prof_block(args: tuple, launches: dict, errs: dict,
+                    card: str) -> dict:
+    """B10 reverse on the main path's largest profile reverse stage, all
+    in this call: the card's fork-to-join ms of sw_reverse_prof, its block
+    launch and its short launch beside each other, at the wrappers' width
+    and at each compiled width W; the same stage on the warp kernel alone
+    in one launch (the route before the block path); the stage's longest
+    pair alone on one warp and on a block at each W; the block pairs'
+    outputs against the plain version (host clock).  Returns the kernels
+    line's entry of sw_reverse_prof_block."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.ops.sw import sw_prof_jobs_ref
+    qprof, tdata, jobs, go, ge = args
+    resident = (qprof, tdata)
+
+    def stage(w):
+        return card_ms(lambda events: sw_cuda.sw_reverse_prof(
+            *args, events=events, warps=w))
+
+    by_w = {w: stage(w) for w in sw_cuda.BLOCK_WARP_CHOICES}
+    ms = by_w[sw_cuda.BLOCK_WARPS]
+    one_launch = card_ms(lambda events: sw_cuda._launch_warp(
+        True, resident, sw_cuda.warp_plan(jobs, sw_cuda.WARP_SCRATCH[True]),
+        go, ge, events))["card"]
+    plan = sw_cuda.shard_plan(
+        np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]), True,
+        card_warps=sw_cuda.card_warps(qprof.device))
+    cols = plan.order[:plan.n_long]
+    long_js = np.ascontiguousarray(jobs[:, cols])
+    got = sw_cuda.sw_reverse_prof(*args)[:, torch.from_numpy(cols).to(
+        qprof.device)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = sw_prof_jobs_ref(*resident, long_js, go, ge, True)
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t0)
+    err = max(errs["rev_prof_block"],
+              compare("main-path rev_prof block pairs", got, ref))
+    top = int(np.argmax(jobs[1] * jobs[3]))
+    one = np.ascontiguousarray(jobs[:, top:top + 1])
+    warp_ms = card_ms(lambda events: sw_cuda._launch_warp(
+        True, resident, sw_cuda.warp_plan(one, sw_cuda.WARP_SCRATCH[True]),
+        go, ge, events))["card"]
+    block_ms = {w: card_ms(lambda events, w=w: sw_cuda.sw_reverse_prof(
+        qprof, tdata, one, go, ge, events=events, warps=w,
+        force=True))["card"] for w in sw_cuda.BLOCK_WARP_CHOICES}
+    b_ms, b_by = bound_ms("rev_prof", long_js)
+    s_ms, _ = bound_ms("rev_prof", jobs)
+    print(f"[timing] B10 rev, the main path's largest profile reverse "
+          f"stage, {jobs.shape[1]} pairs, {cells(jobs) / 1e9:.3f} G cells, "
+          f"{plan.n_long} on the block path (W={sw_cuda.BLOCK_WARPS}): the "
+          f"card's fork to join {ms['card']:.2f} ms = block launch "
+          f"{ms.get('long', 0):.2f} ms beside the short launch "
+          f"{ms.get('short', 0):.2f} ms; the stage on sw_reverse_prof alone, "
+          f"one launch {one_launch:.2f} ms; bound {s_ms:.2f} ms "
+          f"({s_ms / ms['card']:.1%} of it reached); block pairs "
+          f"{cells(long_js) / 1e9:.3f} G cells, bound {b_ms:.2f} ms by "
+          f"{b_by}, plain {p_ms:.2f} ms, equal; {card}")
+    for w, m in by_w.items():
+        print(f"[timing] B10 rev stage at W={w}: card {m['card']:.2f} ms, "
+              f"block launch {m.get('long', 0):.2f} ms, short launch "
+              f"{m.get('short', 0):.2f} ms; {card}")
+    rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
+               for w in sw_cuda.BLOCK_WARP_CHOICES}
+    print(f"[timing] B10 rev stage's longest pair ({int(one[1, 0])} x "
+          f"{int(one[3, 0])}, {cells(one) / 1e6:.1f} M cells) alone: one "
+          f"warp {warp_ms:.2f} ms; block path "
+          + ", ".join(f"W={w} (R={rows_of[w]}) {t:.2f} ms"
+                      for w, t in block_ms.items()) + f"; {card}")
+    k_ms = ms.get("long")
+    return {
+        "name": PROF_BLOCK[0], "route": "cuda",
+        "source": "spacedust_tpu_torch/csrc/sw.cu",
+        "replaces": KERNELS["rev_prof"][1],
+        "launches": launches["rev_prof_block"], "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "share_of_bound": b_ms / k_ms if k_ms else None,
+        "pairs": int(plan.n_long), "cells": cells(long_js),
+        "block_warps": sw_cuda.BLOCK_WARPS,
+        "stage_card_ms": ms["card"], "stage_short_ms": ms.get("short"),
+        "stage_bound_ms": s_ms, "stage_share_of_bound": s_ms / ms["card"],
+        "stage_card_ms_by_warps": {w: m["card"] for w, m in by_w.items()},
+        "stage_block_ms_by_warps": {w: m.get("long")
+                                    for w, m in by_w.items()},
+        "stage_one_warp_launch_ms": one_launch,
+        "longest_pair_one_warp_ms": warp_ms,
+        "longest_pair_block_ms_by_warps": block_ms}
+
+
 def parse_phases(argv: list) -> tuple:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2509,7 +2736,7 @@ def main(argv: list | None = None) -> int:
 
     sub = torch.from_numpy(
         load_substitution_matrix().sub_int.astype(np.int8)).to(dev)
-    errs = dict.fromkeys([*KERNELS, *B8_KERNELS], 0)
+    errs = dict.fromkeys([*KERNELS, *B8_KERNELS, "rev_prof_block"], 0)
     launches: dict = {}
     stages: dict = {}
     if "kernels" in phases:
@@ -2537,7 +2764,8 @@ def main(argv: list | None = None) -> int:
         if "profile-real" in phases:
             p_launches, p_stages = profile_real(Path(tmp), dev)
             launches.update({d: p_launches[d]
-                             for d in ("fwd_prof", "rev_prof")})
+                             for d in ("fwd_prof", "rev_prof",
+                                       "rev_prof_block")})
             stages.update(p_stages)
         if "iterative-small" in phases:
             iterative_small(Path(tmp))
@@ -2557,6 +2785,8 @@ def main(argv: list | None = None) -> int:
             entry_phase(errs)
     report = (time_stages(stages, launches, errs, card)
               if "timing" in phases else [])
+    prof_block = (time_prof_block(stages["rev_prof"], launches, errs, card)
+                  if "timing" in phases and "rev_prof" in stages else None)
     torch.cuda.synchronize()
     if phases != PHASES:
         print(f"[partial] phases {','.join(phases)} passed; no result line "
@@ -2590,6 +2820,13 @@ def main(argv: list | None = None) -> int:
         if mh_launches[key] <= 0:
             fail(f"the multihost path did not launch {entry['name']}")
     report += b8
+    # the profile reverse stage's block path: its launches in the profile
+    # search (the main path of this slice, checked in profile-real) and in
+    # the other paths that build a profile engine
+    prof_block.update(launches_profile=p_launches["rev_prof_block"],
+                      launches_iterative=it_launches["rev_prof_block"],
+                      launches_split=split_launches["rev_prof_block"])
+    report.append(prof_block)
 
     print(json.dumps({"kernels": report}))
     print(card_line())

@@ -17,7 +17,9 @@ with `search --num-iterations > 1`; every protein-search flag with
 with `clustersearch --split-memory-limit`; the flags of the other search
 paths with `--multihost > 1`; `--multihost-local-devices` without
 `--multihost > 1`; `--gff-type` and `--translation-table` without
-`--gff-dir`.
+`--gff-dir`; `-s`, `--gap-open`, `--gap-extend`, `--aln-len`,
+`--max-accept`, `--max-rejected` and `--alt-ali` with `clustersearch
+--search-mode 2`.
 
 Run as `python -m spacedust_tpu_torch <command> ...`.
 """
@@ -65,7 +67,15 @@ DROPPED = (
       "format_output": DEFAULT_FORMAT}),
     ("gff_dir", lambda v: v is None, "protein input (no --gff-dir)",
      {"gff_type": "CDS", "translation_table": 1}),
+    # the structure search forwards -e, -c, --cov-mode and --max-seqs only
+    # (workflow/clustersearch.py::_structure_params); --search-mode 1 takes
+    # these flags for its unmapped genes' sequence search
+    ("search_mode", lambda v: v == 2, "--search-mode 2",
+     {"sensitivity": 5.7, "gap_open": 11, "gap_extend": 1, "aln_len_thr": 30,
+      "max_accept": _INT_MAX, "max_rejected": _INT_MAX, "alt_ali": 0}),
 )
+# the flag of a dest whose name is not the flag's
+_FLAG = {"kmer_size": "-k", "sensitivity": "-s", "aln_len_thr": "--aln-len"}
 
 
 def _check_dropped(p: argparse.ArgumentParser, a: argparse.Namespace
@@ -77,8 +87,7 @@ def _check_dropped(p: argparse.ArgumentParser, a: argparse.Namespace
             continue
         for dest, default in flags.items():
             if hasattr(a, dest) and getattr(a, dest) != default:
-                flag = "-k" if dest == "kmer_size" else (
-                    "--" + dest.replace("_", "-"))
+                flag = _FLAG.get(dest, "--" + dest.replace("_", "-"))
                 val = getattr(a, dest)
                 shown = flag if val is True else f"{flag} {val}"
                 p.error(f"{shown} has no effect with {path}; leave it at "

@@ -132,9 +132,9 @@
 // shard-local), the pairs sorted longest first across the shards; the
 // few pairs that would outlast an even share of the stage on one warp
 // (ops/sw_cuda.py::shard_plan) take the block path, sw_forward_shards_
-// block / sw_reverse_shards_block (sw_block_kernel<kReverse, W>, a block
-// of W warps a pair), launched first on a side stream so that its blocks
-// are resident before the short launch fills the card.
+// block / sw_reverse_shards_block (sw_block_kernel<kReverse, kSeqCell,
+// W>, a block of W warps a pair), launched first on a side stream so that
+// its blocks are resident before the short launch fills the card.
 //   * Why: a lone warp floors a stage at its longest pair (~21.5 ms for
 //     5,917 x 5,496), while one SM could run ~10.6 G reverse cells/s (64
 //     int32 lanes x 1.98 GHz / 12).  Warp w of the block sweeps strips
@@ -170,6 +170,20 @@
 //   * W in {4, 8, 16} is a template argument; __launch_bounds__(32 W,
 //     16 / W) keeps a thread at 128 registers whatever W, so R = 16 holds
 //     its rows without spilling.
+//
+// The profile reverse stage (B10 reverse, sw_reverse_prof) takes the same
+// split: its few long pairs go to sw_reverse_prof_block (sw_block_kernel<
+// true, kProfCell, W>) on the side stream, the rest to sw_reverse_prof, as
+// ops/sw_cuda.py plans a stage of one shard.  What differs is the cell:
+//   * a lane stages its R profile rows into its warp's region at each
+//     strip's start and reads them for the strip's columns (see above), so
+//     each warp of the block needs a region of its own: warp w sweeps
+//     strips w, w + W, ..., and a region shared with another warp would be
+//     overwritten by that warp's next strip while this one still reads it.
+//     W regions of kProfRegion bytes (43,008 / 86,016 / 172,032 bytes at
+//     W = 4 / 8 / 16) are dynamic shared memory, the opt-in limit raised
+//     by sw_load on every card it readies;
+//   * the targets are one array (no shard row), and there is no table.
 
 #include <cstdint>
 #include <type_traits>
@@ -509,6 +523,8 @@ __device__ __forceinline__ void sw_warp_pair(
 // (Ring); ring: the pair's two slots of tlen boundary columns; prog and
 // s_best: W ints and W int3 of shared memory, prog zeroed before.  Every
 // warp reaches the forward merge's barrier, with or without a strip.
+// s_tab: the score table (kSeqCell) or the calling warp's profile region
+// (kProfCell).
 template <bool kReverse, int kCell, int R, int W>
 __device__ __forceinline__ void sw_block_pair(
     const int8_t* s_tab, const uint8_t* __restrict__ qdata,
@@ -516,7 +532,8 @@ __device__ __forceinline__ void sw_block_pair(
     int64_t qoff, int qlen, int64_t toff, int tlen, int term, int go,
     int ge, typename Boundary<kReverse>::type* ring, int* prog,
     int3* s_best, int32_t* __restrict__ out, int64_t out_stride) {
-  static_assert(kCell == kSeqCell, "the block path serves the sequence cell");
+  static_assert(kCell != kStructCell,
+                "the block path serves the sequence and profile cells");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int lb = 0, lj = -1, li = 0;
   int best = 0, bj = -1, bi = 0;
@@ -630,20 +647,25 @@ sw_shards_kernel(const uint8_t* __restrict__ qdata,
 
 // Its long pairs (the block path): block p sweeps pair p on W warps.
 // jobs rows as above; soff is the pair's ring, two slots of tlen columns.
+// targets: the device array of the card's shard pointers, pair p's
+// tokens at targets[jobs[7][p]] (kSeqCell), or the one target array
+// (kProfCell, whose W profile regions are the dynamic shared memory).
 // At most 128 registers a thread whatever W, as the warp kernels.
-template <bool kReverse, int W>
+template <bool kReverse, int kCell, int W>
 __global__ void __launch_bounds__(32 * W, 16 / W)
 sw_block_kernel(const uint8_t* __restrict__ qdata,
                 const int8_t* __restrict__ qbias,
-                const uint8_t* const* __restrict__ tbase,
+                const void* __restrict__ targets,
                 const int8_t* __restrict__ sub, int alpha,
                 const int64_t* __restrict__ jobs, int64_t job_stride, int n,
                 int go, int ge, void* scratch, int32_t* __restrict__ out,
                 int64_t out_stride) {
-  __shared__ int8_t s_tab[kTable];
+  constexpr bool kProf = kCell == kProfCell;
+  __shared__ int8_t s_tab[kProf ? 1 : kTable];
+  extern __shared__ __align__(16) int8_t s_regions[];
   __shared__ int s_prog[W];
   __shared__ int3 s_best[W];
-  load_table(s_tab, sub, alpha);
+  if constexpr (!kProf) load_table(s_tab, sub, alpha);
   if (threadIdx.x < W) s_prog[threadIdx.x] = 0;
   __syncthreads();
   const int p = blockIdx.x;
@@ -654,12 +676,21 @@ sw_block_kernel(const uint8_t* __restrict__ qdata,
   const int tlen = static_cast<int>(jobs[3 * job_stride + p]);
   const int term = static_cast<int>(jobs[4 * job_stride + p]);
   const int rows = static_cast<int>(jobs[5 * job_stride + p]);
-  const uint8_t* tdata = tbase[jobs[7 * job_stride + p]];
+  const uint8_t* tdata;
+  const int8_t* s_cell;
+  if constexpr (kProf) {
+    tdata = static_cast<const uint8_t*>(targets);
+    s_cell = s_regions + (threadIdx.x >> 5) * kProfRegion;
+  } else {
+    tdata = static_cast<const uint8_t* const*>(
+        targets)[jobs[7 * job_stride + p]];
+    s_cell = s_tab;
+  }
   auto* ring = static_cast<typename Boundary<kReverse>::type*>(scratch) +
                (qlen > 32 * rows ? jobs[6 * job_stride + p] : 0);
   auto run = [&](auto r) {
-    sw_block_pair<kReverse, kSeqCell, decltype(r)::value, W>(
-        s_tab, qdata, qbias, tdata, qoff, qlen, toff, tlen, term, go, ge,
+    sw_block_pair<kReverse, kCell, decltype(r)::value, W>(
+        s_cell, qdata, qbias, tdata, qoff, qlen, toff, tlen, term, go, ge,
         ring, s_prog, s_best, out + p, out_stride);
   };
   switch (rows) {                      // block-uniform
@@ -707,35 +738,42 @@ int launch_shards(const void* qdata, const void* qbias, const void* tbase,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kReverse, int W>
-void launch_block_w(const void* qdata, const void* qbias, const void* tbase,
-                    const void* sub, int alpha, const void* jobs,
-                    long long job_stride, int n, int go, int ge,
-                    void* scratch, void* out, long long out_stride,
-                    void* stream) {
-  sw_block_kernel<kReverse, W><<<n, 32 * W, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(qdata), static_cast<const int8_t*>(qbias),
-      static_cast<const uint8_t* const*>(tbase),
-      static_cast<const int8_t*>(sub), alpha,
-      static_cast<const int64_t*>(jobs), job_stride, n, go, ge, scratch,
-      static_cast<int32_t*>(out), out_stride);
+// the block path's dynamic shared memory: kProfCell's W profile regions
+template <int kCell, int W>
+constexpr int block_shared() {
+  return kCell == kProfCell ? W * kProfRegion : 0;
 }
 
-template <bool kReverse>
-int launch_block(const void* qdata, const void* qbias, const void* tbase,
+template <bool kReverse, int kCell, int W>
+void launch_block_w(const void* qdata, const void* qbias,
+                    const void* targets, const void* sub, int alpha,
+                    const void* jobs, long long job_stride, int n, int go,
+                    int ge, void* scratch, void* out, long long out_stride,
+                    void* stream) {
+  sw_block_kernel<kReverse, kCell, W>
+      <<<n, 32 * W, block_shared<kCell, W>(),
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(qdata),
+          static_cast<const int8_t*>(qbias), targets,
+          static_cast<const int8_t*>(sub), alpha,
+          static_cast<const int64_t*>(jobs), job_stride, n, go, ge, scratch,
+          static_cast<int32_t*>(out), out_stride);
+}
+
+template <bool kReverse, int kCell>
+int launch_block(const void* qdata, const void* qbias, const void* targets,
                  const void* sub, int alpha, const void* jobs,
                  long long job_stride, int n, int warps, int go, int ge,
                  void* scratch, void* out, long long out_stride,
                  void* stream) {
   if (n <= 0) return 0;
   if (alpha > kAlphaPad) return static_cast<int>(cudaErrorInvalidValue);
-  auto* launch = warps == 4    ? launch_block_w<kReverse, 4>
-                 : warps == 8  ? launch_block_w<kReverse, 8>
-                 : warps == 16 ? launch_block_w<kReverse, 16>
+  auto* launch = warps == 4    ? launch_block_w<kReverse, kCell, 4>
+                 : warps == 8  ? launch_block_w<kReverse, kCell, 8>
+                 : warps == 16 ? launch_block_w<kReverse, kCell, 16>
                                : nullptr;
   if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  launch(qdata, qbias, tbase, sub, alpha, jobs, job_stride, n, go, ge,
+  launch(qdata, qbias, targets, sub, alpha, jobs, job_stride, n, go, ge,
          scratch, out, out_stride, stream);
   return static_cast<int>(cudaGetLastError());
 }
@@ -753,13 +791,28 @@ int load_kernel(K* kernel) {
   return static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
 }
 
+// loads a block kernel of the profile cell and lets it take its W
+// profile regions, past the 48 KB a block gets without asking
+template <int W>
+int load_prof_block() {
+  auto* kernel = sw_block_kernel<true, kProfCell, W>;
+  int rc = load_kernel(kernel);
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        block_shared<kProfCell, W>()));
+  return rc;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Loads the kernels onto the current device (CUDA loads a kernel at its
-// first use otherwise, inside whatever times that launch).  Returns the
-// first CUDA error, or 0.
+// first use otherwise, inside whatever times that launch) and sets the
+// profile block kernels' shared-memory limit there (an attribute of the
+// device's context: the caller readies every card it launches on).
+// Returns the first CUDA error, or 0.
 int sw_load() {
   int rc = load_kernel(sw_warp_kernel<false, kSeqCell>);
   if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kSeqCell>);
@@ -769,16 +822,19 @@ int sw_load() {
   if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kProfCell>);
   if (rc == 0) rc = load_kernel(sw_shards_kernel<false>);
   if (rc == 0) rc = load_kernel(sw_shards_kernel<true>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<false, 4>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<true, 4>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<false, 8>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<true, 8>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<false, 16>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<true, 16>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<false, kSeqCell, 4>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<true, kSeqCell, 4>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<false, kSeqCell, 8>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<true, kSeqCell, 8>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<false, kSeqCell, 16>);
+  if (rc == 0) rc = load_kernel(sw_block_kernel<true, kSeqCell, 16>);
+  if (rc == 0) rc = load_prof_block<4>();
+  if (rc == 0) rc = load_prof_block<8>();
+  if (rc == 0) rc = load_prof_block<16>();
   return rc;
 }
 
-// All six entry points.  jobs: int64 rows (qoff, qlen, toff, tlen,
+// The six warp entry points.  jobs: int64 rows (qoff, qlen, toff, tlen,
 // terminate, rows, soff), row stride job_stride, n pairs from the pointer
 // on; rows is the pair's class (4, 8, 12 or 16 query rows a lane); out:
 // int32 rows (score, t_end, q_end, found, fj, fi), row stride out_stride,
@@ -885,9 +941,9 @@ int sw_forward_shards_block(const void* qdata, const void* qbias,
                             const void* jobs, long long job_stride, int n,
                             int warps, int go, int ge, void* scratch,
                             void* out, long long out_stride, void* stream) {
-  return launch_block<false>(qdata, qbias, tbase, sub, alpha, jobs,
-                             job_stride, n, warps, go, ge, scratch, out,
-                             out_stride, stream);
+  return launch_block<false, kSeqCell>(qdata, qbias, tbase, sub, alpha,
+                                       jobs, job_stride, n, warps, go, ge,
+                                       scratch, out, out_stride, stream);
 }
 
 int sw_reverse_shards_block(const void* qdata, const void* qbias,
@@ -895,9 +951,23 @@ int sw_reverse_shards_block(const void* qdata, const void* qbias,
                             const void* jobs, long long job_stride, int n,
                             int warps, int go, int ge, void* scratch,
                             void* out, long long out_stride, void* stream) {
-  return launch_block<true>(qdata, qbias, tbase, sub, alpha, jobs,
-                            job_stride, n, warps, go, ge, scratch, out,
-                            out_stride, stream);
+  return launch_block<true, kSeqCell>(qdata, qbias, tbase, sub, alpha,
+                                      jobs, job_stride, n, warps, go, ge,
+                                      scratch, out, out_stride, stream);
+}
+
+// The profile reverse stage's long pairs (B10 reverse): a block of `warps`
+// (4, 8 or 16) warps a pair, each warp with its own profile region; jobs
+// as sw_reverse_prof's, soff the pair's ring of two slots of tlen int4
+// columns when qlen > 32 * rows.
+int sw_reverse_prof_block(const void* qprof, const void* tdata,
+                          const void* jobs, long long job_stride, int n,
+                          int warps, int go, int ge, void* scratch,
+                          void* out, long long out_stride, void* stream) {
+  return launch_block<true, kProfCell>(qprof, nullptr, tdata, nullptr,
+                                       kProfCols, jobs, job_stride, n, warps,
+                                       go, ge, scratch, out, out_stride,
+                                       stream);
 }
 
 }  // extern "C"

@@ -40,23 +40,32 @@ with a sixth row, the job's shard, each shard's target tokens resident on
 their own (`ShardTargets`: the tensors and the device array of their base
 pointers that the kernels read).  `shard_plan` splits the jobs: a pair
 whose one-warp lane-steps exceed the stage's even share of the card's
-warps (CARD_WARPS) goes to the block path (`sw_*_shards_block`, a block
+warps (`card_warps`) goes to the block path (`sw_*_shards_block`, a block
 of BLOCK_WARPS warps a pair, launched first on a side stream of the
 card), the rest to the sequence kernel with a per-pair shard
 (`sw_*_shards`) on the current stream; the current stream waits for the
 side stream once.  For CPU tensors they run `ops/sw.py::
-sw_shards_jobs_ref`.
+sw_shards_jobs_ref`.  `sw_reverse_prof` plans its stage the same way, as
+one shard: its long pairs go to `sw_reverse_prof_block` (the block path
+with the profile cell), the rest to the profile warp kernel.
+
+Every launch goes to the card of its tensors: the launchers enter that
+card (`torch.cuda.device`) round their C calls, record their events on
+its current stream, and `load(device)` readies the kernels on each card
+once.
 
 FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
-REVERSE_STRUCT_LAUNCHES / FORWARD_PROF_LAUNCHES / REVERSE_PROF_LAUNCHES and
+REVERSE_STRUCT_LAUNCHES / FORWARD_PROF_LAUNCHES / REVERSE_PROF_LAUNCHES,
+the profile reverse stage's REVERSE_PROF_BLOCK_LAUNCHES (long pairs) and
 the sharded stage's FORWARD_SHARDS_LAUNCHES / REVERSE_SHARDS_LAUNCHES
 (short pairs) / FORWARD_BLOCK_LAUNCHES / REVERSE_BLOCK_LAUNCHES (long
 pairs) count kernel launches (COUNTERS names them all).  A caller that
-wants the
-kernels' own time passes a list as `events`: the launcher appends one
-(start, end) pair of CUDA events recorded round its launches, after the
-job table is on the card, so that neither the host planning nor that
-copy lies between them (nothing is appended for CPU tensors).
+wants the kernels' own time passes a dict as `events`: the launcher puts
+under "card" one (start, end) pair of CUDA events recorded round its
+launches, after the job table is on the card, so that neither the host
+planning nor that copy lies between them (from before the fork to after
+the join where a stage takes the block path; see `_launch_split` for
+the keys it adds); nothing is recorded for CPU tensors.
 """
 
 from __future__ import annotations
@@ -98,14 +107,15 @@ STEP_OVERHEAD_CELLS = 3
 # direction (reverse?): (H, F), and the column max with its row
 WARP_SCRATCH = {False: 8, True: 16}
 
-# the target-sharded stage (B8): the warps the card runs at once on the
-# sequence kernel (132 SMs x 4 blocks x 4 warps), the compiled widths W of
-# the block path and the one the wrappers take: chip_smoke.py's sharded
-# phase times the giant pair and both stages at each W; on an H100 80GB
-# HBM3 at 700 W, W = 16 took the 5,917 x 5,496 pair in 3.74 ms (W = 8:
-# 4.63, W = 4: 6.60; one warp 21.51) and the reverse stage of `real` in
-# 6.10 ms (7.51, 9.34), the forward stage being set by its short launch
-CARD_WARPS = 132 * 16
+# the block path (B8 and the profile reverse stage): the warps an SM runs
+# at once on the sequence and profile warp kernels (4 blocks of 4 warps;
+# `card_warps` multiplies by the card's SMs), the compiled widths W and
+# the one the wrappers take: chip_smoke.py's sharded phase times the giant
+# pair and both stages at each W; on an H100 80GB HBM3 at 700 W, W = 16
+# took the 5,917 x 5,496 pair in 3.74 ms (W = 8: 4.63, W = 4: 6.60; one
+# warp 21.51) and the reverse stage of `real` in 6.10 ms (7.51, 9.34), the
+# forward stage being set by its short launch
+SM_WARPS = 16
 BLOCK_WARP_CHOICES = (4, 8, 16)
 BLOCK_WARPS = 16
 
@@ -115,6 +125,7 @@ FORWARD_STRUCT_LAUNCHES = 0
 REVERSE_STRUCT_LAUNCHES = 0
 FORWARD_PROF_LAUNCHES = 0
 REVERSE_PROF_LAUNCHES = 0
+REVERSE_PROF_BLOCK_LAUNCHES = 0
 FORWARD_SHARDS_LAUNCHES = 0
 REVERSE_SHARDS_LAUNCHES = 0
 FORWARD_BLOCK_LAUNCHES = 0
@@ -128,6 +139,10 @@ ENTRY = {(False, "seq"): ("sw_forward", "FORWARD_LAUNCHES"),
          (True, "struct"): ("sw_reverse_struct", "REVERSE_STRUCT_LAUNCHES"),
          (False, "prof"): ("sw_forward_prof", "FORWARD_PROF_LAUNCHES"),
          (True, "prof"): ("sw_reverse_prof", "REVERSE_PROF_LAUNCHES")}
+# (reverse?, cell) of a wrapper whose stage takes the block path too ->
+# the long pairs' C entry point and its launch counter
+BLOCK_ENTRY = {(True, "prof"): ("sw_reverse_prof_block",
+                                "REVERSE_PROF_BLOCK_LAUNCHES")}
 # a wrapper's count of leading resident tensors -> its cell
 CELL_OF_RESIDENT = {4: "seq", 7: "struct", 2: "prof"}
 # reverse? -> the sharded stage's (short-pair entry point, its counter,
@@ -138,10 +153,12 @@ SHARD_ENTRY = {
     True: ("sw_reverse_shards", "REVERSE_SHARDS_LAUNCHES",
            "sw_reverse_shards_block", "REVERSE_BLOCK_LAUNCHES")}
 COUNTERS = tuple(c for _n, c in ENTRY.values()) + tuple(
+    c for _n, c in BLOCK_ENTRY.values()) + tuple(
     e[k] for e in SHARD_ENTRY.values() for k in (1, 3))
 
 _LIB = None
 _LOCK = threading.Lock()
+_LOADED: set = set()            # the card indices the kernels are loaded on
 _SIDE: dict = {}                # card index -> the block path's side stream
 
 
@@ -179,42 +196,76 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """Build, bind and load the kernels onto the current CUDA device, so
-    that no later launch (or whatever times it) pays for any of it."""
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C interface's argument and result types."""
+    p = ctypes.c_void_p
+    i, ll = ctypes.c_int, ctypes.c_longlong
+    # ..., jobs, job_stride, n, go, ge, scratch, out, out_stride, stream
+    for fn in (lib.sw_forward, lib.sw_reverse):
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, ll, p]
+    for fn in (lib.sw_forward_struct, lib.sw_reverse_struct):
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, p, p, i, p, i,
+                       p, ll, i, i, i, p, p, ll, p]
+    for fn in (lib.sw_forward_prof, lib.sw_reverse_prof):
+        fn.restype = i
+        fn.argtypes = [p, p, p, ll, i, i, i, p, p, ll, p]
+    for fn in (lib.sw_forward_shards, lib.sw_reverse_shards):
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, ll, p]
+    # ..., jobs, job_stride, n, warps, go, ge, scratch, out, ...
+    for fn in (lib.sw_forward_shards_block, lib.sw_reverse_shards_block):
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, i, p, p, ll, p]
+    lib.sw_reverse_prof_block.restype = i
+    lib.sw_reverse_prof_block.argtypes = [p, p, p, ll, i, i, i, i, p, p, ll,
+                                          p]
+    lib.sw_load.restype = i
+    return lib
+
+
+def _card_index(device) -> int:
+    """The index of a card (a torch device, its name or index; None or
+    "cuda" without an index: the current card)."""
+    if isinstance(device, int):
+        return device
+    if device is not None:
+        device = torch.device(device)
+        if device.index is not None:
+            return device.index
+    return torch.cuda.current_device()
+
+
+def load(device=None) -> ctypes.CDLL:
+    """Build and bind the kernels (once), and ready the card of `device`
+    (None: the current card) unless it is ready: load the kernels onto it
+    and make its side stream of the block path, so that no later launch
+    on it (or whatever times one) pays for any of it.  Raises on the
+    card's CUDA error."""
     global _LIB
+    index = _card_index(device)
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p = ctypes.c_void_p
-            i, ll = ctypes.c_int, ctypes.c_longlong
-            # ..., jobs, job_stride, n, go, ge, scratch, out, out_stride,
-            # stream
-            for fn in (lib.sw_forward, lib.sw_reverse):
-                fn.restype = i
-                fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, ll, p]
-            for fn in (lib.sw_forward_struct, lib.sw_reverse_struct):
-                fn.restype = i
-                fn.argtypes = [p, p, p, p, p, p, i, p, i,
-                               p, ll, i, i, i, p, p, ll, p]
-            for fn in (lib.sw_forward_prof, lib.sw_reverse_prof):
-                fn.restype = i
-                fn.argtypes = [p, p, p, ll, i, i, i, p, p, ll, p]
-            for fn in (lib.sw_forward_shards, lib.sw_reverse_shards):
-                fn.restype = i
-                fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, ll, p]
-            # ..., jobs, job_stride, n, warps, go, ge, scratch, out, ...
-            for fn in (lib.sw_forward_shards_block,
-                       lib.sw_reverse_shards_block):
-                fn.restype = i
-                fn.argtypes = [p, p, p, p, i, p, ll, i, i, i, i, p, p, ll, p]
-            lib.sw_load.restype = i
-            rc = lib.sw_load()
-            if rc != 0:
-                raise RuntimeError(f"loading the SW kernels failed: CUDA "
-                                   f"error {rc}")
-            _LIB = lib
+            _LIB = _bind(ctypes.CDLL(str(build())))
+        if index not in _LOADED:
+            with torch.cuda.device(index):
+                rc = _LIB.sw_load()
+                if rc != 0:
+                    raise RuntimeError(f"loading the SW kernels on "
+                                       f"cuda:{index} failed: CUDA error {rc}")
+                # high priority, so that the long pairs' blocks are
+                # dispatched ahead of the short launch's
+                _SIDE[index] = torch.cuda.Stream(index, priority=-1)
+            _LOADED.add(index)
     return _LIB
+
+
+def card_warps(device) -> int:
+    """The warps the card of `device` runs at once on the warp kernels:
+    its SMs x SM_WARPS (the long-pair rule's even share, `shard_plan`)."""
+    props = torch.cuda.get_device_properties(_card_index(device))
+    return props.multi_processor_count * SM_WARPS
 
 
 def lane_rows(qlen: np.ndarray) -> np.ndarray:
@@ -309,14 +360,16 @@ class ShardPlan:
 
 def shard_plan(jobs: np.ndarray, reverse: bool, warps: int = BLOCK_WARPS,
                force: bool = False, rows: int | None = None,
-               budget: int = SCRATCH_BYTES) -> ShardPlan:
+               budget: int = SCRATCH_BYTES, *, card_warps: int) -> ShardPlan:
     """Plan a card's stage of (6, n) jobs (qoff, qlen, toff, tlen,
     terminate, shard).  A pair goes to the block path when its one-warp
     lane-steps ceil(qlen / 32R) * (tlen + 31) (R its lane_rows class)
-    exceed the stage's total over CARD_WARPS: it would outlast an even
-    share of the stage.  There its class is block_rows(qlen, warps).
-    The checks pass `force` (every pair to the block path) and `rows`
-    (one class for every pair); the wrappers leave both."""
+    exceed the stage's total over `card_warps` (the card's, `card_warps()`):
+    it would outlast an even share of the stage.  There its class is
+    block_rows(qlen, warps).  The checks pass `force` (every pair to the
+    block path) and `rows` (one class for every pair); the wrappers leave
+    both.  A stage of one target array (the profile reverse stage) is one
+    shard: row 5 all 0."""
     if warps not in BLOCK_WARP_CHOICES:
         raise ValueError(f"the block path is compiled for {BLOCK_WARP_CHOICES}"
                          f" warps, not {warps}")
@@ -324,7 +377,7 @@ def shard_plan(jobs: np.ndarray, reverse: bool, warps: int = BLOCK_WARPS,
     one = lane_rows(jobs[1]) if rows is None else np.full(n, rows)
     steps = -(-jobs[1] // (32 * one)) * (jobs[3] + 31)
     long = (np.ones(n, dtype=bool) if force
-            else steps * CARD_WARPS > steps.sum())
+            else steps * card_warps > steps.sum())
     li = np.nonzero(long)[0]
     nl = len(li)
     # the caller's order when the long pairs lead it (as a stage sorted
@@ -380,24 +433,26 @@ def _check(named, tables, qlen_all: int, tlen_all: int, jobs: np.ndarray,
         raise ValueError("the SW kernels need gap_open >= gap_extend")
 
 
+def _events() -> tuple:
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
 def _launch_warp(reverse: bool, resident: tuple, plan: tuple,
                  gap_open: int, gap_extend: int,
-                 events: list | None = None) -> torch.Tensor:
+                 events: dict | None = None) -> torch.Tensor:
     """Launch the kernel of the direction over a warp_plan of the jobs
-    (its table and launches), counting the launches; returns the (6, n)
-    result.  resident: a wrapper's leading tensors, (qdata, qbias, tdata,
-    sub), the seven of structure mode or the two of profile queries, which
-    picks the entry point.
-    events: if a list, gets the (start, end) CUDA events recorded round
-    the launches."""
+    (its table and launches) on the card of the resident tensors,
+    counting the launches; returns the (6, n) result.  resident: a
+    wrapper's leading tensors, (qdata, qbias, tdata, sub), the seven of
+    structure mode or the two of profile queries, which picks the entry
+    point.  events: if a dict, gets under "card" the (start, end) CUDA
+    events recorded round the launches."""
     name, counter = ENTRY[reverse, CELL_OF_RESIDENT[len(resident)]]
-    fn = getattr(load(), name)
-    table, launches = plan
     dev = resident[0].device
+    fn = getattr(load(dev), name)
+    table, launches = plan
     n = table.shape[1]
-    out = torch.empty((6, n), dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
     # the C interface takes a table as its pointer and its alphabet size
     args = []
     for a in resident:
@@ -405,24 +460,26 @@ def _launch_warp(reverse: bool, resident: tuple, plan: tuple,
         if a.dim() == 2:
             args.append(int(a.shape[0]))
     cell = WARP_SCRATCH[reverse]
-    table_d = torch.from_numpy(table).to(dev, non_blocking=False)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if events is not None:
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-    for s, e, cols in launches:
-        scratch = torch.empty(max(cols, 1) * cell, dtype=torch.uint8,
-                              device=dev)
-        rc = fn(*args, table_d.data_ptr() + 8 * s, n, e - s, int(gap_open),
-                int(gap_extend), scratch.data_ptr(), out.data_ptr() + 4 * s,
-                n, stream)
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-        globals()[counter] += 1
-    if events is not None:
-        ev[1].record()
-        events.append(ev)
+    with torch.cuda.device(dev):
+        out = torch.empty((6, n), dtype=torch.int32, device=dev)
+        if n == 0:
+            return out
+        table_d = torch.from_numpy(table).to(dev, non_blocking=False)
+        main = torch.cuda.current_stream(dev)
+        if events is not None:
+            events["card"] = _events()
+            events["card"][0].record(main)
+        for s, e, cols in launches:
+            scratch = torch.empty(max(cols, 1) * cell, dtype=torch.uint8,
+                                  device=dev)
+            rc = fn(*args, table_d.data_ptr() + 8 * s, n, e - s,
+                    int(gap_open), int(gap_extend), scratch.data_ptr(),
+                    out.data_ptr() + 4 * s, n, main.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+            globals()[counter] += 1
+        if events is not None:
+            events["card"][1].record(main)
     return out
 
 
@@ -435,7 +492,7 @@ def _device_of(t: torch.Tensor) -> torch.device:
 
 def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
               gap_open: int, gap_extend: int,
-              events: list | None = None) -> torch.Tensor:
+              events: dict | None = None) -> torch.Tensor:
     nq, nt = len(qbias), len(tdata)
     _check((("qbias", qbias, torch.int8, nq),
             ("query tokens", qdata, torch.uint8, nq),
@@ -451,7 +508,7 @@ def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
 
 def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
                 jobs: np.ndarray, gap_open: int, gap_extend: int,
-                events: list | None = None) -> torch.Tensor:
+                events: dict | None = None) -> torch.Tensor:
     nq, nt = len(qbias), len(tss)
     _check((("qbias", qbias, torch.int8, nq),
             ("query 3Di", qss, torch.uint8, nq),
@@ -469,7 +526,9 @@ def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
 
 
 def _run_prof(reverse: bool, qprof, tdata, jobs: np.ndarray, gap_open: int,
-              gap_extend: int, events: list | None = None) -> torch.Tensor:
+              gap_extend: int, events: dict | None = None,
+              warps: int = BLOCK_WARPS, force: bool = False,
+              rows: int | None = None) -> torch.Tensor:
     if len(qprof) % PROF_COLS:
         raise ValueError(f"query profiles: need {PROF_COLS} int8 values a "
                          "residue")
@@ -480,13 +539,20 @@ def _run_prof(reverse: bool, qprof, tdata, jobs: np.ndarray, gap_open: int,
     if _device_of(qprof).type == "cpu":
         return sw_prof_jobs_ref(qprof, tdata, jobs, gap_open, gap_extend,
                                 reverse)
-    return _launch_warp(reverse, (qprof, tdata),
-                        warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
-                        gap_extend, events)
+    if not reverse:
+        return _launch_warp(False, (qprof, tdata),
+                            warp_plan(jobs, WARP_SCRATCH[False]), gap_open,
+                            gap_extend, events)
+    # the reverse stage as one shard: its long pairs on the block path
+    one = np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)])
+    plan = shard_plan(one, True, warps, force, rows,
+                      card_warps=card_warps(qprof.device))
+    return _launch_split(True, (qprof, tdata), plan, gap_open, gap_extend,
+                         events, warps)
 
 
 def sw_forward(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
-               gap_extend: int, events: list | None = None) -> torch.Tensor:
+               gap_extend: int, events: dict | None = None) -> torch.Tensor:
     """Forward pass: (score, t_end, q_end) in rows 0-2 of the (6, n)
     result; rows 3-5 hold the (0, -1, 0) placeholders."""
     return _run_warp(False, qdata, qbias, tdata, sub, jobs, gap_open,
@@ -494,7 +560,7 @@ def sw_forward(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
 
 
 def sw_reverse(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
-               gap_extend: int, events: list | None = None) -> torch.Tensor:
+               gap_extend: int, events: dict | None = None) -> torch.Tensor:
     """Reverse pass on the flipped prefixes: all six outputs, with
     (found, fj, fi) at the terminate score in flipped coordinates."""
     return _run_warp(True, qdata, qbias, tdata, sub, jobs, gap_open,
@@ -503,7 +569,7 @@ def sw_reverse(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
 
 def sw_forward_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
                       jobs: np.ndarray, gap_open: int, gap_extend: int,
-                      events: list | None = None) -> torch.Tensor:
+                      events: dict | None = None) -> torch.Tensor:
     """Structure-mode forward pass: as sw_forward, with the cell score
     int8(m3di[q_ss][t_ss] + bias_i) + int8(aasc[q_aa][t_aa])."""
     return _run_struct(False, qss, qaa, qbias, tss, taa, m3di, aasc, jobs,
@@ -512,7 +578,7 @@ def sw_forward_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
 
 def sw_reverse_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
                       jobs: np.ndarray, gap_open: int, gap_extend: int,
-                      events: list | None = None) -> torch.Tensor:
+                      events: dict | None = None) -> torch.Tensor:
     """Structure-mode reverse pass: as sw_reverse, with the two-channel
     cell score of sw_forward_struct."""
     return _run_struct(True, qss, qaa, qbias, tss, taa, m3di, aasc, jobs,
@@ -520,7 +586,7 @@ def sw_reverse_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
 
 
 def sw_forward_prof(qprof, tdata, jobs: np.ndarray, gap_open: int,
-                    gap_extend: int, events: list | None = None
+                    gap_extend: int, events: dict | None = None
                     ) -> torch.Tensor:
     """Profile-query forward pass: as sw_forward, with the cell score
     prof[q_i][t_j] read from the queries' int8 profile rows `qprof` (21
@@ -529,11 +595,16 @@ def sw_forward_prof(qprof, tdata, jobs: np.ndarray, gap_open: int,
 
 
 def sw_reverse_prof(qprof, tdata, jobs: np.ndarray, gap_open: int,
-                    gap_extend: int, events: list | None = None
-                    ) -> torch.Tensor:
+                    gap_extend: int, events: dict | None = None,
+                    warps: int = BLOCK_WARPS, force: bool = False,
+                    rows: int | None = None) -> torch.Tensor:
     """Profile-query reverse pass: as sw_reverse, with the profile cell of
-    sw_forward_prof (flipped rows qoff + qlen - 1 - i)."""
-    return _run_prof(True, qprof, tdata, jobs, gap_open, gap_extend, events)
+    sw_forward_prof (flipped rows qoff + qlen - 1 - i).  On a card the
+    stage is planned as one shard (shard_plan; warps / force / rows go to
+    it): the long pairs on sw_reverse_prof_block, the rest on
+    sw_reverse_prof, `events` as _launch_split fills it."""
+    return _run_prof(True, qprof, tdata, jobs, gap_open, gap_extend, events,
+                     warps, force, rows)
 
 
 class ShardTargets:
@@ -549,89 +620,94 @@ class ShardTargets:
                      if dev.type == "cuda" else None)
 
 
-def _side_stream(dev: torch.device) -> torch.cuda.Stream:
-    """The card's side stream of the block path, high priority, so that
-    the long pairs' blocks are dispatched ahead of the short launch's."""
-    with _LOCK:
-        if dev.index not in _SIDE:
-            _SIDE[dev.index] = torch.cuda.Stream(dev, priority=-1)
-        return _SIDE[dev.index]
-
-
-def _launch_shards(reverse: bool, resident: tuple, plan: ShardPlan,
-                   gap_open: int, gap_extend: int,
-                   events: dict | None = None,
-                   warps: int = BLOCK_WARPS) -> torch.Tensor:
-    """Launch a card's sharded stage over a shard_plan: the block path on
-    the side stream (after what the current stream queued), the short
-    pairs on the current stream, which then waits for the side stream;
-    counts the launches and returns the (6, n) result in the caller's job
-    order.  resident: (qdata, qbias, ShardTargets, sub).  events: if a
-    dict, gets the (start, end) CUDA events of the whole ("card": from
-    before the fork to after the join), of the long launch ("long") and
-    of the short launches ("short"), of those that ran, and the count of
-    block-path pairs ("n_long")."""
+def _split_entry(reverse: bool, resident: tuple) -> tuple:
+    """A split stage's leading C arguments and its (short-pair entry
+    point, its counter, long-pair entry point, its counter): resident is
+    (qdata, qbias, ShardTargets, sub) of a card's sharded stage, or
+    (qprof, tdata) of a profile reverse stage."""
+    if len(resident) == 2:
+        qprof, tdata = resident
+        return ((qprof.data_ptr(), tdata.data_ptr()),
+                ENTRY[reverse, "prof"] + BLOCK_ENTRY[reverse, "prof"])
     qdata, qbias, targets, sub = resident
-    short_name, short_counter, long_name, long_counter = SHARD_ENTRY[reverse]
-    lib = load()
-    dev = qdata.device
+    return ((qdata.data_ptr(), qbias.data_ptr(), targets.base.data_ptr(),
+             sub.data_ptr(), int(sub.shape[0])), SHARD_ENTRY[reverse])
+
+
+def _launch_split(reverse: bool, resident: tuple, plan: ShardPlan,
+                  gap_open: int, gap_extend: int,
+                  events: dict | None = None,
+                  warps: int = BLOCK_WARPS) -> torch.Tensor:
+    """Launch a stage over a shard_plan on the card of the resident
+    tensors: the block path on the side stream (after what the current
+    stream queued), the short pairs on the current stream, which then
+    waits for the side stream; counts the launches and returns the (6, n)
+    result in the caller's job order.  resident: as _split_entry's, which
+    picks the entry points.  events: if a dict, gets the (start, end) CUDA
+    events of the whole ("card": from before the fork to after the join),
+    of the long launch ("long") and of the short launches ("short"), of
+    those that ran, and the count of block-path pairs ("n_long")."""
+    args, (short_name, short_counter, long_name, long_counter) = \
+        _split_entry(reverse, resident)
+    dev = resident[0].device
+    lib = load(dev)
     n = plan.table.shape[1]
-    out = torch.empty((6, n), dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    args = (qdata.data_ptr(), qbias.data_ptr(), targets.base.data_ptr(),
-            sub.data_ptr(), int(sub.shape[0]))
     cell = WARP_SCRATCH[reverse]
-    table_d = torch.from_numpy(plan.table).to(dev, non_blocking=False)
-    main = torch.cuda.current_stream(dev)
 
     def mark(key: str, end: int, stream) -> None:
         if events is not None:
             if not end:
-                events[key] = (torch.cuda.Event(enable_timing=True),
-                               torch.cuda.Event(enable_timing=True))
+                events[key] = _events()
             events[key][end].record(stream)
 
-    # every buffer before the fork: the side stream uses them too, and no
-    # allocation lies inside the card's events
-    ring = torch.empty(max(plan.long_cols, 1) * cell, dtype=torch.uint8,
-                       device=dev)
-    scratch = [torch.empty(max(cols, 1) * cell, dtype=torch.uint8,
-                           device=dev) for _s, _e, cols in plan.launches]
-    mark("card", 0, main)
-    if events is not None:
-        events["n_long"] = plan.n_long
-    if plan.n_long:
-        side = _side_stream(dev)
-        side.wait_stream(main)
-        mark("long", 0, side)
-        rc = getattr(lib, long_name)(*args, table_d.data_ptr(), n,
-                                     plan.n_long, int(warps), int(gap_open),
-                                     int(gap_extend), ring.data_ptr(),
-                                     out.data_ptr(), n, side.cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{long_name} launch failed: CUDA error {rc}")
-        globals()[long_counter] += 1
-        mark("long", 1, side)
-    if plan.launches:
-        mark("short", 0, main)
-        for (s, e, _cols), buf in zip(plan.launches, scratch):
-            rc = getattr(lib, short_name)(
-                *args, table_d.data_ptr() + 8 * s, n, e - s, int(gap_open),
-                int(gap_extend), buf.data_ptr(), out.data_ptr() + 4 * s,
-                n, main.cuda_stream)
+    with torch.cuda.device(dev):
+        out = torch.empty((6, n), dtype=torch.int32, device=dev)
+        if n == 0:
+            return out
+        table_d = torch.from_numpy(plan.table).to(dev, non_blocking=False)
+        main = torch.cuda.current_stream(dev)
+        # every buffer before the fork: the side stream uses them too, and
+        # no allocation lies inside the card's events
+        ring = torch.empty(max(plan.long_cols, 1) * cell, dtype=torch.uint8,
+                           device=dev)
+        scratch = [torch.empty(max(cols, 1) * cell, dtype=torch.uint8,
+                               device=dev) for _s, _e, cols in plan.launches]
+        mark("card", 0, main)
+        if events is not None:
+            events["n_long"] = plan.n_long
+        if plan.n_long:
+            side = _SIDE[dev.index]
+            side.wait_stream(main)
+            mark("long", 0, side)
+            rc = getattr(lib, long_name)(*args, table_d.data_ptr(), n,
+                                         plan.n_long, int(warps),
+                                         int(gap_open), int(gap_extend),
+                                         ring.data_ptr(), out.data_ptr(), n,
+                                         side.cuda_stream)
             if rc != 0:
-                raise RuntimeError(f"{short_name} launch failed: CUDA error "
+                raise RuntimeError(f"{long_name} launch failed: CUDA error "
                                    f"{rc}")
-            globals()[short_counter] += 1
-        mark("short", 1, main)
-    if plan.n_long:
-        # the one join; what the side stream used was allocated on this one
-        # and is freed after it
-        main.wait_stream(side)
-    mark("card", 1, main)
-    if plan.perm is not None:
-        out = out[:, torch.from_numpy(np.argsort(plan.perm)).to(dev)]
+            globals()[long_counter] += 1
+            mark("long", 1, side)
+        if plan.launches:
+            mark("short", 0, main)
+            for (s, e, _cols), buf in zip(plan.launches, scratch):
+                rc = getattr(lib, short_name)(
+                    *args, table_d.data_ptr() + 8 * s, n, e - s,
+                    int(gap_open), int(gap_extend), buf.data_ptr(),
+                    out.data_ptr() + 4 * s, n, main.cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{short_name} launch failed: CUDA "
+                                       f"error {rc}")
+                globals()[short_counter] += 1
+            mark("short", 1, main)
+        if plan.n_long:
+            # the one join; what the side stream used was allocated on this
+            # one and is freed after it
+            main.wait_stream(side)
+        mark("card", 1, main)
+        if plan.perm is not None:
+            out = out[:, torch.from_numpy(np.argsort(plan.perm)).to(dev)]
     return out
 
 
@@ -659,9 +735,10 @@ def _run_shards(reverse: bool, qdata, qbias, targets: ShardTargets, sub,
     if _device_of(qdata).type == "cpu":
         return sw_shards_jobs_ref(qdata, qbias, targets.tensors, sub, jobs,
                                   gap_open, gap_extend, reverse)
-    return _launch_shards(reverse, (qdata, qbias, targets, sub),
-                          shard_plan(jobs, reverse, warps, force, rows),
-                          gap_open, gap_extend, events, warps)
+    return _launch_split(reverse, (qdata, qbias, targets, sub),
+                         shard_plan(jobs, reverse, warps, force, rows,
+                                    card_warps=card_warps(qdata.device)),
+                         gap_open, gap_extend, events, warps)
 
 
 def sw_forward_shards(qdata, qbias, targets: ShardTargets, sub,

@@ -13,9 +13,10 @@ by the `ops/sw_cuda.py` kernels on the current stream (the plain version
 for CPU tensors).
 Results stay on the device until collect(), which fetches every pending
 stage with one device-to-host copy.  Two times are kept a direction, both
-by CUDA events: `*_kernel_ms`, recorded by the wrapper round its launches
-alone, and `*_wrapper_ms`, round the whole wrapper call (host planning,
-the job table's copy and the launches).
+by CUDA events on the engine's card: `*_kernel_ms`, recorded by the
+wrapper round its launches alone (from the fork to the join where the
+stage takes the block path), and `*_wrapper_ms`, round the whole wrapper
+call (host planning, the job table's copy and the launches).
 
 `DeviceAlignDB.with_targets(tdata)` gives an engine over another target
 array that shares the resident query tensors: the alternative-alignment
@@ -32,7 +33,8 @@ JAX package scores those pairs with `ops/sw.py::sw_forward_from_profiles`
 / `sw_reverse_from_profiles` on per-batch explicit profiles): the
 queries' int8 alignment profiles as one (sum of query lengths, 21)
 array at the token arrays' offsets, the target tokens, and the profile
-kernels.
+kernels; its reverse stage sends its long pairs to the block path
+(`rev_block_pairs`, `rev_block_launches` among its metrics).
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ class DeviceAlignDB:
     def _init_state(self) -> None:
         if self.device.type == "cuda":
             # build and load the kernels now, outside every timed stage
-            sw_cuda.load()
+            sw_cuda.load(self.device)
         self._buf: dict[tuple, list] = {}
         self.metrics = {"n_batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
                         "fwd_launches": 0, "rev_launches": 0,
@@ -103,6 +105,12 @@ class DeviceAlignDB:
                         "fwd_cells": 0, "rev_cells": 0,
                         "fwd_kernel_ms": 0.0, "rev_kernel_ms": 0.0,
                         "fwd_wrapper_ms": 0.0, "rev_wrapper_ms": 0.0}
+        # the directions whose stages take the block path too
+        for reverse, cell in sw_cuda.BLOCK_ENTRY:
+            if cell == self.CELL:
+                d = "rev" if reverse else "fwd"
+                self.metrics.update({f"{d}_block_pairs": 0,
+                                     f"{d}_block_launches": 0})
 
     def _resident(self) -> tuple:
         """The wrappers' leading arguments."""
@@ -154,25 +162,32 @@ class DeviceAlignDB:
         order = np.argsort(-cells, kind="stable")
         jobs = np.ascontiguousarray(jobs[:, order])
         timed = self.device.type == "cuda"
-        # (start, end) event pairs: first the wrapper's whole call, then
-        # what the wrapper records round its launches
-        events: list = []
+        # (start, end) event pairs: what the wrapper records round its
+        # launches ("card") and, here, round the whole call ("wrapper")
+        events: dict = {}
         if timed:
+            stream = torch.cuda.current_stream(self.device)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        # the wrapper and its launch counter, looked up at dispatch
+            ev[0].record(stream)
+        # the wrapper and its launch counters, looked up at dispatch
         fn_name, counter = sw_cuda.ENTRY[reverse, self.CELL]
-        before = getattr(sw_cuda, counter)
+        block = sw_cuda.BLOCK_ENTRY.get((reverse, self.CELL))
+        before = {c: getattr(sw_cuda, c)
+                  for c in ((counter, block[1]) if block else (counter,))}
         out = getattr(sw_cuda, fn_name)(*self._resident(), jobs, gap_open,
                                         gap_extend, events=events)
         if timed:
-            ev[1].record()
-            events.insert(0, ev)
+            ev[1].record(stream)
+            events["wrapper"] = ev
+        launched = {c: getattr(sw_cuda, c) - b for c, b in before.items()}
         d = "rev" if reverse else "fwd"
         m = self.metrics
         m["n_batches"] += 1
-        m[f"{d}_launches"] += getattr(sw_cuda, counter) - before
+        m[f"{d}_launches"] += sum(launched.values())
+        if block:
+            m[f"{d}_block_launches"] += launched[block[1]]
+            m[f"{d}_block_pairs"] += events.get("n_long", 0)
         m[f"{d}_pairs"] += jobs.shape[1]
         m[f"{d}_cells"] += int(cells.sum())
         m["dispatch_s"] += time.perf_counter() - t0
@@ -189,9 +204,11 @@ class DeviceAlignDB:
         self.metrics["fetch_s"] += time.perf_counter() - t1
         out, col = [], 0
         for pos, o, events, d in pending:
-            for k, ev in enumerate(events):
-                self.metrics[f"{d}_wrapper_ms" if k == 0
-                             else f"{d}_kernel_ms"] += ev[0].elapsed_time(ev[1])
+            for key, name in (("wrapper", "wrapper_ms"),
+                              ("card", "kernel_ms")):
+                if key in events:
+                    ev = events[key]
+                    self.metrics[f"{d}_{name}"] += ev[0].elapsed_time(ev[1])
             n = o.shape[1]
             out.append((pos, tuple(flat[i, col:col + n] for i in range(6))))
             col += n

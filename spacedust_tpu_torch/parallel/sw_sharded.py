@@ -112,9 +112,10 @@ class ShardedAlignDB:
             self.local[ds] = np.arange(len(ds))
             self.targets.append(sw_cuda.ShardTargets(
                 [self.tparts[d] for d in ds]))
-        if any(d.type == "cuda" for d in self.cards):
-            # build and load the kernels now, outside every timed stage
-            sw_cuda.load()
+        for dev in self.cards:
+            if dev.type == "cuda":
+                # build and load the kernels now, outside every timed stage
+                sw_cuda.load(dev)
         self.plan_kw: dict = {}
         self._buf: dict[tuple, list] = {}
         nd, nc = len(devices), len(self.cards)

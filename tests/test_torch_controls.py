@@ -381,11 +381,11 @@ def test_kernel_and_wrapper_times_are_kept_apart():
     for key in ("fwd_kernel_ms", "fwd_wrapper_ms", "rev_kernel_ms",
                 "rev_wrapper_ms"):
         assert dev.metrics[key] == 0.0
-    events: list = []
+    events: dict = {}
     sw_cuda.sw_forward(dev.qdata, dev.qbias, dev.tdata, dev.sub,
                        np.array([[0], [40], [0], [40], [-1]], np.int64),
                        11, 1, events=events)
-    assert events == []
+    assert events == {}
 
 
 def test_ranges():

@@ -19,16 +19,21 @@ every race the waits allow happens), "round_robin" runs them in turn.
 Held exactly against the plain scan (ops/sw.py, itself equal to the JAX
 package's sw_scan_core in test_torch_sw.py) on ragged pairs and on
 chip_smoke.py::block_edge_batch, which the card's check runs through the
-kernels too.  Nothing on the CPU runs the CUDA body: change the model and
-the kernel together."""
+kernels too.  With `prof` the model takes the profile cell of the
+profile reverse stage's block path (sw_reverse_prof_block): each warp
+stages its strip's profile rows into a region of its own at the strip's
+start (test_torch_profile.py::prof_slots) and reads its cells there;
+test_torch_sw_block_prof.py holds that form.  Nothing on the CPU runs
+the CUDA body: change the model and the kernel together."""
 
 import numpy as np
 import pytest
 import torch
 
 from spacedust_tpu_torch.ops import sw_cuda
-from spacedust_tpu_torch.ops.sw import sw_shards_jobs_ref
+from spacedust_tpu_torch.ops.sw import PROF_COLS, sw_shards_jobs_ref
 from spacedust_tpu_torch.stats.submat import load_substitution_matrix
+from test_torch_profile import prof_slots
 from test_torch_sw import (GE, GO, LANES, ROWS, _chip_smoke, _job_scores,
                            _plain_jobs, _scores, lane_strip, new_trackers,
                            warp_merge)
@@ -37,6 +42,9 @@ from test_torch_sw import (GE, GO, LANES, ROWS, _chip_smoke, _job_scores,
 torch.set_num_threads(1)
 
 WARPS = [2, 3, 4]
+# the warps an H100 runs at once on the warp kernels (132 SMs x 16), which
+# sw_cuda.card_warps reads from the card
+H100_WARPS = 132 * sw_cuda.SM_WARPS
 BLOCK_FAULTS = {
     "one_slot_ring": "strip k writes and strip k + 1 reads one slot",
     "wait_chunk_short": "a warp loads a chunk once the strip above has "
@@ -45,21 +53,59 @@ BLOCK_FAULTS = {
                                "an equal score",
     "tracker_wrong_warp": "the reverse result is read from the warp after "
                           "the one of the last strip",
+    # the profile cell only
+    "shared_prof_region": "two warps share one profile region",
 }
-# the faults that change what the block computes; a one-slot ring does
-# not (see test_one_slot_ring_is_no_fault)
-CAUGHT = sorted(set(BLOCK_FAULTS) - {"one_slot_ring"})
+# the faults that change what the block computes with the sequence cell;
+# a one-slot ring does not (see test_one_slot_ring_is_no_fault)
+CAUGHT = sorted(set(BLOCK_FAULTS) - {"one_slot_ring", "shared_prof_region"})
+
+
+def _prof_regions(prof, R, W, fault):
+    """The profile cell's shared memory: per warp, a function that stages
+    strip k's rows into the warp's region (lane l's row r of the strip,
+    clamped to the last row, at prof_slots; a token's 32 R rows
+    contiguous) and a cell function that reads them.  Under the fault
+    "shared_prof_region" warps 2m and 2m + 1 share one region."""
+    qlen = len(prof)
+    slots = prof_slots(R)
+    region_of = [w // 2 if fault == "shared_prof_region" else w
+                 for w in range(W)]
+    regions = np.full((max(region_of) + 1, PROF_COLS * LANES * R), 99,
+                      np.int64)                       # junk until staged
+    rows = np.arange(LANES)[:, None] * R + np.arange(R)[None, :]
+
+    def stage(w, k):
+        i = np.minimum(k * LANES * R + rows, qlen - 1)
+        for t in range(PROF_COLS):
+            regions[region_of[w], t * LANES * R + slots] = prof[i, t]
+
+    def cell_of(w):
+        def cell(srow, tok):
+            return regions[region_of[w]][tok[:, None] * LANES * R + slots]
+        return cell
+
+    return stage, [cell_of(w) for w in range(W)]
 
 
 def block_model(S, go, ge, term, R, W, reverse, fault=None,
-                schedule="downstream", tokens=None, stats=None):
+                schedule="downstream", tokens=None, stats=None, prof=None):
     """One pair on a block of W warps.  S and tokens as lane_model's;
     returns (score, t_end, q_end, found, fj, fi).  fault: one of
     BLOCK_FAULTS.  stats, if a dict, gets `tight`: the chunk loads that
     went ahead with the strip above exactly as far as the wait asks, and
-    `overlap`: the most warps that were inside a strip at once."""
+    `overlap`: the most warps that were inside a strip at once.  prof:
+    the profile cell in place of S, the pair's (qlen, PROF_COLS) profile
+    rows (flipped for the reverse pass), tokens its target tokens: a warp
+    stages each strip's rows into its own region before the strip's first
+    wait, as sw_strips does, and reads its cells there."""
     assert fault is None or fault in BLOCK_FAULTS
-    qlen, tlen, cell, tokens = _scores(S, tokens)
+    if prof is None:
+        qlen, tlen, cell, tokens = _scores(S, tokens)
+        cells = [cell] * W
+    else:
+        qlen, tlen = len(prof), len(tokens)
+        stage, cells = _prof_regions(prof, R, W, fault)
     strip = LANES * R
     n_strips = -(-qlen // strip)
     n_chunks = -(-tlen // 32)
@@ -70,8 +116,10 @@ def block_model(S, go, ge, term, R, W, reverse, fault=None,
 
     def warp(w):
         for k in range(w, n_strips, W):
-            for req in lane_strip(k * strip, qlen, tlen, cell, tokens, go,
-                                  ge, term, R, reverse,
+            if prof is not None:
+                stage(w, k)
+            for req in lane_strip(k * strip, qlen, tlen, cells[w], tokens,
+                                  go, ge, term, R, reverse,
                                   ring[(k - 1) % slots], ring[k % slots],
                                   accs[w]):
                 yield k, req
@@ -308,14 +356,15 @@ def _stage(seed=3, n=60_000):
 @pytest.mark.parametrize("reverse", [False, True])
 def test_shard_plan_long_pair_rule(reverse):
     """A pair takes the block path iff its one-warp lane-steps exceed the
-    stage's total over CARD_WARPS; the table holds the long pairs first,
+    stage's total over the card's warps (an H100's 132 SMs x 16 here);
+    the table holds the long pairs first,
     then the short ones, each group in the caller's order, every job
     once, with its shard; the short part is warp_plan's."""
     jobs = _stage()
-    plan = sw_cuda.shard_plan(jobs, reverse)
+    plan = sw_cuda.shard_plan(jobs, reverse, card_warps=H100_WARPS)
     one = sw_cuda.lane_rows(jobs[1])
     steps = -(-jobs[1] // (32 * one)) * (jobs[3] + 31)
-    long = steps > steps.sum() / sw_cuda.CARD_WARPS
+    long = steps > steps.sum() / H100_WARPS
     assert 3 <= long.sum() < 50
     assert {5, 30_000, 59_999} <= set(np.nonzero(long)[0].tolist())
     nl = plan.n_long
@@ -326,7 +375,8 @@ def test_shard_plan_long_pair_rule(reverse):
     np.testing.assert_array_equal(plan.table[7], jobs[5, plan.order])
     # sorted longest first, the long pairs lead: the caller's order
     order = np.argsort(-(jobs[1] * jobs[3]), kind="stable")
-    lead = sw_cuda.shard_plan(np.ascontiguousarray(jobs[:, order]), reverse)
+    lead = sw_cuda.shard_plan(np.ascontiguousarray(jobs[:, order]), reverse,
+                              card_warps=H100_WARPS)
     assert lead.perm is None and lead.n_long == nl
     short, launches = sw_cuda.warp_plan(
         np.ascontiguousarray(jobs[:5, ~long]),
@@ -343,7 +393,7 @@ def test_shard_plan_block_class_and_ring(warps):
     and 24 at R = 8); each long pair longer than one strip gets a ring of
     two slots of tlen columns, disjoint, from 0."""
     jobs = _stage()
-    plan = sw_cuda.shard_plan(jobs, False, warps)
+    plan = sw_cuda.shard_plan(jobs, False, warps, card_warps=H100_WARPS)
     nl = plan.n_long
     L = plan.table[:, :nl]
     for p in range(nl):
@@ -363,14 +413,15 @@ def test_shard_plan_force_rows_and_refusals():
     """force sends every pair to the block path, rows fixes the class of
     every pair on both paths; an uncompiled width is refused."""
     jobs = _stage(n=200)
-    plan = sw_cuda.shard_plan(jobs, True, 4, force=True, rows=8)
+    plan = sw_cuda.shard_plan(jobs, True, 4, force=True, rows=8,
+                              card_warps=H100_WARPS)
     assert plan.n_long == 200 and plan.launches == []
     assert plan.perm is None
     assert (plan.table[5] == 8).all()
-    plan = sw_cuda.shard_plan(jobs, True, rows=16)
+    plan = sw_cuda.shard_plan(jobs, True, rows=16, card_warps=H100_WARPS)
     assert (plan.table[5] == 16).all() and plan.n_long >= 1
     with pytest.raises(ValueError, match="compiled for"):
-        sw_cuda.shard_plan(jobs, False, warps=5)
+        sw_cuda.shard_plan(jobs, False, warps=5, card_warps=H100_WARPS)
 
 
 def test_sharded_wrapper_cpu_plain_version_and_checks():

@@ -187,6 +187,31 @@ def test_unported_flag_fails_at_parse_time(capsys, argv, item):
         assert item in err
 
 
+# the flags the structure search does not take, at a value off their
+# default (workflow/clustersearch.py::_structure_params)
+MODE2_DROPPED = [("-s", "4.0"), ("--gap-open", "10"), ("--gap-extend", "2"),
+                 ("--aln-len", "10"), ("--max-accept", "5"),
+                 ("--max-rejected", "5"), ("--alt-ali", "2")]
+
+
+@pytest.mark.parametrize("flag,value", MODE2_DROPPED,
+                         ids=[f for f, _ in MODE2_DROPPED])
+def test_search_mode_2_refuses_the_flags_it_drops(capsys, flag, value):
+    """clustersearch --search-mode 2 refuses each flag its structure
+    search ignores, in the parser (exit code 2) with the reason;
+    --search-mode 1, whose unmapped genes' sequence search takes the
+    flag, parses it and fails on its missing DB."""
+    argv = ["clustersearch", "q", "q", "out", flag, value, "--device", "cpu"]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv + ["--search-mode", "2"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f"{flag} {value} has no effect with --search-mode 2" in err
+    with pytest.raises(FileNotFoundError):
+        cli.main(argv + ["--search-mode", "1"])
+    assert "has no effect" not in capsys.readouterr().err
+
+
 def test_switched_off_values_pass_the_parser(capsys):
     """The values that switch a feature off parse; the command then fails
     on its missing DB, not in the parser."""
