@@ -29,7 +29,15 @@ the kernels line, the card and the result.
                 again with the iterative search's realignment matrix
                 (blosum62_bf2_bias) and the composition bias it gives each
                 query, the extreme-bias pairs kept: the seeded batch and
-                every class on the edge batches, all six outputs equal;
+                every class on the edge batches, all six outputs equal.
+                Then K2's block path (sw_reverse's long pairs on
+                sw_reverse_shards_block) with every pair forced onto it at
+                each width W and class R, on the batch's reverse jobs and
+                on block_edge_batch (whole pairs and prefixes), and the
+                engine's mixed plan (long pairs on the block path, the rest
+                on the warp kernel) through sw_reverse; and an engine's
+                with_targets view over a masked copy of the batch's targets
+                through its split reverse stage; all six outputs equal;
   4. small   -- createsetdb + clustersearch --filter-self-match through the
                 CLI on the small synthetic genome set; the result must equal
                 tests/fixtures/torch_port_small.tsv (recorded by the JAX
@@ -37,8 +45,9 @@ the kernels line, the card and the result.
   5. real    -- the same through createsetdb / cluster_search_to_file on
                 the real-size synthetic set (4,300 + 1,600 genes), with the
                 kernel launch counters reset just before and read just
-                after; hit and cluster counts and the canonical-TSV sha256
-                must equal tests/fixtures/torch_port_real.json;
+                after (K1, K2 and K2's block path must launch); hit and
+                cluster counts and the canonical-TSV sha256 must equal
+                tests/fixtures/torch_port_real.json;
   6. kernels-struct -- sw_forward_struct / sw_reverse_struct against
                 their plain version (ops/sw.py::sw_struct_jobs_ref) on a
                 seeded ragged batch: lengths 1-2,700, homologs (kept 3Di,
@@ -82,8 +91,9 @@ the kernels line, the card and the result.
                 alone, line for line; every alternative record passes the
                 E-value gate and lies off the masked ranges of its parent
                 and of the records before it in its chain; at least ten
-                exist; and the masked rounds cost at most 2 launches a
-                direction beyond the main pass;
+                exist; and the masked rounds cost at most 2 forward
+                launches and 4 reverse (a round's reverse stage on its warp
+                kernel, its block path or both) beyond the main pass;
  10. kernels-prof -- sw_forward_prof / sw_reverse_prof against their
                 plain version (ops/sw.py::sw_prof_jobs_ref) on a seeded
                 ragged batch: lengths 1-3,000, homologs (profiles drawn
@@ -129,8 +139,8 @@ the kernels line, the card and the result.
                 card) must launch;
  14. iterative-real -- `search --num-iterations 2` through the CLI on the
                 real-size set, counters reset just before and read just
-                after (K1/K2, the forward profile kernel and the profile
-                reverse stage's block path must launch), held to
+                after (K1, K2 and the block paths of both reverse stages,
+                and the forward profile kernel must launch), held to
                 invariants: every
                 gene of >= 100 aa finds itself with
                 E < 1e-10; no round-1 record's target is one that round 0
@@ -166,7 +176,8 @@ the kernels line, the card and the result.
                 outputs equal; and the largest sharded stage of each
                 direction again: its wall on the card, the long-pair
                 launch, the short launch and the card's dispatch, at the
-                engine's W and at each W, against the plain version (the
+                engine's W, at each W and under each long-pair rule
+                (GAINS), against the plain version (the
                 long and the short pairs apart), and the stage's longest
                 pair alone on one warp and on the block path at each W;
  17. multihost -- the real set as 2 worker processes of 2 target shards,
@@ -195,10 +206,11 @@ the kernels line, the card and the result.
                 rate and its integer instructions over the int32
                 instruction rate).  For each stage also the longest pair
                 alone and what the classes of query rows per lane buy.  For
-                B10 reverse also the card's fork to join with the block
-                launch and the short launch beside each other, at each width
-                W; the stage on the warp kernel alone in one launch; its
-                longest pair on one warp and on a block at each W.
+                K2 and B10 reverse also the card's fork to join with the
+                block launch and the short launch beside each other, at
+                each width W and under each long-pair rule (GAINS); the
+                stage on the warp kernel alone in one launch; its longest
+                pair on one warp and on a block at each W.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object {"kernels": [...]}; the last line is
@@ -279,9 +291,16 @@ B8_KERNELS = {
     "fwd_block": ("sw_forward_shards_block", "FORWARD_BLOCK_LAUNCHES"),
     "rev_shards": ("sw_reverse_shards", "REVERSE_SHARDS_LAUNCHES"),
     "rev_block": ("sw_reverse_shards_block", "REVERSE_BLOCK_LAUNCHES")}
-# the profile reverse stage's block path (B10 reverse, its long pairs):
-# (C entry point, launch counter)
-PROF_BLOCK = ("sw_reverse_prof_block", "REVERSE_PROF_BLOCK_LAUNCHES")
+# the block paths of the single engines' reverse stages (their long
+# pairs; K2 and B10 reverse): the stage's direction -> (key of the
+# counts, C entry point, launch counter)
+BLOCKS = {"rev": ("rev_seq_block", "sw_reverse_shards_block",
+                  "REVERSE_SEQ_BLOCK_LAUNCHES"),
+          "rev_prof": ("rev_prof_block", "sw_reverse_prof_block",
+                       "REVERSE_PROF_BLOCK_LAUNCHES")}
+# the long-pair rule's BLOCK_GAIN values timed on every stage that takes
+# the block path (0: every long pair, the rule before the strip condition)
+GAINS = (0, 1.5, 2, 3)
 PROF_COLS = 21          # profile columns a residue (20 amino acids and X)
 GATHER = "spacedust_tpu/ops/sw_engine.py:82"     # fused into the kernels
 
@@ -923,6 +942,8 @@ def check_kernels(sub: torch.Tensor, errs: dict) -> None:
     Q, B, T = (torch.from_numpy(a).to(sub.device) for a in (q, b, t))
     check_batch("kernels", [Q, B, T, sub], jobs, GO, ("fwd", "rev"), errs)
     check_edges([sub], errs)
+    check_block("rev", sub, [Q, B, T, sub], jobs, errs)
+    check_masked_engine(sub, (q, b, t), jobs, errs)
     m = load_pinned_matrix("blosum62_bf2_bias")
     rsub = torch.from_numpy(m.sub_int.astype(np.int8)).to(sub.device)
     rb = comp_bias_batch(q, np.ascontiguousarray(jobs[0]),
@@ -948,75 +969,135 @@ def check_kernels_prof(sub: torch.Tensor, errs: dict) -> None:
     check_batch("kernels-prof", resident, jobs, GO, ("fwd_prof", "rev_prof"),
                 errs)
     check_edges([sub], errs, cell="prof")
-    check_prof_block(sub, resident, jobs, errs)
+    check_block("rev_prof", sub, resident, jobs, errs)
 
 
-def check_prof_block(sub: torch.Tensor, resident: list, jobs: np.ndarray,
-                     errs: dict) -> None:
-    """sw_reverse_prof_block, the profile reverse stage's block path,
-    against the plain version at tolerance 0: with every pair forced onto
-    it (sw_reverse_prof(force=True, rows=R)) at each compiled width W and
-    class R, on kernel_batch_prof's reverse jobs and on
-    block_edge_batch_prof (reverse on the whole pairs, terminate = their
-    score, and on the derived prefixes; the planted ties of the forward
-    pass where the design puts them); then the engine's own mixed plan
-    (long pairs on the block path, the rest on the warp kernel) through
-    the public wrapper on kernel_batch_prof's reverse jobs."""
+def check_block(d: str, sub: torch.Tensor, resident: list,
+                jobs: np.ndarray, errs: dict) -> None:
+    """The block path of the reverse stage of direction d (BLOCKS: "rev",
+    sw_reverse's long pairs on sw_reverse_shards_block; "rev_prof",
+    sw_reverse_prof's on sw_reverse_prof_block) against the plain version
+    at tolerance 0: with every pair forced onto it (the wrapper with
+    force=True, rows=R) at each compiled width W and class R, on the
+    seeded batch's reverse jobs and on block_edge_batch (its profile form
+    for "rev_prof"; reverse on the whole pairs, terminate = their score,
+    and on the derived prefixes; the planted ties of the forward pass
+    where the design puts them); then the engine's own mixed plan (long
+    pairs on the block path, the rest on the warp kernel) through the
+    public wrapper on the seeded batch's reverse jobs."""
     from spacedust_tpu_torch.ops import sw_cuda
-    from spacedust_tpu_torch.ops.sw import sw_prof_jobs_ref
+    key, entry, counter = BLOCKS[d]
+    d_fwd = "fwd" + d[3:]
+    tag = "kernels" + d[3:].replace("_", "-")
+    fwd_fn, rev_fn = (getattr(sw_cuda, KERNELS[x][0]) for x in (d_fwd, d))
     dev = sub.device
     tab = sub.cpu().numpy().astype(np.int32)
 
     def held(res, js, what, ref=None, **kw):
-        got = sw_cuda.sw_reverse_prof(*res, js, GO, GE, **kw)
+        got = rev_fn(*res, js, GO, GE, **kw)
         if ref is None:
-            ref = sw_prof_jobs_ref(*res, js, GO, GE, True)
-        errs["rev_prof_block"] = max(errs["rev_prof_block"],
-                                     compare(what, got, ref))
+            ref = plain(d)(*res, js, GO, GE)
+        errs[key] = max(errs[key], compare(what, got, ref))
         if not bool(got[3].all()):
             fail(f"{what}: a reverse job missed its terminate score")
 
     # the forward kernel, held to the plain version by check_batch
-    fwd = sw_cuda.sw_forward_prof(*resident, jobs, GO, GE).cpu().numpy()
+    fwd = fwd_fn(*resident, jobs, GO, GE).cpu().numpy()
     rjobs = reverse_jobs(jobs, fwd)
-    rref = sw_prof_jobs_ref(*resident, rjobs, GO, GE, True)
+    rref = plain(d)(*resident, rjobs, GO, GE)
     t0 = time.perf_counter()
     for warps in sw_cuda.BLOCK_WARP_CHOICES:
         for rows in sw_cuda.LANE_ROWS:
-            held(resident, rjobs, f"kernels-prof block W={warps} R={rows}",
-                 rref, warps=warps, force=True, rows=rows)
-            arrays, ejobs, expect = block_edge_batch_prof(rows, warps, tab)
-            res = [torch.from_numpy(a).to(dev) for a in arrays]
-            efwd = sw_cuda.sw_forward_prof(*res, ejobs, GO, GE).cpu().numpy()
+            held(resident, rjobs, f"{tag} block W={warps} R={rows}", rref,
+                 warps=warps, force=True, rows=rows)
+            if d == "rev":
+                *arrays, ejobs, expect = block_edge_batch(rows, warps, tab)
+                res = [torch.from_numpy(a).to(dev) for a in arrays] + [sub]
+            else:
+                arrays, ejobs, expect = block_edge_batch_prof(rows, warps,
+                                                              tab)
+                res = [torch.from_numpy(a).to(dev) for a in arrays]
+            efwd = fwd_fn(*res, ejobs, GO, GE).cpu().numpy()
             for p, want in expect.items():
                 if tuple(efwd[:3, p]) != want:
-                    fail(f"prof block edges W={warps} R={rows}: planted tie "
-                         f"{p} gave {tuple(efwd[:3, p])}, the design says "
-                         f"{want}")
+                    fail(f"{tag} block edges W={warps} R={rows}: planted "
+                         f"tie {p} gave {tuple(efwd[:3, p])}, the design "
+                         f"says {want}")
             whole = ejobs.copy()
             whole[4] = efwd[0]
             for js, what in ((whole, "whole"),
                              (reverse_jobs(ejobs, efwd), "prefix")):
-                held(res, js, f"prof block edges W={warps} R={rows} {what}",
+                held(res, js, f"{tag} block edges W={warps} R={rows} {what}",
                      warps=warps, force=True, rows=rows)
-    print(f"[kernels-prof] sw_reverse_prof_block, every pair forced onto "
-          f"it at W = {sw_cuda.BLOCK_WARP_CHOICES} and every class: "
-          f"{rjobs.shape[1]} reverse pairs of the seeded batch and "
-          f"block_edge_batch_prof (whole pairs and prefixes, planted ties "
+    print(f"[{tag}] {entry} ({KERNELS[d][0]}'s block path), every pair "
+          f"forced onto it at W = {sw_cuda.BLOCK_WARP_CHOICES} and every "
+          f"class: {rjobs.shape[1]} reverse pairs of the seeded batch and "
+          f"the block edge batch (whole pairs and prefixes, planted ties "
           f"where the design puts them), all six outputs equal "
           f"({time.perf_counter() - t0:.1f} s)")
     ev: dict = {}
-    before = sw_cuda.REVERSE_PROF_BLOCK_LAUNCHES
-    held(resident, rjobs, "kernels-prof mixed plan", rref, events=ev)
+    before = getattr(sw_cuda, counter)
+    held(resident, rjobs, f"{tag} mixed plan", rref, events=ev)
     n_long = ev["n_long"]
     if not (0 < n_long < rjobs.shape[1]) or \
-            sw_cuda.REVERSE_PROF_BLOCK_LAUNCHES != before + 1:
-        fail(f"kernels-prof: the mixed plan put {n_long} of "
-             f"{rjobs.shape[1]} pairs on the block path")
-    print(f"[kernels-prof] sw_reverse_prof, the engine's plan: {n_long} of "
+            getattr(sw_cuda, counter) != before + 1:
+        fail(f"{tag}: the mixed plan put {n_long} of {rjobs.shape[1]} "
+             f"pairs on the block path")
+    print(f"[{tag}] {KERNELS[d][0]}, the engine's plan: {n_long} of "
           f"{rjobs.shape[1]} pairs on the block path (W = "
           f"{sw_cuda.BLOCK_WARPS}), the rest on the warp kernel, all six "
           f"outputs equal")
+
+
+def check_masked_engine(sub: torch.Tensor, arrays: tuple, jobs: np.ndarray,
+                        errs: dict) -> None:
+    """DeviceAlignDB.with_targets through the split reverse stage (the
+    --alt-ali rounds' engine): a view over a copy of kernel_batch's
+    target array with every fourth run of 40 residues masked (X) scores
+    the batch's reverse jobs (from the view's forward pass) through
+    run_buckets; all six outputs equal to the plain version over the
+    masked array, the view's stage on both of its kernels, and the
+    engine over the unmasked array gives another result on the same
+    jobs (the masks matter to the pairs)."""
+    from spacedust_tpu_torch.constants import X_INDEX
+    from spacedust_tpu_torch.ops import sw_cuda
+    from spacedust_tpu_torch.ops.sw_engine import DeviceAlignDB
+    q, b, t = arrays
+    tm = t.copy()
+    tm[(np.arange(len(t)) // 40) % 4 == 1] = X_INDEX
+    eng = DeviceAlignDB(q, b, t, sub.cpu().numpy(), sub.device)
+    view = eng.with_targets(tm)
+    res = [view.qdata, view.qbias, view.tdata, view.sub]
+    fwd = sw_cuda.sw_forward(*res, jobs, GO, GE).cpu().numpy()
+    rjobs = reverse_jobs(jobs, fwd)
+    n = rjobs.shape[1]
+
+    def run(db):
+        got = np.zeros((6, n), np.int64)
+        for pos, cols in db.run_buckets([(*rjobs, np.arange(n))], GO, GE,
+                                        reverse=True):
+            got[:, pos] = np.stack(cols)
+        return got
+
+    got = run(view)
+    ref = plain("rev")(*res, rjobs, GO, GE).cpu().numpy()
+    err = int(np.abs(got - ref).max())
+    if err > TOL:
+        fail(f"kernels with_targets: the split reverse stage over the "
+             f"masked targets != plain (max abs err {err})")
+    errs["rev_seq_block"] = max(errs["rev_seq_block"], err)
+    m = view.metrics
+    if m["rev_block_launches"] != 1 or m["rev_launches"] != 2 or \
+            not 0 < m["rev_block_pairs"] < n:
+        fail(f"kernels with_targets: the view's reverse stage was not split "
+             f"over both kernels: {m}")
+    if (run(eng) == got).all():
+        fail("kernels with_targets: the masks change no reverse result")
+    print(f"[kernels] with_targets over masked targets "
+          f"({int((tm == X_INDEX).sum())} of {len(tm)} residues masked): "
+          f"{n} reverse pairs through the engine's split stage, "
+          f"{m['rev_block_pairs']} on the block path, all six outputs equal "
+          f"to the plain version")
 
 
 def check_kernels_struct(dev: torch.device, errs: dict) -> None:
@@ -1055,20 +1136,31 @@ def read_counts() -> dict:
     from spacedust_tpu_torch.ops import sw_cuda
     return {**{d: getattr(sw_cuda, k[2]) for d, k in KERNELS.items()},
             **{d: getattr(sw_cuda, k[1]) for d, k in B8_KERNELS.items()},
-            "rev_prof_block": getattr(sw_cuda, PROF_BLOCK[1])}
+            **{k[0]: getattr(sw_cuda, k[2]) for k in BLOCKS.values()}}
 
 
-def prof_unlaunched(launched: dict, block: bool = False) -> list:
+def unlaunched(launched: dict, need: tuple, block: tuple = ()) -> list:
+    """What a path did not launch of the directions `need`: a reverse
+    stage of BLOCKS ("rev", "rev_prof") counts as launched on either of
+    its kernels, the warp kernel of its short pairs or its block path,
+    either of which may take the whole stage (a small stage's pairs may
+    all exceed its even share of the card); those of `block` must have
+    launched their block path itself."""
+    missed = []
+    for d in need:
+        key = BLOCKS[d][0] if d in BLOCKS else None
+        if launched[d] + (launched[key] if key else 0) <= 0:
+            missed.append(d if key is None else f"{d} or {key}")
+    return missed + [BLOCKS[d][0] for d in block
+                     if launched[BLOCKS[d][0]] <= 0]
+
+
+def prof_unlaunched(launched: dict, block: tuple = ()) -> list:
     """What a profile path did not launch of K1/K2, the forward profile
-    kernel and the profile reverse stage's kernels: its short pairs' warp
-    kernel or its block path, either of which may take the whole stage (a
-    small stage's pairs may all exceed its even share of the card), and
-    with `block` the block path itself."""
-    need = ["fwd", "rev", "fwd_prof"] + (["rev_prof_block"] if block else [])
-    missed = [d for d in need if launched[d] <= 0]
-    if launched["rev_prof"] + launched["rev_prof_block"] <= 0:
-        missed.append("rev_prof or rev_prof_block")
-    return missed
+    kernel and the profile reverse stage, and of the block paths of the
+    reverse stages `block` (unlaunched)."""
+    return unlaunched(launched, ("fwd", "rev", "fwd_prof", "rev_prof"),
+                      block)
 
 
 @contextlib.contextmanager
@@ -1126,8 +1218,9 @@ def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         t_search = time.perf_counter() - t0
         launches = read_counts()
-    if launches["fwd"] <= 0 or launches["rev"] <= 0:
-        fail(f"the main path did not launch both kernels: {launches}")
+    if unlaunched(launches, ("fwd", "rev"), ("rev",)):
+        fail(f"the main path did not launch K1, K2 and K2's block path: "
+             f"{launches}")
     hits, clusters = counts(res.tsv)
     sha = canonical_sha256(res.tsv)
     tm = res.timings
@@ -1168,9 +1261,9 @@ def struct_small(work: Path) -> None:
         launched = {d: n - before[d] for d, n in read_counts().items()}
         need = (("fwd", "rev", "fwd_struct", "rev_struct") if mode == 1
                 else ("fwd_struct", "rev_struct"))
-        if any(launched[d] <= 0 for d in need):
-            fail(f"--search-mode {mode} did not launch {list(need)}: "
-                 f"{launched}")
+        if unlaunched(launched, need):
+            fail(f"--search-mode {mode} did not launch "
+                 f"{unlaunched(launched, need)}: {launched}")
         tsv = Path(out).read_text()
         name = ("torch_port_struct_small.tsv" if mode == 2
                 else "torch_port_struct_small_mode1.tsv")
@@ -1433,11 +1526,15 @@ def toolkit_real(work: Path) -> dict:
                        if (c[0], c[1]) == key)
         if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
             fail(f"toolkit real: the alternative records of {key} overlap")
-    extra = {d: launches[d] - base_launches[d] for d in ("fwd", "rev")}
+    # a round's reverse stage: its warp kernel, its block path or both
+    extra = {"fwd": launches["fwd"] - base_launches["fwd"],
+             "rev": sum(launches[k] - base_launches[k]
+                        for k in ("rev", BLOCKS["rev"][0]))}
     alt = detail["alt_detail"]
-    if not all(1 <= extra[d] <= ALT_ALI for d in extra):
+    if not (1 <= extra["fwd"] <= ALT_ALI and 1 <= extra["rev"] <= 2 * ALT_ALI):
         fail(f"toolkit real: the masked rounds launched {extra} beyond the "
-             f"main pass ({base_launches}), not 1 to {ALT_ALI} a direction")
+             f"main pass ({base_launches}), not 1 to {ALT_ALI} forward and "
+             f"1 to {2 * ALT_ALI} reverse")
     if (alt["fwd_launches"], alt["rev_launches"]) != (extra["fwd"],
                                                       extra["rev"]):
         fail(f"toolkit real: the engine counted {alt['fwd_launches']} + "
@@ -1560,7 +1657,7 @@ def profile_real(work: Path, dev: torch.device) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         t_search = time.perf_counter() - t0
         launches = read_counts()
-    if prof_unlaunched(launches, block=True) or launches["rev_prof"] <= 0:
+    if prof_unlaunched(launches, ("rev_prof",)) or launches["rev_prof"] <= 0:
         fail(f"profile-real did not launch K1/K2, both prof kernels and the "
              f"profile reverse stage's block path: {launches}")
     keys = sorted(k for ms in cdb.clusters.values() for k in ms)
@@ -1721,9 +1818,9 @@ def iterative_real(work: Path) -> dict:
         alignment.AlignmentEngine.forward_accepts = forward_accepts
         iterative.PrefilterEngine = engine
     peak = peak_rss_mb()
-    if prof_unlaunched(launches, block=True):
+    if prof_unlaunched(launches, ("rev", "rev_prof")):
         fail(f"iterative-real did not launch "
-             f"{prof_unlaunched(launches, block=True)}: {launches}")
+             f"{prof_unlaunched(launches, ('rev', 'rev_prof'))}: {launches}")
     lines = collections.defaultdict(list)
     for ln in out.read_text().splitlines():
         c = ln.split("\t")
@@ -1826,8 +1923,8 @@ def split_phase(work: Path, dev: torch.device) -> dict:
     torch.cuda.synchronize()
     t_search = time.perf_counter() - t0
     launches = read_counts()
-    if launches["fwd"] <= 0 or launches["rev"] <= 0:
-        fail(f"split: the real run did not launch both kernels: {launches}")
+    if unlaunched(launches, ("fwd", "rev")):
+        fail(f"split: the real run did not launch K1 and K2: {launches}")
     got = (*counts(res.tsv), canonical_sha256(res.tsv))
     want = (fx["hits"], fx["clusters"], fx["canonical_sha256"])
     if got != want:
@@ -2140,16 +2237,30 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
         print(f"[sharded] {d} stage at W={w}: wall {by_w[w][0]:.2f} ms; "
               f"long-pair launch {by_w[w][1].get('long', 0):.2f} ms, short "
               f"launch {by_w[w][1].get('short', 0):.2f} ms; {card}")
-    # the same pairs on the single engine's kernel, one launch over the
-    # shards' targets as one array (global offsets)
+    by_gain = {}
+    for gain in GAINS:
+        with block_gain(gain):
+            n_long = sw_cuda.shard_plan(
+                js, reverse, card_warps=sw_cuda.card_warps(qdata.device)
+            ).n_long
+            by_gain[gain] = (n_long, *walls({}))
+        wall_g, ms_g = by_gain[gain][1:]
+        print(f"[sharded] {d} stage, long-pair rule BLOCK_GAIN={gain}: "
+              f"{n_long} block pairs, wall {wall_g:.2f} ms; the card's "
+              f"dispatch {ms_g['card']:.2f} ms = long-pair launch "
+              f"{ms_g.get('long', 0):.2f} ms beside the short launch "
+              f"{ms_g.get('short', 0):.2f} ms; {card}")
+    # the same pairs on the single engine's wrapper over the shards'
+    # targets as one array (global offsets)
     whole = torch.cat(targets.tensors)
     glob = js[:5].copy()
     glob[2] += sdb.tok_starts[js[5]]
     k1_ms = launch_ms(getattr(sw_cuda, KERNELS[d][0]),
                       (qdata, qbias, whole, sub, glob, go, ge))
     print(f"[sharded] {d} stage's pairs on the single engine's "
-          f"{KERNELS[d][0]}, one launch, longest first: {k1_ms:.2f} ms; "
-          f"{card}")
+          f"{KERNELS[d][0]} (forward one launch; reverse its stage as one "
+          f"shard, the long pairs on the block path), longest first: "
+          f"{k1_ms:.2f} ms; {card}")
     # the stage's longest pair (by cells) alone
     top = int(np.argmax(js[1] * js[3]))
     one = np.ascontiguousarray(js[:, top:top + 1])
@@ -2190,7 +2301,12 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
             "stage_wall_ms": wall, "stage_bound_ms": b_ms,
             "stage_share_of_bound": b_ms / wall,
             "stage_wall_ms_by_warps": {w: v[0] for w, v in by_w.items()},
-            "single_engine_one_launch_ms": k1_ms,
+            "stage_wall_ms_by_gain": {g: v[1] for g, v in by_gain.items()},
+            "stage_card_ms_by_gain": {g: v[2]["card"]
+                                      for g, v in by_gain.items()},
+            "stage_block_pairs_by_gain": {g: v[0]
+                                          for g, v in by_gain.items()},
+            "single_engine_ms": k1_ms,
             "longest_pair_one_warp_ms": warp_ms,
             "longest_pair_block_ms_by_warps": block_ms,
             "pairs_per_shard": per})
@@ -2335,10 +2451,11 @@ def multihost_phase(work: Path) -> dict:
                   tmp_dir=str(tmp), local_devices=2, device="cuda")
     t_run = time.perf_counter() - t0
     equal_to_real("multihost", out.read_text(), fx)
-    total = dict.fromkeys([*KERNELS, *B8_KERNELS], 0)
+    total = dict.fromkeys([*KERNELS, *B8_KERNELS, BLOCKS["rev"][0]], 0)
     for r in range(2):
         m = json.loads((tmp / f"metrics.{r}.json").read_text())
         lc = {d: m["launches"][KERNELS[d][2]] for d in KERNELS}
+        lc[BLOCKS["rev"][0]] = m["launches"][BLOCKS["rev"][2]]
         ld = {k: m["launches"][v[1]] for k, v in B8_KERNELS.items()}
         if ld["fwd_shards"] <= 0 or ld["rev_shards"] <= 0:
             fail(f"multihost: rank {r} did not launch the sharded stage's "
@@ -2408,7 +2525,7 @@ def gff_phase(work: Path, dev: torch.device) -> dict:
     torch.cuda.synchronize()
     t_search = time.perf_counter() - t0
     launches = read_counts()
-    if launches["fwd"] <= 0 or launches["rev"] <= 0:
+    if unlaunched(launches, ("fwd", "rev")):
         fail(f"gff: the real run did not launch K1 and K2: {launches}")
     n_self = self_hits_ok(rdb, tmp)
     hits, clusters = counts(res.tsv)
@@ -2498,12 +2615,33 @@ def card_ms(fn, reps: int = 3) -> dict:
             for k, v in events[0].items() if isinstance(v, tuple)}
 
 
-def launch_ms(fn, args: tuple, reps: int = 3) -> float:
+def launch_ms(fn, args: tuple, reps: int = 3, **kw) -> float:
     """Milliseconds of a wrapper's launches alone, by the events it
     records round them (after its job table is on the card; from the fork
     to the join where the stage takes the block path), over reps calls
-    after a warm one."""
-    return card_ms(lambda events: fn(*args, events=events), reps)["card"]
+    after a warm one; kw go to the wrapper."""
+    return card_ms(lambda events: fn(*args, events=events, **kw),
+                   reps)["card"]
+
+
+def engine_kw(d: str, args: tuple) -> dict:
+    """The keywords an engine hands the wrapper of direction d besides its
+    positional arguments: K2's one-tensor pointer table of its target
+    array, made once (sw_engine.DeviceAlignDB._init_state)."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    return {"targets": sw_cuda.ShardTargets([args[2]])} if d == "rev" else {}
+
+
+@contextlib.contextmanager
+def block_gain(gain: float):
+    """sw_cuda.BLOCK_GAIN, the long-pair rule's strip condition, set to
+    `gain` for the plans made inside."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    saved, sw_cuda.BLOCK_GAIN = sw_cuda.BLOCK_GAIN, gain
+    try:
+        yield
+    finally:
+        sw_cuda.BLOCK_GAIN = saved
 
 
 def stage_detail(d: str, args: tuple) -> None:
@@ -2561,9 +2699,10 @@ def time_stages(stages: dict, launches: dict, errs: dict,
         args = stages[d]
         js = args[-3]
         fn = getattr(sw_cuda, name)
-        got = fn(*args)
-        w_ms = event_ms(lambda: fn(*args))
-        k_ms = launch_ms(fn, args)
+        kw = engine_kw(d, args)
+        got = fn(*args, **kw)
+        w_ms = event_ms(lambda: fn(*args, **kw))
+        k_ms = launch_ms(fn, args, **kw)
         t0 = time.perf_counter()
         ref = plain(d)(*args)
         torch.cuda.synchronize()
@@ -2597,91 +2736,109 @@ def time_stages(stages: dict, launches: dict, errs: dict,
     return report
 
 
-def time_prof_block(args: tuple, launches: dict, errs: dict,
-                    card: str) -> dict:
-    """B10 reverse on the main path's largest profile reverse stage, all
-    in this call: the card's fork-to-join ms of sw_reverse_prof, its block
-    launch and its short launch beside each other, at the wrappers' width
-    and at each compiled width W; the same stage on the warp kernel alone
-    in one launch (the route before the block path); the stage's longest
-    pair alone on one warp and on a block at each W; the block pairs'
-    outputs against the plain version (host clock).  Returns the kernels
-    line's entry of sw_reverse_prof_block."""
+def time_block(d: str, args: tuple, launches: dict, errs: dict,
+               card: str) -> dict:
+    """The reverse stage of direction d ("rev": K2, "rev_prof": B10
+    reverse) on the main path's largest such stage, all in this call: the
+    card's fork-to-join ms of the wrapper, its block launch and its short
+    launch beside each other, at the wrappers' width and at each compiled
+    width W, and under each long-pair rule of GAINS; the same stage on
+    the warp kernel alone in one launch (the route before the block
+    path); the stage's longest pair alone on one warp and on a block at
+    each W; the block pairs' outputs against the plain version (host
+    clock).  Returns the kernels line's entry of the stage's block
+    path."""
     from spacedust_tpu_torch.ops import sw_cuda
-    from spacedust_tpu_torch.ops.sw import sw_prof_jobs_ref
-    qprof, tdata, jobs, go, ge = args
-    resident = (qprof, tdata)
+    key, entry, _counter = BLOCKS[d]
+    fn = getattr(sw_cuda, KERNELS[d][0])
+    *resident, jobs, go, ge = args
+    dev = resident[0].device
+    kw = engine_kw(d, args)
 
-    def stage(w):
-        return card_ms(lambda events: sw_cuda.sw_reverse_prof(
-            *args, events=events, warps=w))
+    def stage(js=jobs, **o):
+        return card_ms(lambda events: fn(*resident, js, go, ge,
+                                         events=events, **kw, **o))
 
-    by_w = {w: stage(w) for w in sw_cuda.BLOCK_WARP_CHOICES}
+    def plan():
+        return sw_cuda.shard_plan(
+            np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]),
+            True, card_warps=sw_cuda.card_warps(dev))
+
+    by_w = {w: stage(warps=w) for w in sw_cuda.BLOCK_WARP_CHOICES}
     ms = by_w[sw_cuda.BLOCK_WARPS]
+    by_gain = {}
+    for gain in GAINS:
+        with block_gain(gain):
+            by_gain[gain] = (plan().n_long, stage())
     one_launch = card_ms(lambda events: sw_cuda._launch_warp(
         True, resident, sw_cuda.warp_plan(jobs, sw_cuda.WARP_SCRATCH[True]),
         go, ge, events))["card"]
-    plan = sw_cuda.shard_plan(
-        np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]), True,
-        card_warps=sw_cuda.card_warps(qprof.device))
-    cols = plan.order[:plan.n_long]
+    p = plan()
+    cols = p.order[:p.n_long]
     long_js = np.ascontiguousarray(jobs[:, cols])
-    got = sw_cuda.sw_reverse_prof(*args)[:, torch.from_numpy(cols).to(
-        qprof.device)]
+    got = fn(*args, **kw)[:, torch.from_numpy(cols).to(dev)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = sw_prof_jobs_ref(*resident, long_js, go, ge, True)
+    ref = plain(d)(*resident, long_js, go, ge)
     torch.cuda.synchronize()
     p_ms = 1e3 * (time.perf_counter() - t0)
-    err = max(errs["rev_prof_block"],
-              compare("main-path rev_prof block pairs", got, ref))
+    err = max(errs[key], compare(f"main-path {key} pairs", got, ref))
     top = int(np.argmax(jobs[1] * jobs[3]))
     one = np.ascontiguousarray(jobs[:, top:top + 1])
     warp_ms = card_ms(lambda events: sw_cuda._launch_warp(
         True, resident, sw_cuda.warp_plan(one, sw_cuda.WARP_SCRATCH[True]),
         go, ge, events))["card"]
-    block_ms = {w: card_ms(lambda events, w=w: sw_cuda.sw_reverse_prof(
-        qprof, tdata, one, go, ge, events=events, warps=w,
-        force=True))["card"] for w in sw_cuda.BLOCK_WARP_CHOICES}
-    b_ms, b_by = bound_ms("rev_prof", long_js)
-    s_ms, _ = bound_ms("rev_prof", jobs)
-    print(f"[timing] B10 rev, the main path's largest profile reverse "
+    block_ms = {w: stage(one, warps=w, force=True)["card"]
+                for w in sw_cuda.BLOCK_WARP_CHOICES}
+    b_ms, b_by = bound_ms(d, long_js)
+    s_ms, _ = bound_ms(d, jobs)
+    name = KERNELS[d][0]
+    print(f"[timing] {name}'s block path, the main path's largest {d} "
           f"stage, {jobs.shape[1]} pairs, {cells(jobs) / 1e9:.3f} G cells, "
-          f"{plan.n_long} on the block path (W={sw_cuda.BLOCK_WARPS}): the "
+          f"{p.n_long} on the block path (W={sw_cuda.BLOCK_WARPS}): the "
           f"card's fork to join {ms['card']:.2f} ms = block launch "
           f"{ms.get('long', 0):.2f} ms beside the short launch "
-          f"{ms.get('short', 0):.2f} ms; the stage on sw_reverse_prof alone, "
-          f"one launch {one_launch:.2f} ms; bound {s_ms:.2f} ms "
+          f"{ms.get('short', 0):.2f} ms; the stage on {name}'s warp kernel "
+          f"alone, one launch {one_launch:.2f} ms; bound {s_ms:.2f} ms "
           f"({s_ms / ms['card']:.1%} of it reached); block pairs "
           f"{cells(long_js) / 1e9:.3f} G cells, bound {b_ms:.2f} ms by "
           f"{b_by}, plain {p_ms:.2f} ms, equal; {card}")
     for w, m in by_w.items():
-        print(f"[timing] B10 rev stage at W={w}: card {m['card']:.2f} ms, "
+        print(f"[timing] {d} stage at W={w}: card {m['card']:.2f} ms, "
               f"block launch {m.get('long', 0):.2f} ms, short launch "
+              f"{m.get('short', 0):.2f} ms; {card}")
+    for gain, (n_long, m) in by_gain.items():
+        print(f"[timing] {d} stage, long-pair rule BLOCK_GAIN={gain}: "
+              f"{n_long} block pairs, card {m['card']:.2f} ms, block launch "
+              f"{m.get('long', 0):.2f} ms, short launch "
               f"{m.get('short', 0):.2f} ms; {card}")
     rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
                for w in sw_cuda.BLOCK_WARP_CHOICES}
-    print(f"[timing] B10 rev stage's longest pair ({int(one[1, 0])} x "
+    print(f"[timing] {d} stage's longest pair ({int(one[1, 0])} x "
           f"{int(one[3, 0])}, {cells(one) / 1e6:.1f} M cells) alone: one "
           f"warp {warp_ms:.2f} ms; block path "
           + ", ".join(f"W={w} (R={rows_of[w]}) {t:.2f} ms"
                       for w, t in block_ms.items()) + f"; {card}")
     k_ms = ms.get("long")
     return {
-        "name": PROF_BLOCK[0], "route": "cuda",
-        "source": "spacedust_tpu_torch/csrc/sw.cu",
-        "replaces": KERNELS["rev_prof"][1],
-        "launches": launches["rev_prof_block"], "max_abs_err": err,
+        "name": entry if d == "rev_prof" else f"{entry} ({name})",
+        "route": "cuda", "source": "spacedust_tpu_torch/csrc/sw.cu",
+        "replaces": KERNELS[d][1], "wrapper": name,
+        "launches": launches[key], "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
         "share_of_bound": b_ms / k_ms if k_ms else None,
-        "pairs": int(plan.n_long), "cells": cells(long_js),
+        "pairs": int(p.n_long), "cells": cells(long_js),
         "block_warps": sw_cuda.BLOCK_WARPS,
         "stage_card_ms": ms["card"], "stage_short_ms": ms.get("short"),
         "stage_bound_ms": s_ms, "stage_share_of_bound": s_ms / ms["card"],
         "stage_card_ms_by_warps": {w: m["card"] for w, m in by_w.items()},
         "stage_block_ms_by_warps": {w: m.get("long")
                                     for w, m in by_w.items()},
+        "stage_card_ms_by_gain": {g: m["card"]
+                                  for g, (_n, m) in by_gain.items()},
+        "stage_block_pairs_by_gain": {g: n for g, (n, _m)
+                                      in by_gain.items()},
         "stage_one_warp_launch_ms": one_launch,
         "longest_pair_one_warp_ms": warp_ms,
         "longest_pair_block_ms_by_warps": block_ms}
@@ -2736,7 +2893,8 @@ def main(argv: list | None = None) -> int:
 
     sub = torch.from_numpy(
         load_substitution_matrix().sub_int.astype(np.int8)).to(dev)
-    errs = dict.fromkeys([*KERNELS, *B8_KERNELS, "rev_prof_block"], 0)
+    errs = dict.fromkeys([*KERNELS, *B8_KERNELS,
+                          *(k[0] for k in BLOCKS.values())], 0)
     launches: dict = {}
     stages: dict = {}
     if "kernels" in phases:
@@ -2785,8 +2943,8 @@ def main(argv: list | None = None) -> int:
             entry_phase(errs)
     report = (time_stages(stages, launches, errs, card)
               if "timing" in phases else [])
-    prof_block = (time_prof_block(stages["rev_prof"], launches, errs, card)
-                  if "timing" in phases and "rev_prof" in stages else None)
+    blocks = {d: time_block(d, stages[d], launches, errs, card)
+              for d in BLOCKS if "timing" in phases and d in stages}
     torch.cuda.synchronize()
     if phases != PHASES:
         print(f"[partial] phases {','.join(phases)} passed; no result line "
@@ -2794,10 +2952,11 @@ def main(argv: list | None = None) -> int:
         return 0
     if len(report) != len(KERNELS):
         fail(f"timed {len(report)} of {len(KERNELS)} kernels")
+    seq_block = BLOCKS["rev"][0]
     for entry, d in zip(report, KERNELS):
         # the toolkit's own path: search --alt-ali at real size
         entry["launches_toolkit"] = tk_launches[d]
-        if d in ("fwd", "rev") and tk_launches[d] <= 0:
+        if d in ("fwd", "rev") and unlaunched(tk_launches, (d,)):
             fail(f"the toolkit's search did not launch {entry['name']}")
         # the profile path: clusterdb and the profile search at real size
         entry["launches_profile"] = p_launches[d]
@@ -2810,7 +2969,7 @@ def main(argv: list | None = None) -> int:
         entry["launches_sharded"] = sh_launches[d]
         entry["launches_multihost"] = mh_launches[d]
         entry["launches_gff"] = gff_launches[d]
-        if d in ("fwd", "rev") and gff_launches[d] <= 0:
+        if d in ("fwd", "rev") and unlaunched(gff_launches, (d,)):
             fail(f"the gff path did not launch {entry['name']}")
     # the sharded kernels: their launches in this process's sharded run
     # (checked in the sharded phase) and in the 2 workers
@@ -2820,13 +2979,21 @@ def main(argv: list | None = None) -> int:
         if mh_launches[key] <= 0:
             fail(f"the multihost path did not launch {entry['name']}")
     report += b8
+    # K2's block path: its launches on the main path (checked in real) and
+    # on the other paths that run the single sequence engine
+    blocks["rev"].update({f"launches_{tag}": n[seq_block] for tag, n in (
+        ("toolkit", tk_launches), ("profile", p_launches),
+        ("iterative", it_launches), ("split", split_launches),
+        ("sharded", sh_launches), ("multihost", mh_launches),
+        ("gff", gff_launches))})
     # the profile reverse stage's block path: its launches in the profile
-    # search (the main path of this slice, checked in profile-real) and in
+    # search (the main path of its slice, checked in profile-real) and in
     # the other paths that build a profile engine
-    prof_block.update(launches_profile=p_launches["rev_prof_block"],
-                      launches_iterative=it_launches["rev_prof_block"],
-                      launches_split=split_launches["rev_prof_block"])
-    report.append(prof_block)
+    blocks["rev_prof"].update(
+        launches_profile=p_launches["rev_prof_block"],
+        launches_iterative=it_launches["rev_prof_block"],
+        launches_split=split_launches["rev_prof_block"])
+    report += [blocks["rev"], blocks["rev_prof"]]
 
     print(json.dumps({"kernels": report}))
     print(card_line())

@@ -19,7 +19,8 @@ paths with `--multihost > 1`; `--multihost-local-devices` without
 `--multihost > 1`; `--gff-type` and `--translation-table` without
 `--gff-dir`; `-s`, `--gap-open`, `--gap-extend`, `--aln-len`,
 `--max-accept`, `--max-rejected` and `--alt-ali` with `clustersearch
---search-mode 2`.
+--search-mode 2`; `-k` and `--spaced-kmer-mode` with `clustersearch
+--search-mode 1`, `--search-mode 2` or `--profile-cluster-search`.
 
 Run as `python -m spacedust_tpu_torch <command> ...`.
 """
@@ -72,7 +73,15 @@ DROPPED = (
     # these flags for its unmapped genes' sequence search
     ("search_mode", lambda v: v == 2, "--search-mode 2",
      {"sensitivity": 5.7, "gap_open": 11, "gap_extend": 1, "aln_len_thr": 30,
-      "max_accept": _INT_MAX, "max_rejected": _INT_MAX, "alt_ali": 0}),
+      "max_accept": _INT_MAX, "max_rejected": _INT_MAX, "alt_ali": 0,
+      "kmer_size": 0, "spaced_kmer_mode": 1}),
+    # only the sequence search (--search-mode 0) hands -k and
+    # --spaced-kmer-mode to its prefilter; the unmapped genes' prefilter of
+    # --search-mode 1 and the profile search's index take their defaults
+    ("search_mode", lambda v: v == 1, "--search-mode 1",
+     {"kmer_size": 0, "spaced_kmer_mode": 1}),
+    ("profile_cluster_search", bool, "--profile-cluster-search",
+     {"kmer_size": 0, "spaced_kmer_mode": 1}),
 )
 # the flag of a dest whose name is not the flag's
 _FLAG = {"kmer_size": "-k", "sensitivity": "-s", "aln_len_thr": "--aln-len"}

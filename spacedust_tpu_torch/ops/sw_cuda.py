@@ -45,9 +45,11 @@ of BLOCK_WARPS warps a pair, launched first on a side stream of the
 card), the rest to the sequence kernel with a per-pair shard
 (`sw_*_shards`) on the current stream; the current stream waits for the
 side stream once.  For CPU tensors they run `ops/sw.py::
-sw_shards_jobs_ref`.  `sw_reverse_prof` plans its stage the same way, as
-one shard: its long pairs go to `sw_reverse_prof_block` (the block path
-with the profile cell), the rest to the profile warp kernel.
+sw_shards_jobs_ref`.  `sw_reverse` and `sw_reverse_prof` plan their stage
+the same way, as one shard: the long pairs of `sw_reverse` go to
+`sw_reverse_shards_block` over a one-tensor `ShardTargets` of its target
+array, those of `sw_reverse_prof` to `sw_reverse_prof_block` (the block
+path with the profile cell); the rest to the direction's own warp kernel.
 
 Every launch goes to the card of its tensors: the launchers enter that
 card (`torch.cuda.device`) round their C calls, record their events on
@@ -56,8 +58,10 @@ once.
 
 FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
 REVERSE_STRUCT_LAUNCHES / FORWARD_PROF_LAUNCHES / REVERSE_PROF_LAUNCHES,
-the profile reverse stage's REVERSE_PROF_BLOCK_LAUNCHES (long pairs) and
-the sharded stage's FORWARD_SHARDS_LAUNCHES / REVERSE_SHARDS_LAUNCHES
+the block paths of the single engine's reverse stage
+(REVERSE_SEQ_BLOCK_LAUNCHES) and of the profile reverse stage
+(REVERSE_PROF_BLOCK_LAUNCHES), which take their long pairs, and the
+sharded stage's FORWARD_SHARDS_LAUNCHES / REVERSE_SHARDS_LAUNCHES
 (short pairs) / FORWARD_BLOCK_LAUNCHES / REVERSE_BLOCK_LAUNCHES (long
 pairs) count kernel launches (COUNTERS names them all).  A caller that
 wants the kernels' own time passes a dict as `events`: the launcher puts
@@ -107,17 +111,27 @@ STEP_OVERHEAD_CELLS = 3
 # direction (reverse?): (H, F), and the column max with its row
 WARP_SCRATCH = {False: 8, True: 16}
 
-# the block path (B8 and the profile reverse stage): the warps an SM runs
-# at once on the sequence and profile warp kernels (4 blocks of 4 warps;
-# `card_warps` multiplies by the card's SMs), the compiled widths W and
-# the one the wrappers take: chip_smoke.py's sharded phase times the giant
-# pair and both stages at each W; on an H100 80GB HBM3 at 700 W, W = 16
+# the block path (B8 and the sequence and profile reverse stages): the
+# warps an SM runs at once on the sequence and profile warp kernels (4
+# blocks of 4 warps; `card_warps` multiplies by the card's SMs), the
+# compiled widths W and the one the wrappers take: chip_smoke.py's
+# sharded phase times the giant pair and both stages at each W (its
+# timing phase the K2 and B10 reverse stages); on an H100 80GB HBM3 at
+# 700 W, W = 16
 # took the 5,917 x 5,496 pair in 3.74 ms (W = 8: 4.63, W = 4: 6.60; one
 # warp 21.51) and the reverse stage of `real` in 6.10 ms (7.51, 9.34), the
 # forward stage being set by its short launch
 SM_WARPS = 16
 BLOCK_WARP_CHOICES = (4, 8, 16)
 BLOCK_WARPS = 16
+# the block path takes a long pair only where it sweeps the pair's query
+# at least BLOCK_GAIN times sooner than one warp (shard_plan); 0 takes
+# every long pair.  chip_smoke.py's timing phase times K2, B8 and B10
+# reverse at 0, 1.5, 2 and 3: on an H100 80GB HBM3 at 700 W no stage's
+# fork to join moved, and at 1.5-3 the short launches of K2 and B8
+# reverse took 0.45-0.6 ms longer (the one-strip pairs of long targets
+# kept there start late in them), so 0 it is
+BLOCK_GAIN = 0
 
 FORWARD_LAUNCHES = 0
 REVERSE_LAUNCHES = 0
@@ -125,6 +139,7 @@ FORWARD_STRUCT_LAUNCHES = 0
 REVERSE_STRUCT_LAUNCHES = 0
 FORWARD_PROF_LAUNCHES = 0
 REVERSE_PROF_LAUNCHES = 0
+REVERSE_SEQ_BLOCK_LAUNCHES = 0
 REVERSE_PROF_BLOCK_LAUNCHES = 0
 FORWARD_SHARDS_LAUNCHES = 0
 REVERSE_SHARDS_LAUNCHES = 0
@@ -140,8 +155,12 @@ ENTRY = {(False, "seq"): ("sw_forward", "FORWARD_LAUNCHES"),
          (False, "prof"): ("sw_forward_prof", "FORWARD_PROF_LAUNCHES"),
          (True, "prof"): ("sw_reverse_prof", "REVERSE_PROF_LAUNCHES")}
 # (reverse?, cell) of a wrapper whose stage takes the block path too ->
-# the long pairs' C entry point and its launch counter
-BLOCK_ENTRY = {(True, "prof"): ("sw_reverse_prof_block",
+# the long pairs' C entry point and its launch counter (the sequence cell
+# reads its targets through a one-tensor ShardTargets, as B8 does; a
+# counter of its own, apart from B8's)
+BLOCK_ENTRY = {(True, "seq"): ("sw_reverse_shards_block",
+                               "REVERSE_SEQ_BLOCK_LAUNCHES"),
+               (True, "prof"): ("sw_reverse_prof_block",
                                 "REVERSE_PROF_BLOCK_LAUNCHES")}
 # a wrapper's count of leading resident tensors -> its cell
 CELL_OF_RESIDENT = {4: "seq", 7: "struct", 2: "prof"}
@@ -239,10 +258,11 @@ def _card_index(device) -> int:
 
 def load(device=None) -> ctypes.CDLL:
     """Build and bind the kernels (once), and ready the card of `device`
-    (None: the current card) unless it is ready: load the kernels onto it
-    and make its side stream of the block path, so that no later launch
-    on it (or whatever times one) pays for any of it.  Raises on the
-    card's CUDA error."""
+    (None: the current card) unless it is ready: load the kernels onto it,
+    make its side stream of the block path and launch torch's gather of
+    a split stage's results once, so that no later launch on it (or
+    whatever times one) pays for any of it.  Raises on the card's CUDA
+    error."""
     global _LIB
     index = _card_index(device)
     with _LOCK:
@@ -257,6 +277,13 @@ def load(device=None) -> ctypes.CDLL:
                 # high priority, so that the long pairs' blocks are
                 # dispatched ahead of the short launch's
                 _SIDE[index] = torch.cuda.Stream(index, priority=-1)
+                # and the gather that hands a split stage's results back
+                # in the caller's order (_launch_split): torch loads a
+                # kernel at its first launch, 29 ms on an H100, which
+                # would fall in the first stage that takes the block path
+                dev = torch.device("cuda", index)
+                torch.empty((6, 2), dtype=torch.int32, device=dev)[
+                    :, torch.tensor([1, 0], dtype=torch.int64, device=dev)]
             _LOADED.add(index)
     return _LIB
 
@@ -365,8 +392,12 @@ def shard_plan(jobs: np.ndarray, reverse: bool, warps: int = BLOCK_WARPS,
     terminate, shard).  A pair goes to the block path when its one-warp
     lane-steps ceil(qlen / 32R) * (tlen + 31) (R its lane_rows class)
     exceed the stage's total over `card_warps` (the card's, `card_warps()`):
-    it would outlast an even share of the stage.  There its class is
-    block_rows(qlen, warps).  The checks pass `force` (every pair to the
+    it would outlast an even share of the stage; and when the block
+    shortens it: its strips a warp there, ceil(ceil(qlen / 32R') / warps)
+    * (R' + STEP_OVERHEAD_CELLS), times BLOCK_GAIN (read at the call) are
+    at most its strips on one warp, ceil(qlen / 32R) * (R +
+    STEP_OVERHEAD_CELLS).  There its class R' is block_rows(qlen, warps).
+    The checks pass `force` (every pair to the
     block path) and `rows` (one class for every pair); the wrappers leave
     both.  A stage of one target array (the profile reverse stage) is one
     shard: row 5 all 0."""
@@ -375,9 +406,16 @@ def shard_plan(jobs: np.ndarray, reverse: bool, warps: int = BLOCK_WARPS,
                          f" warps, not {warps}")
     n = jobs.shape[1]
     one = lane_rows(jobs[1]) if rows is None else np.full(n, rows)
-    steps = -(-jobs[1] // (32 * one)) * (jobs[3] + 31)
-    long = (np.ones(n, dtype=bool) if force
-            else steps * card_warps > steps.sum())
+    strips = -(-jobs[1] // (32 * one))
+    steps = strips * (jobs[3] + 31)
+    if force:
+        long = np.ones(n, dtype=bool)
+    else:
+        long = steps * card_warps > steps.sum()
+        rb = block_rows(jobs[1], warps) if rows is None else one
+        per_warp = -(-(-(-jobs[1] // (32 * rb))) // warps)
+        long &= (per_warp * (rb + STEP_OVERHEAD_CELLS) * BLOCK_GAIN
+                 <= strips * (one + STEP_OVERHEAD_CELLS))
     li = np.nonzero(long)[0]
     nl = len(li)
     # the caller's order when the long pairs lead it (as a stage sorted
@@ -491,8 +529,10 @@ def _device_of(t: torch.Tensor) -> torch.device:
 
 
 def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
-              gap_open: int, gap_extend: int,
-              events: dict | None = None) -> torch.Tensor:
+              gap_open: int, gap_extend: int, events: dict | None = None,
+              warps: int = BLOCK_WARPS, force: bool = False,
+              rows: int | None = None,
+              targets: ShardTargets | None = None) -> torch.Tensor:
     nq, nt = len(qbias), len(tdata)
     _check((("qbias", qbias, torch.int8, nq),
             ("query tokens", qdata, torch.uint8, nq),
@@ -501,9 +541,22 @@ def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
     if _device_of(qdata).type == "cpu":
         return sw_jobs_ref(qdata, qbias, tdata, sub, jobs, gap_open,
                            gap_extend, reverse)
-    return _launch_warp(reverse, (qdata, qbias, tdata, sub),
-                        warp_plan(jobs, WARP_SCRATCH[reverse]), gap_open,
-                        gap_extend, events)
+    if not reverse:
+        return _launch_warp(False, (qdata, qbias, tdata, sub),
+                            warp_plan(jobs, WARP_SCRATCH[False]), gap_open,
+                            gap_extend, events)
+    # the reverse stage as one shard: its long pairs on the block path,
+    # which reads the target array through its one-tensor pointer table
+    if targets is None:
+        targets = ShardTargets([tdata])
+    elif len(targets.tensors) != 1 or \
+            targets.tensors[0].data_ptr() != tdata.data_ptr():
+        raise ValueError("targets: need the one-tensor ShardTargets of "
+                         "tdata")
+    plan = shard_plan(_one_shard(jobs), True, warps, force, rows,
+                      card_warps=card_warps(qdata.device))
+    return _launch_split(True, (qdata, qbias, tdata, sub), plan, gap_open,
+                         gap_extend, events, warps, targets)
 
 
 def _run_struct(reverse: bool, qss, qaa, qbias, tss, taa, m3di, aasc,
@@ -544,8 +597,7 @@ def _run_prof(reverse: bool, qprof, tdata, jobs: np.ndarray, gap_open: int,
                             warp_plan(jobs, WARP_SCRATCH[False]), gap_open,
                             gap_extend, events)
     # the reverse stage as one shard: its long pairs on the block path
-    one = np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)])
-    plan = shard_plan(one, True, warps, force, rows,
+    plan = shard_plan(_one_shard(jobs), True, warps, force, rows,
                       card_warps=card_warps(qprof.device))
     return _launch_split(True, (qprof, tdata), plan, gap_open, gap_extend,
                          events, warps)
@@ -560,11 +612,19 @@ def sw_forward(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
 
 
 def sw_reverse(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
-               gap_extend: int, events: dict | None = None) -> torch.Tensor:
+               gap_extend: int, events: dict | None = None,
+               warps: int = BLOCK_WARPS, force: bool = False,
+               rows: int | None = None,
+               targets: ShardTargets | None = None) -> torch.Tensor:
     """Reverse pass on the flipped prefixes: all six outputs, with
-    (found, fj, fi) at the terminate score in flipped coordinates."""
+    (found, fj, fi) at the terminate score in flipped coordinates.  On a
+    card the stage is planned as one shard (shard_plan; warps / force /
+    rows go to it): the long pairs on sw_reverse_shards_block, which
+    reads `targets` (the one-tensor ShardTargets of tdata that an engine
+    makes once; None: made here), the rest on sw_reverse, `events` as
+    _launch_split fills it."""
     return _run_warp(True, qdata, qbias, tdata, sub, jobs, gap_open,
-                     gap_extend, events)
+                     gap_extend, events, warps, force, rows, targets)
 
 
 def sw_forward_struct(qss, qaa, qbias, tss, taa, m3di, aasc,
@@ -620,35 +680,54 @@ class ShardTargets:
                      if dev.type == "cuda" else None)
 
 
-def _split_entry(reverse: bool, resident: tuple) -> tuple:
-    """A split stage's leading C arguments and its (short-pair entry
-    point, its counter, long-pair entry point, its counter): resident is
-    (qdata, qbias, ShardTargets, sub) of a card's sharded stage, or
-    (qprof, tdata) of a profile reverse stage."""
+def _one_shard(jobs: np.ndarray) -> np.ndarray:
+    """(5, n) jobs of one target array as the (6, n) jobs of shard 0."""
+    return np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)])
+
+
+def _split_entry(reverse: bool, resident: tuple,
+                 targets: ShardTargets | None = None) -> tuple:
+    """A split stage's leading C arguments of its long launch and of its
+    short launches, and its (short-pair entry point, its counter,
+    long-pair entry point, its counter): resident is (qdata, qbias,
+    ShardTargets, sub) of a card's sharded stage, (qdata, qbias, tdata,
+    sub) of a sequence reverse stage with `targets` the one-tensor
+    ShardTargets of tdata (the long launch reads its pointer table, the
+    short one tdata), or (qprof, tdata) of a profile reverse stage."""
     if len(resident) == 2:
         qprof, tdata = resident
-        return ((qprof.data_ptr(), tdata.data_ptr()),
-                ENTRY[reverse, "prof"] + BLOCK_ENTRY[reverse, "prof"])
-    qdata, qbias, targets, sub = resident
-    return ((qdata.data_ptr(), qbias.data_ptr(), targets.base.data_ptr(),
-             sub.data_ptr(), int(sub.shape[0])), SHARD_ENTRY[reverse])
+        args = (qprof.data_ptr(), tdata.data_ptr())
+        return args, args, ENTRY[reverse, "prof"] + BLOCK_ENTRY[reverse,
+                                                                "prof"]
+    qdata, qbias, tdata, sub = resident
+    head = (qdata.data_ptr(), qbias.data_ptr())
+    tail = (sub.data_ptr(), int(sub.shape[0]))
+    if isinstance(tdata, ShardTargets):
+        args = (*head, tdata.base.data_ptr(), *tail)
+        return args, args, SHARD_ENTRY[reverse]
+    return ((*head, targets.base.data_ptr(), *tail),
+            (*head, tdata.data_ptr(), *tail),
+            ENTRY[reverse, "seq"] + BLOCK_ENTRY[reverse, "seq"])
 
 
 def _launch_split(reverse: bool, resident: tuple, plan: ShardPlan,
                   gap_open: int, gap_extend: int,
                   events: dict | None = None,
-                  warps: int = BLOCK_WARPS) -> torch.Tensor:
+                  warps: int = BLOCK_WARPS,
+                  targets: ShardTargets | None = None) -> torch.Tensor:
     """Launch a stage over a shard_plan on the card of the resident
     tensors: the block path on the side stream (after what the current
     stream queued), the short pairs on the current stream, which then
     waits for the side stream; counts the launches and returns the (6, n)
-    result in the caller's job order.  resident: as _split_entry's, which
-    picks the entry points.  events: if a dict, gets the (start, end) CUDA
-    events of the whole ("card": from before the fork to after the join),
-    of the long launch ("long") and of the short launches ("short"), of
-    those that ran, and the count of block-path pairs ("n_long")."""
-    args, (short_name, short_counter, long_name, long_counter) = \
-        _split_entry(reverse, resident)
+    result in the caller's job order.  resident, targets: as
+    _split_entry's, which picks the entry points.  events: if a dict,
+    gets the (start, end) CUDA events of the whole ("card": from before
+    the fork to after the join), of the long launch ("long") and of the
+    short launches ("short"), of those that ran, and the count of
+    block-path pairs ("n_long")."""
+    long_args, short_args, (short_name, short_counter, long_name,
+                            long_counter) = _split_entry(reverse, resident,
+                                                         targets)
     dev = resident[0].device
     lib = load(dev)
     n = plan.table.shape[1]
@@ -679,7 +758,7 @@ def _launch_split(reverse: bool, resident: tuple, plan: ShardPlan,
             side = _SIDE[dev.index]
             side.wait_stream(main)
             mark("long", 0, side)
-            rc = getattr(lib, long_name)(*args, table_d.data_ptr(), n,
+            rc = getattr(lib, long_name)(*long_args, table_d.data_ptr(), n,
                                          plan.n_long, int(warps),
                                          int(gap_open), int(gap_extend),
                                          ring.data_ptr(), out.data_ptr(), n,
@@ -693,7 +772,7 @@ def _launch_split(reverse: bool, resident: tuple, plan: ShardPlan,
             mark("short", 0, main)
             for (s, e, _cols), buf in zip(plan.launches, scratch):
                 rc = getattr(lib, short_name)(
-                    *args, table_d.data_ptr() + 8 * s, n, e - s,
+                    *short_args, table_d.data_ptr() + 8 * s, n, e - s,
                     int(gap_open), int(gap_extend), buf.data_ptr(),
                     out.data_ptr() + 4 * s, n, main.cuda_stream)
                 if rc != 0:

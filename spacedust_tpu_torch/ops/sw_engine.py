@@ -18,10 +18,16 @@ wrapper round its launches alone (from the fork to the join where the
 stage takes the block path), and `*_wrapper_ms`, round the whole wrapper
 call (host planning, the job table's copy and the launches).
 
+On a card the reverse stage sends its long pairs to the block path
+(`sw_cuda.sw_reverse`: `sw_reverse_shards_block` beside the warp kernel;
+`rev_block_pairs`, `rev_block_launches` among the metrics), through the
+one-tensor pointer table of the engine's target array, made when the
+engine is.
+
 `DeviceAlignDB.with_targets(tdata)` gives an engine over another target
-array that shares the resident query tensors: the alternative-alignment
-rounds score the resident queries against masked copies of their targets
-through the same kernels.
+array that shares the resident query tensors (and makes its own pointer
+table): the alternative-alignment rounds score the resident queries
+against masked copies of their targets through the same kernels.
 
 `StructureDeviceDB` is the port of `StructureDeviceDB` (the resident side
 of `_sw_bucket_struct`): five resident arrays (3Di and amino-acid tokens
@@ -98,6 +104,12 @@ class DeviceAlignDB:
         if self.device.type == "cuda":
             # build and load the kernels now, outside every timed stage
             sw_cuda.load(self.device)
+        # the pointer table of this engine's own target array that the
+        # sequence reverse stage's block path reads, made now (one upload,
+        # before every timed stage; with_targets' view makes its own)
+        self._targets = (sw_cuda.ShardTargets([self.tdata])
+                         if self.device.type == "cuda" and self.CELL == "seq"
+                         else None)
         self._buf: dict[tuple, list] = {}
         self.metrics = {"n_batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
                         "fwd_launches": 0, "rev_launches": 0,
@@ -175,8 +187,10 @@ class DeviceAlignDB:
         block = sw_cuda.BLOCK_ENTRY.get((reverse, self.CELL))
         before = {c: getattr(sw_cuda, c)
                   for c in ((counter, block[1]) if block else (counter,))}
+        extra = ({"targets": self._targets}
+                 if reverse and self._targets is not None else {})
         out = getattr(sw_cuda, fn_name)(*self._resident(), jobs, gap_open,
-                                        gap_extend, events=events)
+                                        gap_extend, events=events, **extra)
         if timed:
             ev[1].record(stream)
             events["wrapper"] = ev

@@ -8,9 +8,12 @@ they are handed; a launch for another card than the current one fails on
 the card.  So each wrapper must enter its tensors' card round its C calls
 and record its events on that card's stream, and `load` must ready the
 kernels on each card it is asked for.  The same stand-ins show how
-`sw_reverse_prof` plans its stage (the long pairs on
-sw_reverse_prof_block, the rest on sw_reverse_prof) and that a forward
-profile stage is never split."""
+`sw_reverse` and `sw_reverse_prof` plan their stage (the long pairs on
+sw_reverse_shards_block over the engine's one-tensor pointer table /
+sw_reverse_prof_block, the rest on the warp kernel), that the results
+come back in the caller's job order, that an engine's `with_targets`
+view hands the block path its own targets, and that a forward stage is
+never split."""
 
 import contextlib
 import types
@@ -67,7 +70,10 @@ class FakeTensor:
         return FakeTensor(self.mem, self.shape, self.dtype, device, self.data)
 
     def __getitem__(self, index):
-        return FakeTensor(self.mem, self.shape, self.dtype, self.device)
+        # out[:, columns]: the columns of a result that holds data
+        data = (self.data[:, index[1].data] if self.data is not None
+                and isinstance(index, tuple) else None)
+        return FakeTensor(self.mem, self.shape, self.dtype, self.device, data)
 
 
 class FakeStream:
@@ -140,7 +146,9 @@ class FakeTorch:
 
     def empty(self, shape, dtype=None, device=None):
         shape = (shape,) if isinstance(shape, int) else shape
-        return FakeTensor(self.mem, shape, dtype, device)
+        # a result (6, n) holds data that the stand-in kernels write
+        data = np.zeros(shape, np.int64) if len(shape) == 2 else None
+        return FakeTensor(self.mem, shape, dtype, device, data)
 
     def from_numpy(self, a):
         dtype = torch.from_numpy(np.zeros(0, a.dtype)).dtype
@@ -151,12 +159,19 @@ class FakeTorch:
                           np.asarray(data))
 
 
+# the sequence entry points that write their results: name -> the
+# argument index of their output (jobs, job stride and count at 5, 6, 7)
+WRITES = {"sw_forward": 11, "sw_reverse": 11, "sw_reverse_shards_block": 12}
+
+
 class FakeLib:
     """The kernel library: each entry point records its name, the
-    current card and its arguments, and returns 0."""
+    current card and its arguments, and returns 0.  Those of WRITES put
+    into their output columns the jobs' qoff (row 0) and 1 for the block
+    path (row 1), as a kernel writes pair p's result in column p."""
 
-    def __init__(self, cuda):
-        self.cuda = cuda
+    def __init__(self, cuda, mem):
+        self.cuda, self.mem = cuda, mem
         self.calls = []
 
     def __getattr__(self, name):
@@ -165,6 +180,13 @@ class FakeLib:
 
         def entry(*args):
             self.calls.append((name, self.cuda.current, args))
+            if name in WRITES:
+                table, off = self.mem.find(args[5])
+                qoff = table.data.reshape(-1, args[6])[0, off // 8:]
+                out, at = self.mem.find(args[WRITES[name]])
+                cols = slice(at // 4, at // 4 + args[7])
+                out.data[0, cols] = qoff[:args[7]]
+                out.data[1, cols] = name.endswith("_block")
             return 0
 
         setattr(self, name, entry)
@@ -175,7 +197,7 @@ class FakeLib:
 def card(monkeypatch):
     mem, cuda = Memory(), FakeCuda()
     fake = FakeTorch(mem, cuda)
-    lib = FakeLib(cuda)
+    lib = FakeLib(cuda, mem)
     for mod in (sw_cuda, sw_engine):
         monkeypatch.setattr(mod, "torch", fake)
     monkeypatch.setattr(sw_cuda, "_LIB", lib)
@@ -360,3 +382,176 @@ def test_forward_profile_stage_is_never_split(card):
     assert card.lib.calls[-1][2][4] == jobs.shape[1]
     assert set(ev) == {"card"}
     assert sw_cuda.REVERSE_PROF_BLOCK_LAUNCHES == 0
+
+
+def _engine(nq: int, nt: int, seed: int = 1) -> sw_engine.DeviceAlignDB:
+    """A sequence engine on the stand-in card over random arrays."""
+    rng = np.random.default_rng(seed)
+    return sw_engine.DeviceAlignDB(
+        rng.integers(0, 21, nq).astype(np.uint8),
+        rng.integers(-3, 4, nq).astype(np.int8),
+        rng.integers(0, 21, nt).astype(np.uint8),
+        rng.integers(-4, 5, (21, 21)).astype(np.int8), device=f"cuda:{CARD}")
+
+
+def _giants(jobs: np.ndarray, at=(0, 1, 2)) -> np.ndarray:
+    """The jobs with three pairs of many strips at `at` (the giant one and
+    two of 5,000 x 5,500), each past an even share of an H100's warps."""
+    jobs = jobs.copy()
+    jobs[1, list(at)] = (5917, 5000, 5000)
+    jobs[3, list(at)] = (5496, 5500, 5500)
+    qlen, tlen = jobs[1], jobs[3]
+    jobs[0] = np.cumsum(qlen) - qlen
+    jobs[2] = np.cumsum(tlen) - tlen
+    return jobs
+
+
+def _seq_table(card, call) -> np.ndarray:
+    """The job table a sequence entry point read (8 rows, its job stride)
+    from its jobs pointer on."""
+    _name, _dev, args = call
+    t, off = card.mem.find(args[5])
+    return t.data.reshape(8, args[6])[:, off // 8:]
+
+
+def _reverse_stage(eng, jobs):
+    """One reverse stage of the engine over jobs (positions 0..n-1)."""
+    pending = eng.enqueue([(*jobs, np.arange(jobs.shape[1]))], 11, 1,
+                          reverse=True)
+    return pending + eng.flush(11, 1, reverse=True)
+
+
+def test_sequence_reverse_stage_plan(card):
+    """DeviceAlignDB's reverse stage on cuda:1 (K2 in the single engine)
+    is planned as one shard over the card's warps: its three pairs of
+    many strips go first in the table to sw_reverse_shards_block, at
+    block_rows' class, reading the engine's one-tensor pointer table (made
+    with the engine, before every stage) on the side stream; the other
+    pairs go to one sw_reverse launch over the rest of the table, which
+    reads the target array itself; every C call is under cuda:1 on a
+    stream of cuda:1, every event on cuda:1; the metrics count the block
+    pairs and both launches."""
+    jobs, _nq, _nt = _stage()
+    jobs = _giants(jobs)
+    nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
+    eng = _engine(nq, nt)
+    assert card.lib.calls == [("sw_load", CARD, ())]
+    before = card.mem.top
+    pending = _reverse_stage(eng, jobs)
+    assert len(pending) == 1
+    _pos, _out, events, d = pending[0]
+    assert d == "rev" and {"wrapper", "card", "long", "short"} <= set(events)
+    assert set(card.cuda.events) == {CARD}
+    calls = {c[0]: c for c in card.lib.calls}
+    assert set(calls) == {"sw_load", "sw_reverse", "sw_reverse_shards_block"}
+    for name, current, args in card.lib.calls[1:]:
+        assert current == CARD, name
+        assert args[-1] in (0x1000 * (CARD + 1), 0x1000 * (CARD + 1) + 1)
+    block, short = calls["sw_reverse_shards_block"], calls["sw_reverse"]
+    base, at = card.mem.find(block[2][2])
+    assert base is eng._targets.base and at == 0
+    assert base.data.tolist() == [eng.tdata.data_ptr()]
+    assert base.data_ptr() <= before
+    assert short[2][2] == eng.tdata.data_ptr()
+    n_long = block[2][7]
+    assert n_long == 3 and block[2][8] == sw_cuda.BLOCK_WARPS
+    table = _seq_table(card, block)
+    np.testing.assert_array_equal(table[:5, :3], jobs[:, :3])
+    np.testing.assert_array_equal(
+        table[5, :3], sw_cuda.block_rows(jobs[1, :3], sw_cuda.BLOCK_WARPS))
+    assert (table[7] == 0).all()
+    rest = _seq_table(card, short)
+    assert short[2][7] == jobs.shape[1] - 3
+    order = np.argsort(-(jobs[1, 3:] * jobs[3, 3:]), kind="stable") + 3
+    np.testing.assert_array_equal(rest[:5, :short[2][7]], jobs[:, order])
+    m = eng.metrics
+    assert m["rev_block_pairs"] == 3 and m["rev_block_launches"] == 1
+    assert m["rev_launches"] == 2 and m["rev_pairs"] == jobs.shape[1]
+    assert sw_cuda.REVERSE_SEQ_BLOCK_LAUNCHES == 1
+    assert sw_cuda.REVERSE_LAUNCHES == 1
+    assert sw_cuda.REVERSE_BLOCK_LAUNCHES == 0       # B8's count
+
+
+def test_sequence_reverse_results_in_job_order(card):
+    """sw_reverse on a card hands back column p for the caller's job p
+    whatever order the plan launches them in: the giant pairs sit at 7,
+    100 and 2,000 of the caller's order, the block path takes them
+    first, and the stand-in kernels write each job's qoff (and 1 on the
+    block path) where the table puts it.  A pointer table of another
+    array is refused."""
+    jobs, _nq, _nt = _stage(giant=(100, 100))
+    jobs = _giants(jobs, at=(7, 100, 2000))
+    nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
+    u8 = torch.uint8
+    seq = (card.tensor(nq, u8), card.tensor(nq, torch.int8),
+           card.tensor(nt, u8), card.tensor(21, torch.int8, (21, 21)))
+    out = sw_cuda.sw_reverse(*seq, jobs, 11, 1)
+    np.testing.assert_array_equal(out.data[0], jobs[0])
+    long = np.zeros(jobs.shape[1], np.int64)
+    long[[7, 100, 2000]] = 1
+    np.testing.assert_array_equal(out.data[1], long)
+    other = sw_cuda.ShardTargets([card.tensor(nt, u8)])
+    with pytest.raises(ValueError, match="one-tensor ShardTargets"):
+        sw_cuda.sw_reverse(*seq, jobs, 11, 1, targets=other)
+
+
+def test_forward_sequence_stage_is_never_split(card):
+    """A forward sequence stage with the same giant pairs is one
+    sw_forward launch over every pair, with no block path, through the
+    wrapper and through the engine (no forward block metrics)."""
+    jobs, _nq, _nt = _stage()
+    jobs = _giants(jobs)
+    nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
+    eng = _engine(nq, nt)
+    ev: dict = {}
+    sw_cuda.sw_forward(eng.qdata, eng.qbias, eng.tdata, eng.sub, jobs, 11, 1,
+                       events=ev)
+    assert set(ev) == {"card"}
+    eng.flush(11, 1, False)
+    eng.enqueue([(*jobs, np.arange(jobs.shape[1]))], 11, 1, reverse=False)
+    eng.flush(11, 1, reverse=False)
+    names = [c[0] for c in card.lib.calls if c[0] != "sw_load"]
+    assert names == ["sw_forward", "sw_forward"]
+    assert all(c[2][7] == jobs.shape[1] for c in card.lib.calls[1:])
+    assert sw_cuda.REVERSE_SEQ_BLOCK_LAUNCHES == 0
+    assert eng.metrics["fwd_launches"] == 1
+    assert not any(k.startswith("fwd_block") for k in eng.metrics)
+
+
+def test_with_targets_view_reads_its_own_targets(card):
+    """An engine's with_targets view (the --alt-ali rounds' masked
+    targets) makes its own pointer table when it is made, and its reverse
+    stage's block path reads the view's target array, not the parent's:
+    the block launch's pointer table holds the view's tdata, the short
+    launch reads it too.  The planted fault -- the view keeping the
+    parent's table, as copy.copy would leave it -- is refused, not
+    scored against the unmasked targets."""
+    jobs, _nq, _nt = _stage()
+    jobs = _giants(jobs)
+    nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
+    eng = _engine(nq, nt)
+    masked = np.full(nt, 20, np.uint8)
+    view = eng.with_targets(masked)
+    assert view._targets is not eng._targets
+    assert view.qdata is eng.qdata and view.tdata is not eng.tdata
+    before = card.mem.top
+    _reverse_stage(view, jobs)
+    block = next(c for c in card.lib.calls
+                 if c[0] == "sw_reverse_shards_block")
+    short = next(c for c in card.lib.calls if c[0] == "sw_reverse")
+    base, _at = card.mem.find(block[2][2])
+    assert base is view._targets.base
+    assert base.data.tolist() == [view.tdata.data_ptr()]
+    assert view.tdata.data_ptr() != eng.tdata.data_ptr()
+    assert short[2][2] == view.tdata.data_ptr()
+    # no pointer table was made during the stage
+    assert base.data_ptr() <= before
+    assert all(t.shape != (1,) for b, t in card.mem.tensors.items()
+               if b > before)
+    assert view.metrics["rev_block_pairs"] == 3
+    assert eng.metrics["rev_block_pairs"] == 0
+
+    faulty = eng.with_targets(masked)
+    faulty._targets = eng._targets       # the planted fault: a shared table
+    with pytest.raises(ValueError, match="one-tensor ShardTargets"):
+        _reverse_stage(faulty, jobs)

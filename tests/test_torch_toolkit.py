@@ -212,6 +212,34 @@ def test_search_mode_2_refuses_the_flags_it_drops(capsys, flag, value):
     assert "has no effect" not in capsys.readouterr().err
 
 
+KMER_PATHS = [(["--search-mode", "1"], "--search-mode 1"),
+              (["--search-mode", "2"], "--search-mode 2"),
+              (["--profile-cluster-search"], "--profile-cluster-search")]
+
+
+@pytest.mark.parametrize("flag,value", [("-k", "7"),
+                                        ("--spaced-kmer-mode", "0")],
+                         ids=["k", "spaced-kmer-mode"])
+@pytest.mark.parametrize("switch,path", KMER_PATHS,
+                         ids=["mode1", "mode2", "profile"])
+def test_kmer_flags_refused_off_the_sequence_search(capsys, switch, path,
+                                                    flag, value):
+    """-k and --spaced-kmer-mode reach the prefilter of the sequence
+    search (--search-mode 0) only: clustersearch refuses them in the
+    parser (exit code 2), naming the flag and the path, with
+    --search-mode 1 and 2 and --profile-cluster-search; the sequence
+    search parses them and fails on its missing DB."""
+    argv = ["clustersearch", "q", "q", "out", flag, value, "--device", "cpu"]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv + switch)
+    assert exc.value.code == 2
+    assert f"{flag} {value} has no effect with {path}" in \
+        capsys.readouterr().err
+    with pytest.raises(FileNotFoundError):
+        cli.main(argv + ["--search-mode", "0"])
+    assert "has no effect" not in capsys.readouterr().err
+
+
 def test_switched_off_values_pass_the_parser(capsys):
     """The values that switch a feature off parse; the command then fails
     on its missing DB, not in the parser."""
