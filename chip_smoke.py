@@ -176,8 +176,7 @@ the kernels line, the card and the result.
                 outputs equal; and the largest sharded stage of each
                 direction again: its wall on the card, the long-pair
                 launch, the short launch and the card's dispatch, at the
-                engine's W, at each W and under each long-pair rule
-                (GAINS), against the plain version (the
+                engine's W and at each W, against the plain version (the
                 long and the short pairs apart), and the stage's longest
                 pair alone on one warp and on the block path at each W;
  17. multihost -- the real set as 2 worker processes of 2 target shards,
@@ -208,9 +207,9 @@ the kernels line, the card and the result.
                 alone and what the classes of query rows per lane buy.  For
                 K2 and B10 reverse also the card's fork to join with the
                 block launch and the short launch beside each other, at
-                each width W and under each long-pair rule (GAINS); the
-                stage on the warp kernel alone in one launch; its longest
-                pair on one warp and on a block at each W.
+                each width W; the stage on the warp kernel alone in one
+                launch; its longest pair on one warp and on a block at each
+                W.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object {"kernels": [...]}; the last line is
@@ -298,9 +297,6 @@ BLOCKS = {"rev": ("rev_seq_block", "sw_reverse_shards_block",
                   "REVERSE_SEQ_BLOCK_LAUNCHES"),
           "rev_prof": ("rev_prof_block", "sw_reverse_prof_block",
                        "REVERSE_PROF_BLOCK_LAUNCHES")}
-# the long-pair rule's BLOCK_GAIN values timed on every stage that takes
-# the block path (0: every long pair, the rule before the strip condition)
-GAINS = (0, 1.5, 2, 3)
 PROF_COLS = 21          # profile columns a residue (20 amino acids and X)
 GATHER = "spacedust_tpu/ops/sw_engine.py:82"     # fused into the kernels
 
@@ -2237,19 +2233,6 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
         print(f"[sharded] {d} stage at W={w}: wall {by_w[w][0]:.2f} ms; "
               f"long-pair launch {by_w[w][1].get('long', 0):.2f} ms, short "
               f"launch {by_w[w][1].get('short', 0):.2f} ms; {card}")
-    by_gain = {}
-    for gain in GAINS:
-        with block_gain(gain):
-            n_long = sw_cuda.shard_plan(
-                js, reverse, card_warps=sw_cuda.card_warps(qdata.device)
-            ).n_long
-            by_gain[gain] = (n_long, *walls({}))
-        wall_g, ms_g = by_gain[gain][1:]
-        print(f"[sharded] {d} stage, long-pair rule BLOCK_GAIN={gain}: "
-              f"{n_long} block pairs, wall {wall_g:.2f} ms; the card's "
-              f"dispatch {ms_g['card']:.2f} ms = long-pair launch "
-              f"{ms_g.get('long', 0):.2f} ms beside the short launch "
-              f"{ms_g.get('short', 0):.2f} ms; {card}")
     # the same pairs on the single engine's wrapper over the shards'
     # targets as one array (global offsets)
     whole = torch.cat(targets.tensors)
@@ -2301,11 +2284,6 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
             "stage_wall_ms": wall, "stage_bound_ms": b_ms,
             "stage_share_of_bound": b_ms / wall,
             "stage_wall_ms_by_warps": {w: v[0] for w, v in by_w.items()},
-            "stage_wall_ms_by_gain": {g: v[1] for g, v in by_gain.items()},
-            "stage_card_ms_by_gain": {g: v[2]["card"]
-                                      for g, v in by_gain.items()},
-            "stage_block_pairs_by_gain": {g: v[0]
-                                          for g, v in by_gain.items()},
             "single_engine_ms": k1_ms,
             "longest_pair_one_warp_ms": warp_ms,
             "longest_pair_block_ms_by_warps": block_ms,
@@ -2632,18 +2610,6 @@ def engine_kw(d: str, args: tuple) -> dict:
     return {"targets": sw_cuda.ShardTargets([args[2]])} if d == "rev" else {}
 
 
-@contextlib.contextmanager
-def block_gain(gain: float):
-    """sw_cuda.BLOCK_GAIN, the long-pair rule's strip condition, set to
-    `gain` for the plans made inside."""
-    from spacedust_tpu_torch.ops import sw_cuda
-    saved, sw_cuda.BLOCK_GAIN = sw_cuda.BLOCK_GAIN, gain
-    try:
-        yield
-    finally:
-        sw_cuda.BLOCK_GAIN = saved
-
-
 def stage_detail(d: str, args: tuple) -> None:
     """What sets a stage's time, and what the classes of query rows per
     lane buy: the stage's longest pair alone (on one warp: no other work
@@ -2742,12 +2708,11 @@ def time_block(d: str, args: tuple, launches: dict, errs: dict,
     reverse) on the main path's largest such stage, all in this call: the
     card's fork-to-join ms of the wrapper, its block launch and its short
     launch beside each other, at the wrappers' width and at each compiled
-    width W, and under each long-pair rule of GAINS; the same stage on
-    the warp kernel alone in one launch (the route before the block
-    path); the stage's longest pair alone on one warp and on a block at
-    each W; the block pairs' outputs against the plain version (host
-    clock).  Returns the kernels line's entry of the stage's block
-    path."""
+    width W; the same stage on the warp kernel alone in one launch (the
+    route before the block path); the stage's longest pair alone on one
+    warp and on a block at each W; the block pairs' outputs against the
+    plain version (host clock).  Returns the kernels line's entry of the
+    stage's block path."""
     from spacedust_tpu_torch.ops import sw_cuda
     key, entry, _counter = BLOCKS[d]
     fn = getattr(sw_cuda, KERNELS[d][0])
@@ -2759,21 +2724,14 @@ def time_block(d: str, args: tuple, launches: dict, errs: dict,
         return card_ms(lambda events: fn(*resident, js, go, ge,
                                          events=events, **kw, **o))
 
-    def plan():
-        return sw_cuda.shard_plan(
-            np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]),
-            True, card_warps=sw_cuda.card_warps(dev))
-
     by_w = {w: stage(warps=w) for w in sw_cuda.BLOCK_WARP_CHOICES}
     ms = by_w[sw_cuda.BLOCK_WARPS]
-    by_gain = {}
-    for gain in GAINS:
-        with block_gain(gain):
-            by_gain[gain] = (plan().n_long, stage())
     one_launch = card_ms(lambda events: sw_cuda._launch_warp(
         True, resident, sw_cuda.warp_plan(jobs, sw_cuda.WARP_SCRATCH[True]),
         go, ge, events))["card"]
-    p = plan()
+    p = sw_cuda.shard_plan(
+        np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]), True,
+        card_warps=sw_cuda.card_warps(dev))
     cols = p.order[:p.n_long]
     long_js = np.ascontiguousarray(jobs[:, cols])
     got = fn(*args, **kw)[:, torch.from_numpy(cols).to(dev)]
@@ -2807,11 +2765,6 @@ def time_block(d: str, args: tuple, launches: dict, errs: dict,
         print(f"[timing] {d} stage at W={w}: card {m['card']:.2f} ms, "
               f"block launch {m.get('long', 0):.2f} ms, short launch "
               f"{m.get('short', 0):.2f} ms; {card}")
-    for gain, (n_long, m) in by_gain.items():
-        print(f"[timing] {d} stage, long-pair rule BLOCK_GAIN={gain}: "
-              f"{n_long} block pairs, card {m['card']:.2f} ms, block launch "
-              f"{m.get('long', 0):.2f} ms, short launch "
-              f"{m.get('short', 0):.2f} ms; {card}")
     rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
                for w in sw_cuda.BLOCK_WARP_CHOICES}
     print(f"[timing] {d} stage's longest pair ({int(one[1, 0])} x "
@@ -2835,10 +2788,6 @@ def time_block(d: str, args: tuple, launches: dict, errs: dict,
         "stage_card_ms_by_warps": {w: m["card"] for w, m in by_w.items()},
         "stage_block_ms_by_warps": {w: m.get("long")
                                     for w, m in by_w.items()},
-        "stage_card_ms_by_gain": {g: m["card"]
-                                  for g, (_n, m) in by_gain.items()},
-        "stage_block_pairs_by_gain": {g: n for g, (n, _m)
-                                      in by_gain.items()},
         "stage_one_warp_launch_ms": one_launch,
         "longest_pair_one_warp_ms": warp_ms,
         "longest_pair_block_ms_by_warps": block_ms}

@@ -117,21 +117,12 @@ WARP_SCRATCH = {False: 8, True: 16}
 # compiled widths W and the one the wrappers take: chip_smoke.py's
 # sharded phase times the giant pair and both stages at each W (its
 # timing phase the K2 and B10 reverse stages); on an H100 80GB HBM3 at
-# 700 W, W = 16
-# took the 5,917 x 5,496 pair in 3.74 ms (W = 8: 4.63, W = 4: 6.60; one
-# warp 21.51) and the reverse stage of `real` in 6.10 ms (7.51, 9.34), the
-# forward stage being set by its short launch
+# 700 W, W = 16 took the 5,917 x 5,496 pair in 3.74 ms (W = 8: 4.63, W =
+# 4: 6.60; one warp 21.51) and the reverse stage of `real` in 6.10 ms
+# (7.51, 9.34), the forward stage being set by its short launch
 SM_WARPS = 16
 BLOCK_WARP_CHOICES = (4, 8, 16)
 BLOCK_WARPS = 16
-# the block path takes a long pair only where it sweeps the pair's query
-# at least BLOCK_GAIN times sooner than one warp (shard_plan); 0 takes
-# every long pair.  chip_smoke.py's timing phase times K2, B8 and B10
-# reverse at 0, 1.5, 2 and 3: on an H100 80GB HBM3 at 700 W no stage's
-# fork to join moved, and at 1.5-3 the short launches of K2 and B8
-# reverse took 0.45-0.6 ms longer (the one-strip pairs of long targets
-# kept there start late in them), so 0 it is
-BLOCK_GAIN = 0
 
 FORWARD_LAUNCHES = 0
 REVERSE_LAUNCHES = 0
@@ -279,8 +270,9 @@ def load(device=None) -> ctypes.CDLL:
                 _SIDE[index] = torch.cuda.Stream(index, priority=-1)
                 # and the gather that hands a split stage's results back
                 # in the caller's order (_launch_split): torch loads a
-                # kernel at its first launch, 29 ms on an H100, which
-                # would fall in the first stage that takes the block path
+                # kernel at its first launch, which fell in the first
+                # stage that took the block path (on an H100 that stage's
+                # wrapper took 23-30 ms at first use, 5-6 ms after this)
                 dev = torch.device("cuda", index)
                 torch.empty((6, 2), dtype=torch.int32, device=dev)[
                     :, torch.tensor([1, 0], dtype=torch.int64, device=dev)]
@@ -392,30 +384,22 @@ def shard_plan(jobs: np.ndarray, reverse: bool, warps: int = BLOCK_WARPS,
     terminate, shard).  A pair goes to the block path when its one-warp
     lane-steps ceil(qlen / 32R) * (tlen + 31) (R its lane_rows class)
     exceed the stage's total over `card_warps` (the card's, `card_warps()`):
-    it would outlast an even share of the stage; and when the block
-    shortens it: its strips a warp there, ceil(ceil(qlen / 32R') / warps)
-    * (R' + STEP_OVERHEAD_CELLS), times BLOCK_GAIN (read at the call) are
-    at most its strips on one warp, ceil(qlen / 32R) * (R +
-    STEP_OVERHEAD_CELLS).  There its class R' is block_rows(qlen, warps).
-    The checks pass `force` (every pair to the
-    block path) and `rows` (one class for every pair); the wrappers leave
-    both.  A stage of one target array (the profile reverse stage) is one
+    it would outlast an even share of the stage.  So does a pair of one
+    strip, which the block sweeps no sooner: kept on the warp kernel, such
+    pairs of long targets start late in the short launch and lengthen it
+    (timed on an H100, PERF.md).  There its class is block_rows(qlen,
+    warps).  The checks pass `force` (every pair to the block path) and
+    `rows` (one class for every pair); the wrappers leave both.  A stage
+    of one target array (the sequence and profile reverse stages) is one
     shard: row 5 all 0."""
     if warps not in BLOCK_WARP_CHOICES:
         raise ValueError(f"the block path is compiled for {BLOCK_WARP_CHOICES}"
                          f" warps, not {warps}")
     n = jobs.shape[1]
     one = lane_rows(jobs[1]) if rows is None else np.full(n, rows)
-    strips = -(-jobs[1] // (32 * one))
-    steps = strips * (jobs[3] + 31)
-    if force:
-        long = np.ones(n, dtype=bool)
-    else:
-        long = steps * card_warps > steps.sum()
-        rb = block_rows(jobs[1], warps) if rows is None else one
-        per_warp = -(-(-(-jobs[1] // (32 * rb))) // warps)
-        long &= (per_warp * (rb + STEP_OVERHEAD_CELLS) * BLOCK_GAIN
-                 <= strips * (one + STEP_OVERHEAD_CELLS))
+    steps = -(-jobs[1] // (32 * one)) * (jobs[3] + 31)
+    long = (np.ones(n, dtype=bool) if force
+            else steps * card_warps > steps.sum())
     li = np.nonzero(long)[0]
     nl = len(li)
     # the caller's order when the long pairs lead it (as a stage sorted

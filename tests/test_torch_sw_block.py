@@ -385,38 +385,6 @@ def test_shard_plan_long_pair_rule(reverse):
     assert plan.launches == [(s + nl, e + nl, c) for s, e, c in launches]
 
 
-@pytest.mark.parametrize("gain", [0, 1.5, 2, 3])
-@pytest.mark.parametrize("warps", sw_cuda.BLOCK_WARP_CHOICES)
-def test_shard_plan_strip_condition(monkeypatch, warps, gain):
-    """The long-pair rule's strip condition: at BLOCK_GAIN g a long pair
-    takes the block path only where its strips a warp there,
-    ceil(ceil(qlen / 32R') / W) (R' + 3) with R' = block_rows, times g
-    are at most its strips on one warp, ceil(qlen / 32R) (R + 3); g = 0
-    takes every long pair.  The one-strip giant (40 x 90,000: a warp
-    sweeps it as soon as a block) stays on the warp kernel at every
-    g > 0, the two giants of many strips take the block path at every g
-    here, and a pair past an even share of 130 to 256 query residues (one
-    strip at R = 8, two at R = 4) goes at g = 1.5 only."""
-    monkeypatch.setattr(sw_cuda, "BLOCK_GAIN", gain)
-    jobs = _stage()
-    jobs[1, 7], jobs[3, 7] = 200, 90_000
-    plan = sw_cuda.shard_plan(jobs, True, warps, card_warps=H100_WARPS)
-    one = sw_cuda.lane_rows(jobs[1])
-    strips = -(-jobs[1] // (32 * one))
-    steps = strips * (jobs[3] + 31)
-    rb = sw_cuda.block_rows(jobs[1], warps)
-    per_warp = -(-(-(-jobs[1] // (32 * rb))) // warps)
-    c = sw_cuda.STEP_OVERHEAD_CELLS
-    long = (steps * H100_WARPS > steps.sum()) & (
-        per_warp * (rb + c) * gain <= strips * (one + c))
-    np.testing.assert_array_equal(plan.order[:plan.n_long],
-                                  np.nonzero(long)[0])
-    on_block = set(plan.order[:plan.n_long].tolist())
-    assert {5, 30_000} <= on_block
-    assert (59_999 in on_block) == (gain == 0)
-    assert (7 in on_block) == (gain in (0, 1.5))
-
-
 @pytest.mark.parametrize("warps", sw_cuda.BLOCK_WARP_CHOICES)
 def test_shard_plan_block_class_and_ring(warps):
     """The block path's class minimises ceil(strips / W) * (R +
