@@ -30,14 +30,19 @@ the kernels line, the card and the result.
                 (blosum62_bf2_bias) and the composition bias it gives each
                 query, the extreme-bias pairs kept: the seeded batch and
                 every class on the edge batches, all six outputs equal.
-                Then K2's block path (sw_reverse's long pairs on
-                sw_reverse_shards_block) with every pair forced onto it at
-                each width W and class R, on the batch's reverse jobs and
-                on block_edge_batch (whole pairs and prefixes), and the
-                engine's mixed plan (long pairs on the block path, the rest
-                on the warp kernel) through sw_reverse; and an engine's
+                Then K1's and K2's block paths (sw_forward's and
+                sw_reverse's long pairs on sw_forward_shards_block /
+                sw_reverse_shards_block) with every pair forced onto them
+                at each width W and class R, on the batch's forward and
+                reverse jobs and on block_edge_batch (forward on its whole
+                pairs, the planted ties where the design puts them;
+                reverse on whole pairs and prefixes), and the engine's
+                mixed plan (long pairs on the block path, the rest on the
+                warp kernel) through sw_forward and sw_reverse, K1's block
+                path also with the realignment matrix; and an engine's
                 with_targets view over a masked copy of the batch's targets
-                through its split reverse stage; all six outputs equal;
+                through its split forward and reverse stages; all six
+                outputs equal;
   4. small   -- createsetdb + clustersearch --filter-self-match through the
                 CLI on the small synthetic genome set; the result must equal
                 tests/fixtures/torch_port_small.tsv (recorded by the JAX
@@ -45,7 +50,8 @@ the kernels line, the card and the result.
   5. real    -- the same through createsetdb / cluster_search_to_file on
                 the real-size synthetic set (4,300 + 1,600 genes), with the
                 kernel launch counters reset just before and read just
-                after (K1, K2 and K2's block path must launch); hit and
+                after (K1, K2 and both of their block paths must launch);
+                hit and
                 cluster counts and the canonical-TSV sha256 must equal
                 tests/fixtures/torch_port_real.json;
   6. kernels-struct -- sw_forward_struct / sw_reverse_struct against
@@ -91,9 +97,10 @@ the kernels line, the card and the result.
                 alone, line for line; every alternative record passes the
                 E-value gate and lies off the masked ranges of its parent
                 and of the records before it in its chain; at least ten
-                exist; and the masked rounds cost at most 2 forward
-                launches and 4 reverse (a round's reverse stage on its warp
-                kernel, its block path or both) beyond the main pass;
+                exist; and the masked rounds cost at most 4 forward
+                launches and 4 reverse (a round's stage on its warp
+                kernel, its block path or both) beyond the main pass, K1's
+                block path among them;
  10. kernels-prof -- sw_forward_prof / sw_reverse_prof against their
                 plain version (ops/sw.py::sw_prof_jobs_ref) on a seeded
                 ragged batch: lengths 1-3,000, homologs (profiles drawn
@@ -139,9 +146,10 @@ the kernels line, the card and the result.
                 card) must launch;
  14. iterative-real -- `search --num-iterations 2` through the CLI on the
                 real-size set, counters reset just before and read just
-                after (K1, K2 and the block paths of both reverse stages,
-                and the forward profile kernel must launch), held to
-                invariants: every
+                after (K1, K2, their block paths and that of the profile
+                reverse stage, and the forward profile kernel must launch;
+                the realignment's forward stage on K1's block path), held
+                to invariants: every
                 gene of >= 100 aa finds itself with
                 E < 1e-10; no round-1 record's target is one that round 0
                 found at E <= --e-profile; every record of round 0 carries
@@ -203,13 +211,17 @@ the kernels line, the card and the result.
                 GCUPS, beside the least time the card could take for the
                 stage (bound_ms: the larger of its bytes over the memory
                 rate and its integer instructions over the int32
-                instruction rate).  For each stage also the longest pair
-                alone and what the classes of query rows per lane buy.  For
-                K2 and B10 reverse also the card's fork to join with the
-                block launch and the short launch beside each other, at
-                each width W; the stage on the warp kernel alone in one
-                launch; its longest pair on one warp and on a block at each
-                W.
+                instruction rate); each of the main path's stages of a
+                kernel, and their sum.  For the largest stage also the
+                longest pair alone and what the classes of query rows per
+                lane buy.  For each stage of K1, K2 and B10 reverse also
+                the card's fork to join with the block launch and the
+                short launch beside each other, at each width W; the stage
+                on the warp kernel alone in one launch; its longest pair on
+                one warp and on a block at each W.  And the forward stages
+                of the small slice and of the toolkit's searches on the
+                small sets (masked rounds among them): the wrapper's route
+                beside the warp kernel alone in one launch.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON object {"kernels": [...]}; the last line is
@@ -290,10 +302,12 @@ B8_KERNELS = {
     "fwd_block": ("sw_forward_shards_block", "FORWARD_BLOCK_LAUNCHES"),
     "rev_shards": ("sw_reverse_shards", "REVERSE_SHARDS_LAUNCHES"),
     "rev_block": ("sw_reverse_shards_block", "REVERSE_BLOCK_LAUNCHES")}
-# the block paths of the single engines' reverse stages (their long
-# pairs; K2 and B10 reverse): the stage's direction -> (key of the
-# counts, C entry point, launch counter)
-BLOCKS = {"rev": ("rev_seq_block", "sw_reverse_shards_block",
+# the block paths of the single engines' stages (their long pairs; K1,
+# K2 and B10 reverse): the stage's direction -> (key of the counts, C
+# entry point, launch counter)
+BLOCKS = {"fwd": ("fwd_seq_block", "sw_forward_shards_block",
+                  "FORWARD_SEQ_BLOCK_LAUNCHES"),
+          "rev": ("rev_seq_block", "sw_reverse_shards_block",
                   "REVERSE_SEQ_BLOCK_LAUNCHES"),
           "rev_prof": ("rev_prof_block", "sw_reverse_prof_block",
                        "REVERSE_PROF_BLOCK_LAUNCHES")}
@@ -927,18 +941,21 @@ def composition_bias(matrix):
 
 
 def check_kernels(sub: torch.Tensor, errs: dict) -> None:
-    """K1/K2 on the seeded batch and the edge batches with BLOSUM62, then
-    with the iterative search's realignment matrix (blosum62_bf2_bias)
-    and the composition bias it gives each query: the sequence kernels
-    score with any 21-letter table they are handed, and the int8 wrap of
-    table + bias must agree with the plain version for this one too."""
+    """K1/K2 on the seeded batch and the edge batches with BLOSUM62, and
+    their block paths (check_block) and an engine's with_targets view;
+    then K1/K2 and K1's block path with the iterative search's
+    realignment matrix (blosum62_bf2_bias) and the composition bias it
+    gives each query: the sequence kernels score with any 21-letter table
+    they are handed, and the int8 wrap of table + bias must agree with
+    the plain version for this one too."""
     from spacedust_tpu_torch.native import comp_bias_batch
     from spacedust_tpu_torch.stats.submat import load_pinned_matrix
     q, b, t, jobs = kernel_batch()
     Q, B, T = (torch.from_numpy(a).to(sub.device) for a in (q, b, t))
     check_batch("kernels", [Q, B, T, sub], jobs, GO, ("fwd", "rev"), errs)
     check_edges([sub], errs)
-    check_block("rev", sub, [Q, B, T, sub], jobs, errs)
+    for d in ("fwd", "rev"):
+        check_block(d, sub, [Q, B, T, sub], jobs, errs)
     check_masked_engine(sub, (q, b, t), jobs, errs)
     m = load_pinned_matrix("blosum62_bf2_bias")
     rsub = torch.from_numpy(m.sub_int.astype(np.int8)).to(sub.device)
@@ -953,10 +970,12 @@ def check_kernels(sub: torch.Tensor, errs: dict) -> None:
             rb[o:o + n] = b[o:o + n]
     if int(np.abs(rb).max()) < 100 or (rb != 0).mean() < 0.05:
         fail("kernels realign: the composition bias lost its shape")
-    check_batch("kernels realign", [Q, torch.from_numpy(rb).to(sub.device),
-                                    T, rsub], jobs, GO, ("fwd", "rev"), errs)
+    rres = [Q, torch.from_numpy(rb).to(sub.device), T, rsub]
+    check_batch("kernels realign", rres, jobs, GO, ("fwd", "rev"), errs)
     check_edges([rsub], errs, bias_of=composition_bias(m),
                 tag="kernels realign")
+    # the realignment's forward end points on K1's block path
+    check_block("fwd", rsub, rres, jobs, errs, tag="kernels realign")
 
 
 def check_kernels_prof(sub: torch.Tensor, errs: dict) -> None:
@@ -969,94 +988,106 @@ def check_kernels_prof(sub: torch.Tensor, errs: dict) -> None:
 
 
 def check_block(d: str, sub: torch.Tensor, resident: list,
-                jobs: np.ndarray, errs: dict) -> None:
-    """The block path of the reverse stage of direction d (BLOCKS: "rev",
-    sw_reverse's long pairs on sw_reverse_shards_block; "rev_prof",
-    sw_reverse_prof's on sw_reverse_prof_block) against the plain version
-    at tolerance 0: with every pair forced onto it (the wrapper with
-    force=True, rows=R) at each compiled width W and class R, on the
-    seeded batch's reverse jobs and on block_edge_batch (its profile form
-    for "rev_prof"; reverse on the whole pairs, terminate = their score,
-    and on the derived prefixes; the planted ties of the forward pass
-    where the design puts them); then the engine's own mixed plan (long
+                jobs: np.ndarray, errs: dict, tag: str | None = None) -> None:
+    """The block path of the stage of direction d (BLOCKS: "fwd" and "rev",
+    sw_forward's / sw_reverse's long pairs on sw_forward_shards_block /
+    sw_reverse_shards_block; "rev_prof", sw_reverse_prof's on
+    sw_reverse_prof_block) against the plain version at tolerance 0: with
+    every pair forced onto it (the wrapper with force=True, rows=R) at
+    each compiled width W and class R, on the seeded batch's jobs of the
+    direction (its forward jobs, or the reverse jobs derived from them)
+    and on block_edge_batch (its profile form for "rev_prof"): forward on
+    its whole pairs, the planted ties where the design puts them (in the
+    block path's own forward result for "fwd", in the warp kernel's for a
+    reverse stage); reverse on the whole pairs, terminate = their score,
+    and on the derived prefixes; then the engine's own mixed plan (long
     pairs on the block path, the rest on the warp kernel) through the
-    public wrapper on the seeded batch's reverse jobs."""
+    public wrapper on the seeded batch's jobs of the direction."""
     from spacedust_tpu_torch.ops import sw_cuda
     key, entry, counter = BLOCKS[d]
+    reverse = d.startswith("rev")
     d_fwd = "fwd" + d[3:]
-    tag = "kernels" + d[3:].replace("_", "-")
-    fwd_fn, rev_fn = (getattr(sw_cuda, KERNELS[x][0]) for x in (d_fwd, d))
+    tag = tag or "kernels" + d[3:].replace("_", "-")
+    fwd_fn, fn = (getattr(sw_cuda, KERNELS[x][0]) for x in (d_fwd, d))
     dev = sub.device
     tab = sub.cpu().numpy().astype(np.int32)
 
     def held(res, js, what, ref=None, **kw):
-        got = rev_fn(*res, js, GO, GE, **kw)
+        got = fn(*res, js, GO, GE, **kw)
         if ref is None:
             ref = plain(d)(*res, js, GO, GE)
         errs[key] = max(errs[key], compare(what, got, ref))
-        if not bool(got[3].all()):
+        if reverse and not bool(got[3].all()):
             fail(f"{what}: a reverse job missed its terminate score")
+        return got
 
-    # the forward kernel, held to the plain version by check_batch
-    fwd = fwd_fn(*resident, jobs, GO, GE).cpu().numpy()
-    rjobs = reverse_jobs(jobs, fwd)
-    rref = plain(d)(*resident, rjobs, GO, GE)
+    if reverse:
+        # the forward kernel, held to the plain version by check_batch
+        djobs = reverse_jobs(jobs, fwd_fn(*resident, jobs, GO,
+                                          GE).cpu().numpy())
+    else:
+        djobs = jobs
+    dref = plain(d)(*resident, djobs, GO, GE)
     t0 = time.perf_counter()
     for warps in sw_cuda.BLOCK_WARP_CHOICES:
         for rows in sw_cuda.LANE_ROWS:
-            held(resident, rjobs, f"{tag} block W={warps} R={rows}", rref,
-                 warps=warps, force=True, rows=rows)
-            if d == "rev":
-                *arrays, ejobs, expect = block_edge_batch(rows, warps, tab)
-                res = [torch.from_numpy(a).to(dev) for a in arrays] + [sub]
-            else:
+            forced = {"warps": warps, "force": True, "rows": rows}
+            held(resident, djobs, f"{tag} block W={warps} R={rows}", dref,
+                 **forced)
+            if d == "rev_prof":
                 arrays, ejobs, expect = block_edge_batch_prof(rows, warps,
                                                               tab)
                 res = [torch.from_numpy(a).to(dev) for a in arrays]
-            efwd = fwd_fn(*res, ejobs, GO, GE).cpu().numpy()
+            else:
+                *arrays, ejobs, expect = block_edge_batch(rows, warps, tab)
+                res = [torch.from_numpy(a).to(dev) for a in arrays] + [sub]
+            what = f"{tag} block edges W={warps} R={rows}"
+            efwd = (fwd_fn(*res, ejobs, GO, GE) if reverse else
+                    held(res, ejobs, f"{what} whole", **forced)).cpu().numpy()
             for p, want in expect.items():
                 if tuple(efwd[:3, p]) != want:
-                    fail(f"{tag} block edges W={warps} R={rows}: planted "
-                         f"tie {p} gave {tuple(efwd[:3, p])}, the design "
-                         f"says {want}")
+                    fail(f"{what}: planted tie {p} gave "
+                         f"{tuple(efwd[:3, p])}, the design says {want}")
+            if not reverse:
+                continue
             whole = ejobs.copy()
             whole[4] = efwd[0]
-            for js, what in ((whole, "whole"),
+            for js, part in ((whole, "whole"),
                              (reverse_jobs(ejobs, efwd), "prefix")):
-                held(res, js, f"{tag} block edges W={warps} R={rows} {what}",
-                     warps=warps, force=True, rows=rows)
+                held(res, js, f"{what} {part}", **forced)
+    kind = "reverse" if reverse else "forward"
     print(f"[{tag}] {entry} ({KERNELS[d][0]}'s block path), every pair "
           f"forced onto it at W = {sw_cuda.BLOCK_WARP_CHOICES} and every "
-          f"class: {rjobs.shape[1]} reverse pairs of the seeded batch and "
-          f"the block edge batch (whole pairs and prefixes, planted ties "
-          f"where the design puts them), all six outputs equal "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"class: {djobs.shape[1]} {kind} pairs of the seeded batch and "
+          f"the block edge batch ("
+          + ("whole pairs and prefixes, " if reverse else "whole pairs, ")
+          + f"planted ties where the design puts them), all six outputs "
+          f"equal ({time.perf_counter() - t0:.1f} s)")
     ev: dict = {}
     before = getattr(sw_cuda, counter)
-    held(resident, rjobs, f"{tag} mixed plan", rref, events=ev)
+    held(resident, djobs, f"{tag} mixed plan", dref, events=ev)
     n_long = ev["n_long"]
-    if not (0 < n_long < rjobs.shape[1]) or \
+    if not (0 < n_long < djobs.shape[1]) or \
             getattr(sw_cuda, counter) != before + 1:
-        fail(f"{tag}: the mixed plan put {n_long} of {rjobs.shape[1]} "
+        fail(f"{tag}: the mixed plan put {n_long} of {djobs.shape[1]} "
              f"pairs on the block path")
     print(f"[{tag}] {KERNELS[d][0]}, the engine's plan: {n_long} of "
-          f"{rjobs.shape[1]} pairs on the block path (W = "
+          f"{djobs.shape[1]} pairs on the block path (W = "
           f"{sw_cuda.BLOCK_WARPS}), the rest on the warp kernel, all six "
           f"outputs equal")
 
 
 def check_masked_engine(sub: torch.Tensor, arrays: tuple, jobs: np.ndarray,
                         errs: dict) -> None:
-    """DeviceAlignDB.with_targets through the split reverse stage (the
-    --alt-ali rounds' engine): a view over a copy of kernel_batch's
-    target array with every fourth run of 40 residues masked (X) scores
-    the batch's reverse jobs (from the view's forward pass) through
-    run_buckets; all six outputs equal to the plain version over the
-    masked array, the view's stage on both of its kernels, and the
-    engine over the unmasked array gives another result on the same
-    jobs (the masks matter to the pairs)."""
+    """DeviceAlignDB.with_targets through its split stages (the --alt-ali
+    rounds' engine): a view over a copy of kernel_batch's target array
+    with every fourth run of 40 residues masked (X) scores the batch's
+    forward jobs and then the reverse jobs derived from them through
+    run_buckets; all six outputs of each stage equal to the plain version
+    over the masked array, each of the view's stages on both of its
+    kernels, and the engine over the unmasked array gives another result
+    on the same jobs (the masks matter to the pairs)."""
     from spacedust_tpu_torch.constants import X_INDEX
-    from spacedust_tpu_torch.ops import sw_cuda
     from spacedust_tpu_torch.ops.sw_engine import DeviceAlignDB
     q, b, t = arrays
     tm = t.copy()
@@ -1064,36 +1095,40 @@ def check_masked_engine(sub: torch.Tensor, arrays: tuple, jobs: np.ndarray,
     eng = DeviceAlignDB(q, b, t, sub.cpu().numpy(), sub.device)
     view = eng.with_targets(tm)
     res = [view.qdata, view.qbias, view.tdata, view.sub]
-    fwd = sw_cuda.sw_forward(*res, jobs, GO, GE).cpu().numpy()
-    rjobs = reverse_jobs(jobs, fwd)
-    n = rjobs.shape[1]
 
-    def run(db):
+    def run(db, js, reverse):
+        n = js.shape[1]
         got = np.zeros((6, n), np.int64)
-        for pos, cols in db.run_buckets([(*rjobs, np.arange(n))], GO, GE,
-                                        reverse=True):
+        for pos, cols in db.run_buckets([(*js, np.arange(n))], GO, GE,
+                                        reverse=reverse):
             got[:, pos] = np.stack(cols)
         return got
 
-    got = run(view)
-    ref = plain("rev")(*res, rjobs, GO, GE).cpu().numpy()
-    err = int(np.abs(got - ref).max())
-    if err > TOL:
-        fail(f"kernels with_targets: the split reverse stage over the "
-             f"masked targets != plain (max abs err {err})")
-    errs["rev_seq_block"] = max(errs["rev_seq_block"], err)
-    m = view.metrics
-    if m["rev_block_launches"] != 1 or m["rev_launches"] != 2 or \
-            not 0 < m["rev_block_pairs"] < n:
-        fail(f"kernels with_targets: the view's reverse stage was not split "
-             f"over both kernels: {m}")
-    if (run(eng) == got).all():
-        fail("kernels with_targets: the masks change no reverse result")
-    print(f"[kernels] with_targets over masked targets "
-          f"({int((tm == X_INDEX).sum())} of {len(tm)} residues masked): "
-          f"{n} reverse pairs through the engine's split stage, "
-          f"{m['rev_block_pairs']} on the block path, all six outputs equal "
-          f"to the plain version")
+    js = jobs
+    for d in ("fwd", "rev"):
+        reverse = d == "rev"
+        n = js.shape[1]
+        got = run(view, js, reverse)
+        ref = plain(d)(*res, js, GO, GE).cpu().numpy()
+        err = int(np.abs(got - ref).max())
+        if err > TOL:
+            fail(f"kernels with_targets: the split {d} stage over the "
+                 f"masked targets != plain (max abs err {err})")
+        key = BLOCKS[d][0]
+        errs[key] = max(errs[key], err)
+        m = view.metrics
+        if m[f"{d}_block_launches"] != 1 or m[f"{d}_launches"] != 2 or \
+                not 0 < m[f"{d}_block_pairs"] < n:
+            fail(f"kernels with_targets: the view's {d} stage was not split "
+                 f"over both kernels: {m}")
+        if (run(eng, js, reverse) == got).all():
+            fail(f"kernels with_targets: the masks change no {d} result")
+        print(f"[kernels] with_targets over masked targets "
+              f"({int((tm == X_INDEX).sum())} of {len(tm)} residues "
+              f"masked): {n} {d} pairs through the engine's split stage, "
+              f"{m[f'{d}_block_pairs']} on the block path, all six outputs "
+              f"equal to the plain version")
+        js = reverse_jobs(jobs, got)
 
 
 def check_kernels_struct(dev: torch.device, errs: dict) -> None:
@@ -1109,7 +1144,10 @@ def check_kernels_struct(dev: torch.device, errs: dict) -> None:
 
 
 # ------------------------------------------------------- 4-6. the slices
-def small_slice(work: Path) -> None:
+def small_slice(work: Path, small: list) -> None:
+    """clustersearch of the small set through the CLI against its fixture;
+    its forward stages go to `small` (("small", the wrapper's arguments))
+    for the timing phase."""
     from spacedust_tpu_torch import cli, synth
     from spacedust_tpu_torch.cluster.summarize import canonical_blocks
     fa = synth.write_genome_set(work / "small", "small")
@@ -1117,9 +1155,14 @@ def small_slice(work: Path) -> None:
     t0 = time.perf_counter()
     if cli.main(["createsetdb", *map(str, fa), db]) != 0:
         fail("createsetdb (small) failed")
-    if cli.main(["clustersearch", db, db, out, str(work / "small_tmp"),
-                 "--filter-self-match", "--device", "cuda"]) != 0:
+    stages: dict = {}
+    with recording(stages, ("fwd",)):
+        rc = cli.main(["clustersearch", db, db, out,
+                       str(work / "small_tmp"), "--filter-self-match",
+                       "--device", "cuda"])
+    if rc != 0:
         fail("clustersearch (small) failed")
+    small += [("small", a) for a in stages.get("fwd_all", [])]
     tsv = Path(out).read_text()
     want = (ROOT / "tests" / "fixtures" / "torch_port_small.tsv").read_text()
     if canonical_blocks(tsv) != canonical_blocks(want):
@@ -1136,8 +1179,8 @@ def read_counts() -> dict:
 
 
 def unlaunched(launched: dict, need: tuple, block: tuple = ()) -> list:
-    """What a path did not launch of the directions `need`: a reverse
-    stage of BLOCKS ("rev", "rev_prof") counts as launched on either of
+    """What a path did not launch of the directions `need`: a stage of
+    BLOCKS ("fwd", "rev", "rev_prof") counts as launched on either of
     its kernels, the warp kernel of its short pairs or its block path,
     either of which may take the whole stage (a small stage's pairs may
     all exceed its even share of the card); those of `block` must have
@@ -1162,7 +1205,8 @@ def prof_unlaunched(launched: dict, block: tuple = ()) -> list:
 @contextlib.contextmanager
 def recording(stages: dict, dirs: tuple):
     """Record, per direction, the arguments of the largest stage on its
-    way to the wrapper (the wrappers are looked up at dispatch)."""
+    way to the wrapper (the wrappers are looked up at dispatch), and under
+    "DIR_all" those of every stage of the direction, in dispatch order."""
     from spacedust_tpu_torch.ops import sw_cuda
     saved = {d: getattr(sw_cuda, KERNELS[d][0]) for d in dirs}
 
@@ -1171,6 +1215,7 @@ def recording(stages: dict, dirs: tuple):
             if (d not in stages
                     or args[-3].shape[1] > stages[d][-3].shape[1]):
                 stages[d] = args
+            stages.setdefault(f"{d}_all", []).append(args)
             return fn(*args, **kw)
         return call
 
@@ -1185,8 +1230,9 @@ def recording(stages: dict, dirs: tuple):
 
 def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
     """The main path at real size.  Returns the launch counts of the run
-    and, per direction, the largest stage it dispatched (the wrapper's
-    arguments: resident tensors, sub and the job array)."""
+    and, per direction, the largest stage it dispatched and all of its
+    stages (recording: the wrapper's arguments, resident tensors, sub and
+    the job array)."""
     from spacedust_tpu_torch import synth
     from spacedust_tpu_torch.cluster.summarize import canonical_sha256
     from spacedust_tpu_torch.ops import sw_cuda
@@ -1214,8 +1260,8 @@ def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         t_search = time.perf_counter() - t0
         launches = read_counts()
-    if unlaunched(launches, ("fwd", "rev"), ("rev",)):
-        fail(f"the main path did not launch K1, K2 and K2's block path: "
+    if unlaunched(launches, ("fwd", "rev"), ("fwd", "rev")):
+        fail(f"the main path did not launch K1, K2 and their block paths: "
              f"{launches}")
     hits, clusters = counts(res.tsv)
     sha = canonical_sha256(res.tsv)
@@ -1424,9 +1470,11 @@ def run_cli(argv: list, quiet: bool = False) -> str:
     return buf.getvalue()
 
 
-def toolkit_set(work: Path, size: str) -> None:
+def toolkit_set(work: Path, size: str, small: list) -> None:
     """Every command of the toolkit on a recorded set, each file held
-    against its fixture, and the chain against clustersearch."""
+    against its fixture, and the chain against clustersearch; the forward
+    stages of its searches (the --alt-ali masked rounds among them) go to
+    `small` for the timing phase."""
     from spacedust_tpu_torch import synth
     from spacedust_tpu_torch.workflow.modules import toolkit_commands
     t0 = time.perf_counter()
@@ -1436,7 +1484,12 @@ def toolkit_set(work: Path, size: str) -> None:
     run_cli(["createsetdb", *map(str, fa), db])
     before = read_counts()
     for name, argv in toolkit_commands(db, out):
-        run_cli(argv + (["--device", "cuda"] if argv[0] == "search" else []))
+        stages: dict = {}
+        with recording(stages, ("fwd",)):
+            run_cli(argv + (["--device", "cuda"] if argv[0] == "search"
+                            else []))
+        small += [(f"toolkit {size} {argv[0]} {name}", a)
+                  for a in stages.get("fwd_all", [])]
         fixture = ROOT / "tests" / "fixtures" / f"torch_port_{size}_{name}"
         if (out / name).read_bytes() != fixture.read_bytes():
             fail(f"toolkit {size}: {argv[0]} wrote a {name} that differs "
@@ -1522,30 +1575,34 @@ def toolkit_real(work: Path) -> dict:
                        if (c[0], c[1]) == key)
         if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
             fail(f"toolkit real: the alternative records of {key} overlap")
-    # a round's reverse stage: its warp kernel, its block path or both
-    extra = {"fwd": launches["fwd"] - base_launches["fwd"],
-             "rev": sum(launches[k] - base_launches[k]
-                        for k in ("rev", BLOCKS["rev"][0]))}
+    # a round's stage: its warp kernel, its block path or both
+    extra = {d: sum(launches[k] - base_launches[k]
+                    for k in (d, BLOCKS[d][0])) for d in ("fwd", "rev")}
     alt = detail["alt_detail"]
-    if not (1 <= extra["fwd"] <= ALT_ALI and 1 <= extra["rev"] <= 2 * ALT_ALI):
+    if not all(1 <= n <= 2 * ALT_ALI for n in extra.values()):
         fail(f"toolkit real: the masked rounds launched {extra} beyond the "
-             f"main pass ({base_launches}), not 1 to {ALT_ALI} forward and "
-             f"1 to {2 * ALT_ALI} reverse")
+             f"main pass ({base_launches}), not 1 to {2 * ALT_ALI} a "
+             f"direction")
     if (alt["fwd_launches"], alt["rev_launches"]) != (extra["fwd"],
                                                       extra["rev"]):
         fail(f"toolkit real: the engine counted {alt['fwd_launches']} + "
              f"{alt['rev_launches']} launches in the rounds, the wrappers "
              f"{extra}")
+    if alt["fwd_block_launches"] < 1:
+        fail(f"toolkit real: the masked rounds did not launch K1's block "
+             f"path: {alt}")
     print(f"[toolkit] real + repeats, search --alt-ali {ALT_ALI}: "
           f"{len(base)} records + {len(alts)} alternative in "
           f"{len(chain_len)} chains ({t_alt:.2f} s; without the flag "
           f"{t_base:.2f} s); invariants hold")
     print(f"[toolkit] masked rounds: launches {launches} (main pass alone "
           f"{base_launches}); pairs a round {alt['round_pairs']}; forward "
-          f"{alt['fwd_pairs']} pairs / {alt['fwd_cells']} cells, kernel "
+          f"{alt['fwd_pairs']} pairs ({alt['fwd_block_pairs']} on the "
+          f"block path) / {alt['fwd_cells']} cells, kernel "
           f"{alt['fwd_kernel_ms']:.3f} ms (wrapper "
           f"{alt['fwd_wrapper_ms']:.3f}); reverse {alt['rev_pairs']} pairs "
-          f"/ {alt['rev_cells']} cells, kernel {alt['rev_kernel_ms']:.3f} ms "
+          f"({alt['rev_block_pairs']} on the block path) / "
+          f"{alt['rev_cells']} cells, kernel {alt['rev_kernel_ms']:.3f} ms "
           f"(wrapper {alt['rev_wrapper_ms']:.3f}); stage seconds: prefilter "
           f"{detail['prefilter_s']:.2f}, align {detail['align_s']:.2f} (of "
           f"it the rounds {alt['rounds_s']:.2f}); main pass kernel "
@@ -1554,10 +1611,11 @@ def toolkit_real(work: Path) -> dict:
     return launches
 
 
-def toolkit_phase(work: Path, sub: torch.Tensor, errs: dict) -> dict:
+def toolkit_phase(work: Path, sub: torch.Tensor, errs: dict,
+                  small: list) -> dict:
     check_masked_targets(sub, errs)
     for size in ("small", "repeats"):
-        toolkit_set(work, size)
+        toolkit_set(work, size, small)
     return toolkit_real(work)
 
 
@@ -1701,9 +1759,12 @@ def detail_of(text: str) -> dict:
 
 def round_line(tag: str, m: dict) -> str:
     """One round of search_iterative's metrics: stage seconds, counts and
-    each SW engine's pairs, cells, launches and kernel / wrapper ms."""
+    each SW engine's pairs (and its block paths' pairs), cells, launches
+    and kernel / wrapper ms."""
     engines = "; ".join(
-        f"{key} {d['fwd_pairs']} + {d['rev_pairs']} pairs, "
+        f"{key} {d['fwd_pairs']} + {d['rev_pairs']} pairs "
+        f"({d.get('fwd_block_pairs', 0)} + {d.get('rev_block_pairs', 0)} on "
+        f"the block path), "
         f"{d['fwd_cells'] / 1e9:.3f} + {d['rev_cells'] / 1e9:.3f} G cells, "
         f"{d['fwd_launches']} + {d['rev_launches']} launches, kernel "
         f"{d['fwd_kernel_ms']:.2f} + {d['rev_kernel_ms']:.2f} ms (wrapper "
@@ -1814,9 +1875,10 @@ def iterative_real(work: Path) -> dict:
         alignment.AlignmentEngine.forward_accepts = forward_accepts
         iterative.PrefilterEngine = engine
     peak = peak_rss_mb()
-    if prof_unlaunched(launches, ("rev", "rev_prof")):
+    if prof_unlaunched(launches, ("fwd", "rev", "rev_prof")):
         fail(f"iterative-real did not launch "
-             f"{prof_unlaunched(launches, ('rev', 'rev_prof'))}: {launches}")
+             f"{prof_unlaunched(launches, ('fwd', 'rev', 'rev_prof'))}: "
+             f"{launches}")
     lines = collections.defaultdict(list)
     for ln in out.read_text().splitlines():
         c = ln.split("\t")
@@ -1848,6 +1910,9 @@ def iterative_real(work: Path) -> dict:
              f"{changed[:5]})")
     n_all = sum(len(v) for v in lines.values())
     rounds = detail_of(text)["rounds"]
+    if rounds[0]["realign_detail"]["fwd_block_launches"] < 1:
+        fail(f"iterative-real: the realignment's forward stage did not "
+             f"launch K1's block path: {rounds[0]['realign_detail']}")
     print(f"[iterative-real] {db.size} genes, {len(db.seq_data)} residues; "
           f"search --num-iterations 2 {t_search:.2f} s; {n_all} records, "
           f"{n_all - n1} of round 0 and {n1} of round 1")
@@ -2241,9 +2306,8 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
     k1_ms = launch_ms(getattr(sw_cuda, KERNELS[d][0]),
                       (qdata, qbias, whole, sub, glob, go, ge))
     print(f"[sharded] {d} stage's pairs on the single engine's "
-          f"{KERNELS[d][0]} (forward one launch; reverse its stage as one "
-          f"shard, the long pairs on the block path), longest first: "
-          f"{k1_ms:.2f} ms; {card}")
+          f"{KERNELS[d][0]} (its stage as one shard, the long pairs on the "
+          f"block path), longest first: {k1_ms:.2f} ms; {card}")
     # the stage's longest pair (by cells) alone
     top = int(np.argmax(js[1] * js[3]))
     one = np.ascontiguousarray(js[:, top:top + 1])
@@ -2429,11 +2493,12 @@ def multihost_phase(work: Path) -> dict:
                   tmp_dir=str(tmp), local_devices=2, device="cuda")
     t_run = time.perf_counter() - t0
     equal_to_real("multihost", out.read_text(), fx)
-    total = dict.fromkeys([*KERNELS, *B8_KERNELS, BLOCKS["rev"][0]], 0)
+    seq = [BLOCKS[d] for d in ("fwd", "rev")]
+    total = dict.fromkeys([*KERNELS, *B8_KERNELS, *(b[0] for b in seq)], 0)
     for r in range(2):
         m = json.loads((tmp / f"metrics.{r}.json").read_text())
         lc = {d: m["launches"][KERNELS[d][2]] for d in KERNELS}
-        lc[BLOCKS["rev"][0]] = m["launches"][BLOCKS["rev"][2]]
+        lc.update({b[0]: m["launches"][b[2]] for b in seq})
         ld = {k: m["launches"][v[1]] for k, v in B8_KERNELS.items()}
         if ld["fwd_shards"] <= 0 or ld["rev_shards"] <= 0:
             fail(f"multihost: rank {r} did not launch the sharded stage's "
@@ -2604,10 +2669,11 @@ def launch_ms(fn, args: tuple, reps: int = 3, **kw) -> float:
 
 def engine_kw(d: str, args: tuple) -> dict:
     """The keywords an engine hands the wrapper of direction d besides its
-    positional arguments: K2's one-tensor pointer table of its target
-    array, made once (sw_engine.DeviceAlignDB._init_state)."""
+    positional arguments: K1's and K2's one-tensor pointer table of its
+    target array, made once (sw_engine.DeviceAlignDB._init_state)."""
     from spacedust_tpu_torch.ops import sw_cuda
-    return {"targets": sw_cuda.ShardTargets([args[2]])} if d == "rev" else {}
+    return ({"targets": sw_cuda.ShardTargets([args[2]])}
+            if d in ("fwd", "rev") else {})
 
 
 def stage_detail(d: str, args: tuple) -> None:
@@ -2650,9 +2716,11 @@ def stage_detail(d: str, args: tuple) -> None:
 def time_stages(stages: dict, launches: dict, errs: dict,
                 card: str) -> list:
     """Kernel (launch_ms: the launches alone; event_ms: the wrapper's
-    whole call) against the plain version (host clock, one call) on the
-    main path's largest stages, and stage_detail of each.
-    These launches come after the counts were read."""
+    whole call) against the plain version (host clock, one call) on each
+    stage the main path dispatched (recording's "DIR_all"), and
+    stage_detail of the largest.  The kernels line's entry holds the
+    largest stage and, under "stages", every stage with the sums over
+    all of them.  These launches come after the counts were read."""
     from spacedust_tpu_torch.ops import sw_cuda
     report = []
     print(f"[timing] bound: int32 rate {INT32_PER_S / 1e12:.2f} T "
@@ -2662,135 +2730,217 @@ def time_stages(stages: dict, launches: dict, errs: dict,
     for d, (name, replaces, _counter) in KERNELS.items():
         if d not in stages:
             continue
-        args = stages[d]
-        js = args[-3]
         fn = getattr(sw_cuda, name)
-        kw = engine_kw(d, args)
-        got = fn(*args, **kw)
-        w_ms = event_ms(lambda: fn(*args, **kw))
-        k_ms = launch_ms(fn, args, **kw)
-        t0 = time.perf_counter()
-        ref = plain(d)(*args)
-        torch.cuda.synchronize()
-        p_ms = 1e3 * (time.perf_counter() - t0)
-        errs[d] = max(errs[d], compare(f"main-path {d} stage", got, ref))
-        c = cells(js)
-        b_ms, b_by = bound_ms(d, js)
-        print(f"[timing] {name}, main path's largest {d} stage: "
-              f"{js.shape[1]} pairs, {c / 1e9:.3f} G cells; kernel "
-              f"(launches alone) {k_ms:.2f} ms = {c / k_ms / 1e6:.2f} GCUPS; "
-              f"wrapper (planning, job table copy, launches) {w_ms:.2f} ms; "
-              f"plain "
-              f"{p_ms:.2f} ms = {c / p_ms / 1e6:.3f} GCUPS; bound "
-              f"{b_ms:.2f} ms by {b_by} ({b_ms / k_ms:.1%} of it "
-              f"reached); equal; {card}")
+        every = stages.get(f"{d}_all", [stages[d]])
+        timed = []
+        for i, args in enumerate(every):
+            js = args[-3]
+            kw = engine_kw(d, args)
+            got = fn(*args, **kw)
+            w_ms = event_ms(lambda: fn(*args, **kw))
+            k_ms = launch_ms(fn, args, **kw)
+            t0 = time.perf_counter()
+            ref = plain(d)(*args)
+            torch.cuda.synchronize()
+            p_ms = 1e3 * (time.perf_counter() - t0)
+            errs[d] = max(errs[d], compare(f"main-path {d} stage {i + 1}",
+                                           got, ref))
+            c = cells(js)
+            b_ms, b_by = bound_ms(d, js)
+            largest = args is stages[d]
+            print(f"[timing] {name}, main path's {d} stage {i + 1} of "
+                  f"{len(every)}{' (the largest)' if largest else ''}: "
+                  f"{js.shape[1]} pairs, {c / 1e9:.3f} G cells; kernel "
+                  f"(launches alone) {k_ms:.2f} ms = {c / k_ms / 1e6:.2f} "
+                  f"GCUPS; wrapper (planning, job table copy, launches) "
+                  f"{w_ms:.2f} ms; plain {p_ms:.2f} ms = "
+                  f"{c / p_ms / 1e6:.3f} GCUPS; bound {b_ms:.2f} ms by "
+                  f"{b_by} ({b_ms / k_ms:.1%} of it reached); equal; {card}")
+            timed.append({"pairs": int(js.shape[1]), "cells": c,
+                          "ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "share_of_bound": b_ms / k_ms,
+                          "largest": largest})
+        big = next(t for t in timed if t["largest"])
+        c, k_ms, p_ms = big["cells"], big["ms"], big["plain_ms"]
         entry = {
             "name": name, "route": "cuda",
             "source": "spacedust_tpu_torch/csrc/sw.cu",
             "replaces": replaces, "launches": launches[d],
-            "max_abs_err": errs[d], "ms": k_ms, "wrapper_ms": w_ms,
-            "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": errs[d], "ms": k_ms,
+            "wrapper_ms": big["wrapper_ms"], "plain_ms": p_ms,
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
             # no single PyTorch call computes a batched Smith-Waterman
-            "library_ms": None, "share_of_bound": b_ms / k_ms,
-            "pairs": int(js.shape[1]), "cells": c, "gcups": c / k_ms / 1e6,
+            "library_ms": None, "share_of_bound": big["share_of_bound"],
+            "pairs": big["pairs"], "cells": c, "gcups": c / k_ms / 1e6,
             "plain_gcups": c / p_ms / 1e6}
+        if len(timed) > 1:
+            all_ms = sum(t["ms"] for t in timed)
+            all_bound = sum(t["bound_ms"] for t in timed)
+            entry.update(stages=timed, all_stages_ms=all_ms,
+                         all_stages_bound_ms=all_bound,
+                         all_stages_share_of_bound=all_bound / all_ms)
+            print(f"[timing] {name}, all {len(timed)} of the main path's "
+                  f"{d} stages: {sum(t['pairs'] for t in timed)} pairs, "
+                  f"{sum(t['cells'] for t in timed) / 1e9:.3f} G cells; "
+                  f"kernel {all_ms:.2f} ms, bound {all_bound:.2f} ms "
+                  f"({all_bound / all_ms:.1%} of it reached); {card}")
         if not d.endswith("struct"):
             entry["also_replaces"] = GATHER
-        stage_detail(d, args)
+        stage_detail(d, stages[d])
         report.append(entry)
     return report
 
 
-def time_block(d: str, args: tuple, launches: dict, errs: dict,
+def time_block(d: str, every: list, launches: dict, errs: dict,
                card: str) -> dict:
-    """The reverse stage of direction d ("rev": K2, "rev_prof": B10
-    reverse) on the main path's largest such stage, all in this call: the
-    card's fork-to-join ms of the wrapper, its block launch and its short
-    launch beside each other, at the wrappers' width and at each compiled
-    width W; the same stage on the warp kernel alone in one launch (the
-    route before the block path); the stage's longest pair alone on one
-    warp and on a block at each W; the block pairs' outputs against the
-    plain version (host clock).  Returns the kernels line's entry of the
-    stage's block path."""
+    """The split stages of direction d ("fwd": K1, "rev": K2, "rev_prof":
+    B10 reverse), each stage of `every` (the main path's stages of the
+    direction, the wrappers' arguments) all in this call: the card's
+    fork-to-join ms of the wrapper, its block launch and its short launch
+    beside each other, at the wrappers' width and at each compiled width
+    W; the same stage on the warp kernel alone in one launch (the route
+    before the block path); the stage's longest pair alone on one warp and
+    on a block at each W; the block pairs' outputs against the plain
+    version (host clock).  Returns the kernels line's entry of the block
+    path: its launch ms, plain ms, bound, pairs and cells summed over the
+    stages, and each stage's numbers under "stages"."""
     from spacedust_tpu_torch.ops import sw_cuda
     key, entry, _counter = BLOCKS[d]
-    fn = getattr(sw_cuda, KERNELS[d][0])
-    *resident, jobs, go, ge = args
-    dev = resident[0].device
-    kw = engine_kw(d, args)
-
-    def stage(js=jobs, **o):
-        return card_ms(lambda events: fn(*resident, js, go, ge,
-                                         events=events, **kw, **o))
-
-    by_w = {w: stage(warps=w) for w in sw_cuda.BLOCK_WARP_CHOICES}
-    ms = by_w[sw_cuda.BLOCK_WARPS]
-    one_launch = card_ms(lambda events: sw_cuda._launch_warp(
-        True, resident, sw_cuda.warp_plan(jobs, sw_cuda.WARP_SCRATCH[True]),
-        go, ge, events))["card"]
-    p = sw_cuda.shard_plan(
-        np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]), True,
-        card_warps=sw_cuda.card_warps(dev))
-    cols = p.order[:p.n_long]
-    long_js = np.ascontiguousarray(jobs[:, cols])
-    got = fn(*args, **kw)[:, torch.from_numpy(cols).to(dev)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = plain(d)(*resident, long_js, go, ge)
-    torch.cuda.synchronize()
-    p_ms = 1e3 * (time.perf_counter() - t0)
-    err = max(errs[key], compare(f"main-path {key} pairs", got, ref))
-    top = int(np.argmax(jobs[1] * jobs[3]))
-    one = np.ascontiguousarray(jobs[:, top:top + 1])
-    warp_ms = card_ms(lambda events: sw_cuda._launch_warp(
-        True, resident, sw_cuda.warp_plan(one, sw_cuda.WARP_SCRATCH[True]),
-        go, ge, events))["card"]
-    block_ms = {w: stage(one, warps=w, force=True)["card"]
-                for w in sw_cuda.BLOCK_WARP_CHOICES}
-    b_ms, b_by = bound_ms(d, long_js)
-    s_ms, _ = bound_ms(d, jobs)
+    reverse = d.startswith("rev")
     name = KERNELS[d][0]
-    print(f"[timing] {name}'s block path, the main path's largest {d} "
-          f"stage, {jobs.shape[1]} pairs, {cells(jobs) / 1e9:.3f} G cells, "
-          f"{p.n_long} on the block path (W={sw_cuda.BLOCK_WARPS}): the "
-          f"card's fork to join {ms['card']:.2f} ms = block launch "
-          f"{ms.get('long', 0):.2f} ms beside the short launch "
-          f"{ms.get('short', 0):.2f} ms; the stage on {name}'s warp kernel "
-          f"alone, one launch {one_launch:.2f} ms; bound {s_ms:.2f} ms "
-          f"({s_ms / ms['card']:.1%} of it reached); block pairs "
-          f"{cells(long_js) / 1e9:.3f} G cells, bound {b_ms:.2f} ms by "
-          f"{b_by}, plain {p_ms:.2f} ms, equal; {card}")
-    for w, m in by_w.items():
-        print(f"[timing] {d} stage at W={w}: card {m['card']:.2f} ms, "
-              f"block launch {m.get('long', 0):.2f} ms, short launch "
-              f"{m.get('short', 0):.2f} ms; {card}")
-    rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
-               for w in sw_cuda.BLOCK_WARP_CHOICES}
-    print(f"[timing] {d} stage's longest pair ({int(one[1, 0])} x "
-          f"{int(one[3, 0])}, {cells(one) / 1e6:.1f} M cells) alone: one "
-          f"warp {warp_ms:.2f} ms; block path "
-          + ", ".join(f"W={w} (R={rows_of[w]}) {t:.2f} ms"
-                      for w, t in block_ms.items()) + f"; {card}")
-    k_ms = ms.get("long")
-    return {
+    fn = getattr(sw_cuda, name)
+    err = errs[key]
+    per_stage = []
+    for i, args in enumerate(every):
+        *resident, jobs, go, ge = args
+        dev = resident[0].device
+        kw = engine_kw(d, args)
+
+        def stage(js=jobs, **o):
+            return card_ms(lambda events: fn(*resident, js, go, ge,
+                                             events=events, **kw, **o))
+
+        def on_warps(js):
+            return card_ms(lambda events: sw_cuda._launch_warp(
+                reverse, resident, sw_cuda.warp_plan(
+                    js, sw_cuda.WARP_SCRATCH[reverse]), go, ge,
+                events))["card"]
+
+        by_w = {w: stage(warps=w) for w in sw_cuda.BLOCK_WARP_CHOICES}
+        ms = by_w[sw_cuda.BLOCK_WARPS]
+        one_launch = on_warps(jobs)
+        p = sw_cuda.shard_plan(
+            np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]),
+            reverse, card_warps=sw_cuda.card_warps(dev))
+        cols = p.order[:p.n_long]
+        long_js = np.ascontiguousarray(jobs[:, cols])
+        got = fn(*args, **kw)[:, torch.from_numpy(cols).to(dev)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain(d)(*resident, long_js, go, ge)
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0)
+        err = max(err, compare(f"main-path {key} pairs, stage {i + 1}", got,
+                               ref))
+        top = int(np.argmax(jobs[1] * jobs[3]))
+        one = np.ascontiguousarray(jobs[:, top:top + 1])
+        warp_ms = on_warps(one)
+        block_ms = {w: stage(one, warps=w, force=True)["card"]
+                    for w in sw_cuda.BLOCK_WARP_CHOICES}
+        b_ms, b_by = bound_ms(d, long_js)
+        s_ms, _ = bound_ms(d, jobs)
+        what = f"{d} stage {i + 1} of {len(every)}"
+        print(f"[timing] {name}'s block path, the main path's {what}, "
+              f"{jobs.shape[1]} pairs, {cells(jobs) / 1e9:.3f} G cells, "
+              f"{p.n_long} on the block path (W={sw_cuda.BLOCK_WARPS}): "
+              f"the card's fork to join {ms['card']:.2f} ms = block launch "
+              f"{ms.get('long', 0):.2f} ms beside the short launch "
+              f"{ms.get('short', 0):.2f} ms; the stage on {name}'s warp "
+              f"kernel alone, one launch {one_launch:.2f} ms; bound "
+              f"{s_ms:.2f} ms ({s_ms / ms['card']:.1%} of it reached); block "
+              f"pairs {cells(long_js) / 1e9:.3f} G cells, bound {b_ms:.2f} "
+              f"ms by {b_by}, plain {p_ms:.2f} ms, equal; {card}")
+        for w, m in by_w.items():
+            print(f"[timing] {what} at W={w}: card {m['card']:.2f} ms, "
+                  f"block launch {m.get('long', 0):.2f} ms, short launch "
+                  f"{m.get('short', 0):.2f} ms; {card}")
+        rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
+                   for w in sw_cuda.BLOCK_WARP_CHOICES}
+        print(f"[timing] {what}'s longest pair ({int(one[1, 0])} x "
+              f"{int(one[3, 0])}, {cells(one) / 1e6:.1f} M cells) alone: one "
+              f"warp {warp_ms:.2f} ms; block path "
+              + ", ".join(f"W={w} (R={rows_of[w]}) {t:.2f} ms"
+                          for w, t in block_ms.items()) + f"; {card}")
+        per_stage.append({
+            "pairs": int(jobs.shape[1]), "cells": cells(jobs),
+            "block_pairs": int(p.n_long), "block_cells": cells(long_js),
+            "block_ms": ms.get("long"), "block_plain_ms": p_ms,
+            "block_bound_ms": b_ms, "block_bound_by": b_by,
+            "card_ms": ms["card"], "short_ms": ms.get("short"),
+            "bound_ms": s_ms, "share_of_bound": s_ms / ms["card"],
+            "card_ms_by_warps": {w: m["card"] for w, m in by_w.items()},
+            "block_ms_by_warps": {w: m.get("long") for w, m in by_w.items()},
+            "one_warp_launch_ms": one_launch,
+            "longest_pair_one_warp_ms": warp_ms,
+            "longest_pair_block_ms_by_warps": block_ms})
+    errs[key] = err
+    k_ms = sum(st["block_ms"] or 0.0 for st in per_stage)
+    b_ms = sum(st["block_bound_ms"] for st in per_stage)
+    by = [st["block_bound_by"] for st in per_stage if st["block_pairs"]]
+    out = {
         "name": entry if d == "rev_prof" else f"{entry} ({name})",
         "route": "cuda", "source": "spacedust_tpu_torch/csrc/sw.cu",
         "replaces": KERNELS[d][1], "wrapper": name,
         "launches": launches[key], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "ms": k_ms, "plain_ms": sum(st["block_plain_ms"] for st in per_stage),
+        "bound_ms": b_ms,
+        "bound_by": "bytes" if by and set(by) == {"bytes"} else "operations",
         "library_ms": None,
         "share_of_bound": b_ms / k_ms if k_ms else None,
-        "pairs": int(p.n_long), "cells": cells(long_js),
+        "pairs": sum(st["block_pairs"] for st in per_stage),
+        "cells": sum(st["block_cells"] for st in per_stage),
         "block_warps": sw_cuda.BLOCK_WARPS,
-        "stage_card_ms": ms["card"], "stage_short_ms": ms.get("short"),
-        "stage_bound_ms": s_ms, "stage_share_of_bound": s_ms / ms["card"],
-        "stage_card_ms_by_warps": {w: m["card"] for w, m in by_w.items()},
-        "stage_block_ms_by_warps": {w: m.get("long")
-                                    for w, m in by_w.items()},
-        "stage_one_warp_launch_ms": one_launch,
-        "longest_pair_one_warp_ms": warp_ms,
-        "longest_pair_block_ms_by_warps": block_ms}
+        "stage_card_ms": sum(st["card_ms"] for st in per_stage),
+        "stage_bound_ms": sum(st["bound_ms"] for st in per_stage),
+        "stages": per_stage}
+    out["stage_share_of_bound"] = (out["stage_bound_ms"]
+                                   / out["stage_card_ms"])
+    return out
+
+
+def time_small(small: list, card: str) -> list:
+    """The small sets' forward stages (`small`: (tag, the wrapper's
+    arguments), from the small slice and the toolkit's searches, masked
+    rounds among them), in this process: the wrapper's route (the card's
+    fork to join, the long pairs on the block path) beside the warp
+    kernel alone in one launch (the route before the block path), and
+    how many pairs the plan puts on the block path."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    out = []
+    for tag, args in small:
+        *resident, jobs, go, ge = args
+        kw = engine_kw("fwd", args)
+        split = card_ms(lambda events: sw_cuda.sw_forward(
+            *args, events=events, **kw))
+        warp = card_ms(lambda events: sw_cuda._launch_warp(
+            False, resident, sw_cuda.warp_plan(
+                jobs, sw_cuda.WARP_SCRATCH[False]), go, ge, events))["card"]
+        n_long = sw_cuda.shard_plan(
+            np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]),
+            False, card_warps=sw_cuda.card_warps(resident[0].device)).n_long
+        print(f"[timing] small fwd stage ({tag}): {jobs.shape[1]} pairs, "
+              f"{cells(jobs) / 1e6:.1f} M cells, {n_long} on the block "
+              f"path: the wrapper's route {split['card']:.3f} ms (block "
+              f"launch {split.get('long', 0):.3f}, short launch "
+              f"{split.get('short', 0):.3f}); the warp kernel alone, one "
+              f"launch {warp:.3f} ms; {card}")
+        out.append({"tag": tag, "pairs": int(jobs.shape[1]),
+                    "cells": cells(jobs), "block_pairs": int(n_long),
+                    "card_ms": split["card"], "block_ms": split.get("long"),
+                    "short_ms": split.get("short"),
+                    "one_warp_launch_ms": warp})
+    return out
 
 
 def parse_phases(argv: list) -> tuple:
@@ -2846,6 +2996,7 @@ def main(argv: list | None = None) -> int:
                           *(k[0] for k in BLOCKS.values())], 0)
     launches: dict = {}
     stages: dict = {}
+    small: list = []        # the small sets' forward stages (timing)
     if "kernels" in phases:
         check_kernels(sub, errs)
     if "kernels-struct" in phases:
@@ -2854,7 +3005,7 @@ def main(argv: list | None = None) -> int:
         check_kernels_prof(sub, errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "small" in phases:
-            small_slice(Path(tmp))
+            small_slice(Path(tmp), small)
         if "real" in phases:
             launches, stages = real_slice(Path(tmp), dev)
         if "struct-small" in phases:
@@ -2865,7 +3016,7 @@ def main(argv: list | None = None) -> int:
                              for d in ("fwd_struct", "rev_struct")})
             stages.update(s_stages)
         if "toolkit" in phases:
-            tk_launches = toolkit_phase(Path(tmp), sub, errs)
+            tk_launches = toolkit_phase(Path(tmp), sub, errs, small)
         if "profile-small" in phases:
             profile_small(Path(tmp))
         if "profile-real" in phases:
@@ -2892,8 +3043,12 @@ def main(argv: list | None = None) -> int:
             entry_phase(errs)
     report = (time_stages(stages, launches, errs, card)
               if "timing" in phases else [])
-    blocks = {d: time_block(d, stages[d], launches, errs, card)
+    blocks = {d: time_block(d, stages.get(f"{d}_all", [stages[d]]),
+                            launches, errs, card)
               for d in BLOCKS if "timing" in phases and d in stages}
+    small_timed = time_small(small, card) if "timing" in phases else []
+    if "fwd" in blocks:
+        blocks["fwd"]["small_stages"] = small_timed
     torch.cuda.synchronize()
     if phases != PHASES:
         print(f"[partial] phases {','.join(phases)} passed; no result line "
@@ -2901,7 +3056,6 @@ def main(argv: list | None = None) -> int:
         return 0
     if len(report) != len(KERNELS):
         fail(f"timed {len(report)} of {len(KERNELS)} kernels")
-    seq_block = BLOCKS["rev"][0]
     for entry, d in zip(report, KERNELS):
         # the toolkit's own path: search --alt-ali at real size
         entry["launches_toolkit"] = tk_launches[d]
@@ -2928,13 +3082,14 @@ def main(argv: list | None = None) -> int:
         if mh_launches[key] <= 0:
             fail(f"the multihost path did not launch {entry['name']}")
     report += b8
-    # K2's block path: its launches on the main path (checked in real) and
-    # on the other paths that run the single sequence engine
-    blocks["rev"].update({f"launches_{tag}": n[seq_block] for tag, n in (
-        ("toolkit", tk_launches), ("profile", p_launches),
-        ("iterative", it_launches), ("split", split_launches),
-        ("sharded", sh_launches), ("multihost", mh_launches),
-        ("gff", gff_launches))})
+    # K1's and K2's block paths: their launches on the main path (checked
+    # in real) and on the other paths that run the single sequence engine
+    for d in ("fwd", "rev"):
+        blocks[d].update({f"launches_{tag}": n[BLOCKS[d][0]] for tag, n in (
+            ("toolkit", tk_launches), ("profile", p_launches),
+            ("iterative", it_launches), ("split", split_launches),
+            ("sharded", sh_launches), ("multihost", mh_launches),
+            ("gff", gff_launches))})
     # the profile reverse stage's block path: its launches in the profile
     # search (the main path of its slice, checked in profile-real) and in
     # the other paths that build a profile engine
@@ -2942,7 +3097,7 @@ def main(argv: list | None = None) -> int:
         launches_profile=p_launches["rev_prof_block"],
         launches_iterative=it_launches["rev_prof_block"],
         launches_split=split_launches["rev_prof_block"])
-    report += [blocks["rev"], blocks["rev_prof"]]
+    report += [blocks["fwd"], blocks["rev"], blocks["rev_prof"]]
 
     print(json.dumps({"kernels": report}))
     print(card_line())

@@ -45,9 +45,10 @@ of BLOCK_WARPS warps a pair, launched first on a side stream of the
 card), the rest to the sequence kernel with a per-pair shard
 (`sw_*_shards`) on the current stream; the current stream waits for the
 side stream once.  For CPU tensors they run `ops/sw.py::
-sw_shards_jobs_ref`.  `sw_reverse` and `sw_reverse_prof` plan their stage
-the same way, as one shard: the long pairs of `sw_reverse` go to
-`sw_reverse_shards_block` over a one-tensor `ShardTargets` of its target
+sw_shards_jobs_ref`.  `sw_forward`, `sw_reverse` and `sw_reverse_prof`
+plan their stage the same way, as one shard: the long pairs of
+`sw_forward` / `sw_reverse` go to `sw_forward_shards_block` /
+`sw_reverse_shards_block` over a one-tensor `ShardTargets` of their target
 array, those of `sw_reverse_prof` to `sw_reverse_prof_block` (the block
 path with the profile cell); the rest to the direction's own warp kernel.
 
@@ -58,8 +59,9 @@ once.
 
 FORWARD_LAUNCHES / REVERSE_LAUNCHES / FORWARD_STRUCT_LAUNCHES /
 REVERSE_STRUCT_LAUNCHES / FORWARD_PROF_LAUNCHES / REVERSE_PROF_LAUNCHES,
-the block paths of the single engine's reverse stage
-(REVERSE_SEQ_BLOCK_LAUNCHES) and of the profile reverse stage
+the block paths of the single engine's forward and reverse stages
+(FORWARD_SEQ_BLOCK_LAUNCHES, REVERSE_SEQ_BLOCK_LAUNCHES) and of the
+profile reverse stage
 (REVERSE_PROF_BLOCK_LAUNCHES), which take their long pairs, and the
 sharded stage's FORWARD_SHARDS_LAUNCHES / REVERSE_SHARDS_LAUNCHES
 (short pairs) / FORWARD_BLOCK_LAUNCHES / REVERSE_BLOCK_LAUNCHES (long
@@ -111,15 +113,16 @@ STEP_OVERHEAD_CELLS = 3
 # direction (reverse?): (H, F), and the column max with its row
 WARP_SCRATCH = {False: 8, True: 16}
 
-# the block path (B8 and the sequence and profile reverse stages): the
-# warps an SM runs at once on the sequence and profile warp kernels (4
-# blocks of 4 warps; `card_warps` multiplies by the card's SMs), the
-# compiled widths W and the one the wrappers take: chip_smoke.py's
-# sharded phase times the giant pair and both stages at each W (its
-# timing phase the K2 and B10 reverse stages); on an H100 80GB HBM3 at
-# 700 W, W = 16 took the 5,917 x 5,496 pair in 3.74 ms (W = 8: 4.63, W =
-# 4: 6.60; one warp 21.51) and the reverse stage of `real` in 6.10 ms
-# (7.51, 9.34), the forward stage being set by its short launch
+# the block path (B8, the single engine's sequence stages and the
+# profile reverse stage): the warps an SM runs at once on the sequence
+# and profile warp kernels (4 blocks of 4 warps; `card_warps` multiplies
+# by the card's SMs), the compiled widths W and the one the wrappers
+# take: chip_smoke.py's sharded phase times the giant pair and both
+# stages at each W (its timing phase the K1, K2 and B10 reverse stages);
+# on an H100 80GB HBM3 at 700 W, W = 16 took the 5,917 x 5,496 pair in
+# 3.74 ms (W = 8: 4.63, W = 4: 6.60; one warp 21.51) and the reverse
+# stage of `real` in 6.10 ms (7.51, 9.34), the forward stage being set by
+# its short launch
 SM_WARPS = 16
 BLOCK_WARP_CHOICES = (4, 8, 16)
 BLOCK_WARPS = 16
@@ -130,6 +133,7 @@ FORWARD_STRUCT_LAUNCHES = 0
 REVERSE_STRUCT_LAUNCHES = 0
 FORWARD_PROF_LAUNCHES = 0
 REVERSE_PROF_LAUNCHES = 0
+FORWARD_SEQ_BLOCK_LAUNCHES = 0
 REVERSE_SEQ_BLOCK_LAUNCHES = 0
 REVERSE_PROF_BLOCK_LAUNCHES = 0
 FORWARD_SHARDS_LAUNCHES = 0
@@ -149,7 +153,9 @@ ENTRY = {(False, "seq"): ("sw_forward", "FORWARD_LAUNCHES"),
 # the long pairs' C entry point and its launch counter (the sequence cell
 # reads its targets through a one-tensor ShardTargets, as B8 does; a
 # counter of its own, apart from B8's)
-BLOCK_ENTRY = {(True, "seq"): ("sw_reverse_shards_block",
+BLOCK_ENTRY = {(False, "seq"): ("sw_forward_shards_block",
+                                "FORWARD_SEQ_BLOCK_LAUNCHES"),
+               (True, "seq"): ("sw_reverse_shards_block",
                                "REVERSE_SEQ_BLOCK_LAUNCHES"),
                (True, "prof"): ("sw_reverse_prof_block",
                                 "REVERSE_PROF_BLOCK_LAUNCHES")}
@@ -390,8 +396,8 @@ def shard_plan(jobs: np.ndarray, reverse: bool, warps: int = BLOCK_WARPS,
     (timed on an H100, PERF.md).  There its class is block_rows(qlen,
     warps).  The checks pass `force` (every pair to the block path) and
     `rows` (one class for every pair); the wrappers leave both.  A stage
-    of one target array (the sequence and profile reverse stages) is one
-    shard: row 5 all 0."""
+    of one target array (the single engine's sequence stages and the
+    profile reverse stage) is one shard: row 5 all 0."""
     if warps not in BLOCK_WARP_CHOICES:
         raise ValueError(f"the block path is compiled for {BLOCK_WARP_CHOICES}"
                          f" warps, not {warps}")
@@ -525,21 +531,17 @@ def _run_warp(reverse: bool, qdata, qbias, tdata, sub, jobs: np.ndarray,
     if _device_of(qdata).type == "cpu":
         return sw_jobs_ref(qdata, qbias, tdata, sub, jobs, gap_open,
                            gap_extend, reverse)
-    if not reverse:
-        return _launch_warp(False, (qdata, qbias, tdata, sub),
-                            warp_plan(jobs, WARP_SCRATCH[False]), gap_open,
-                            gap_extend, events)
-    # the reverse stage as one shard: its long pairs on the block path,
-    # which reads the target array through its one-tensor pointer table
+    # the stage as one shard: its long pairs on the block path, which
+    # reads the target array through its one-tensor pointer table
     if targets is None:
         targets = ShardTargets([tdata])
     elif len(targets.tensors) != 1 or \
             targets.tensors[0].data_ptr() != tdata.data_ptr():
         raise ValueError("targets: need the one-tensor ShardTargets of "
                          "tdata")
-    plan = shard_plan(_one_shard(jobs), True, warps, force, rows,
+    plan = shard_plan(_one_shard(jobs), reverse, warps, force, rows,
                       card_warps=card_warps(qdata.device))
-    return _launch_split(True, (qdata, qbias, tdata, sub), plan, gap_open,
+    return _launch_split(reverse, (qdata, qbias, tdata, sub), plan, gap_open,
                          gap_extend, events, warps, targets)
 
 
@@ -588,11 +590,19 @@ def _run_prof(reverse: bool, qprof, tdata, jobs: np.ndarray, gap_open: int,
 
 
 def sw_forward(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
-               gap_extend: int, events: dict | None = None) -> torch.Tensor:
+               gap_extend: int, events: dict | None = None,
+               warps: int = BLOCK_WARPS, force: bool = False,
+               rows: int | None = None,
+               targets: ShardTargets | None = None) -> torch.Tensor:
     """Forward pass: (score, t_end, q_end) in rows 0-2 of the (6, n)
-    result; rows 3-5 hold the (0, -1, 0) placeholders."""
+    result; rows 3-5 hold the (0, -1, 0) placeholders.  On a card the
+    stage is planned as one shard (shard_plan; warps / force / rows go to
+    it): the long pairs on sw_forward_shards_block, which reads `targets`
+    (the one-tensor ShardTargets of tdata that an engine makes once;
+    None: made here), the rest on sw_forward, `events` as _launch_split
+    fills it."""
     return _run_warp(False, qdata, qbias, tdata, sub, jobs, gap_open,
-                     gap_extend, events)
+                     gap_extend, events, warps, force, rows, targets)
 
 
 def sw_reverse(qdata, qbias, tdata, sub, jobs: np.ndarray, gap_open: int,
@@ -675,9 +685,10 @@ def _split_entry(reverse: bool, resident: tuple,
     short launches, and its (short-pair entry point, its counter,
     long-pair entry point, its counter): resident is (qdata, qbias,
     ShardTargets, sub) of a card's sharded stage, (qdata, qbias, tdata,
-    sub) of a sequence reverse stage with `targets` the one-tensor
-    ShardTargets of tdata (the long launch reads its pointer table, the
-    short one tdata), or (qprof, tdata) of a profile reverse stage."""
+    sub) of a single engine's sequence stage with `targets` the
+    one-tensor ShardTargets of tdata (the long launch reads its pointer
+    table, the short one tdata), or (qprof, tdata) of a profile reverse
+    stage."""
     if len(resident) == 2:
         qprof, tdata = resident
         args = (qprof.data_ptr(), tdata.data_ptr())
@@ -728,6 +739,11 @@ def _launch_split(reverse: bool, resident: tuple, plan: ShardPlan,
         if n == 0:
             return out
         table_d = torch.from_numpy(plan.table).to(dev, non_blocking=False)
+        # the gather's columns, copied before the launches: a copy from
+        # pageable memory waits for the stream, and after them it would
+        # hold the host until the stage's kernels end
+        back = (None if plan.perm is None else
+                torch.from_numpy(np.argsort(plan.perm)).to(dev))
         main = torch.cuda.current_stream(dev)
         # every buffer before the fork: the side stream uses them too, and
         # no allocation lies inside the card's events
@@ -769,8 +785,8 @@ def _launch_split(reverse: bool, resident: tuple, plan: ShardPlan,
             # one and is freed after it
             main.wait_stream(side)
         mark("card", 1, main)
-        if plan.perm is not None:
-            out = out[:, torch.from_numpy(np.argsort(plan.perm)).to(dev)]
+        if back is not None:
+            out = out[:, back]
     return out
 
 

@@ -18,11 +18,12 @@ wrapper round its launches alone (from the fork to the join where the
 stage takes the block path), and `*_wrapper_ms`, round the whole wrapper
 call (host planning, the job table's copy and the launches).
 
-On a card the reverse stage sends its long pairs to the block path
-(`sw_cuda.sw_reverse`: `sw_reverse_shards_block` beside the warp kernel;
-`rev_block_pairs`, `rev_block_launches` among the metrics), through the
-one-tensor pointer table of the engine's target array, made when the
-engine is.
+On a card both stages send their long pairs to the block path
+(`sw_cuda.sw_forward` / `sw_reverse`: `sw_forward_shards_block` /
+`sw_reverse_shards_block` beside the warp kernel; `fwd_block_pairs`,
+`fwd_block_launches`, `rev_block_pairs`, `rev_block_launches` among the
+metrics), through the one-tensor pointer table of the engine's target
+array, made when the engine is.
 
 `DeviceAlignDB.with_targets(tdata)` gives an engine over another target
 array that shares the resident query tensors (and makes its own pointer
@@ -105,7 +106,7 @@ class DeviceAlignDB:
             # build and load the kernels now, outside every timed stage
             sw_cuda.load(self.device)
         # the pointer table of this engine's own target array that the
-        # sequence reverse stage's block path reads, made now (one upload,
+        # sequence stages' block path reads, made now (one upload,
         # before every timed stage; with_targets' view makes its own)
         self._targets = (sw_cuda.ShardTargets([self.tdata])
                          if self.device.type == "cuda" and self.CELL == "seq"
@@ -188,7 +189,7 @@ class DeviceAlignDB:
         before = {c: getattr(sw_cuda, c)
                   for c in ((counter, block[1]) if block else (counter,))}
         extra = ({"targets": self._targets}
-                 if reverse and self._targets is not None else {})
+                 if self._targets is not None else {})
         out = getattr(sw_cuda, fn_name)(*self._resident(), jobs, gap_open,
                                         gap_extend, events=events, **extra)
         if timed:

@@ -8,12 +8,13 @@ they are handed; a launch for another card than the current one fails on
 the card.  So each wrapper must enter its tensors' card round its C calls
 and record its events on that card's stream, and `load` must ready the
 kernels on each card it is asked for.  The same stand-ins show how
-`sw_reverse` and `sw_reverse_prof` plan their stage (the long pairs on
-sw_reverse_shards_block over the engine's one-tensor pointer table /
-sw_reverse_prof_block, the rest on the warp kernel), that the results
-come back in the caller's job order, that an engine's `with_targets`
-view hands the block path its own targets, and that a forward stage is
-never split."""
+`sw_forward`, `sw_reverse` and `sw_reverse_prof` plan their stage (the
+long pairs on sw_forward_shards_block / sw_reverse_shards_block over the
+engine's one-tensor pointer table, or on sw_reverse_prof_block, the rest
+on the warp kernel), that the results come back in the caller's job
+order, that an engine's `with_targets` view hands the block path its own
+targets in both directions, and that a forward profile stage is never
+split."""
 
 import contextlib
 import types
@@ -161,7 +162,8 @@ class FakeTorch:
 
 # the sequence entry points that write their results: name -> the
 # argument index of their output (jobs, job stride and count at 5, 6, 7)
-WRITES = {"sw_forward": 11, "sw_reverse": 11, "sw_reverse_shards_block": 12}
+WRITES = {"sw_forward": 11, "sw_reverse": 11, "sw_forward_shards_block": 12,
+          "sw_reverse_shards_block": 12}
 
 
 class FakeLib:
@@ -414,40 +416,60 @@ def _seq_table(card, call) -> np.ndarray:
     return t.data.reshape(8, args[6])[:, off // 8:]
 
 
-def _reverse_stage(eng, jobs):
-    """One reverse stage of the engine over jobs (positions 0..n-1)."""
+def _engine_stage(eng, jobs, reverse=True):
+    """One stage of the engine in the direction over jobs (positions
+    0..n-1)."""
     pending = eng.enqueue([(*jobs, np.arange(jobs.shape[1]))], 11, 1,
-                          reverse=True)
-    return pending + eng.flush(11, 1, reverse=True)
+                          reverse=reverse)
+    return pending + eng.flush(11, 1, reverse=reverse)
 
 
-def test_sequence_reverse_stage_plan(card):
-    """DeviceAlignDB's reverse stage on cuda:1 (K2 in the single engine)
-    is planned as one shard over the card's warps: its three pairs of
-    many strips go first in the table to sw_reverse_shards_block, at
-    block_rows' class, reading the engine's one-tensor pointer table (made
-    with the engine, before every stage) on the side stream; the other
-    pairs go to one sw_reverse launch over the rest of the table, which
-    reads the target array itself; every C call is under cuda:1 on a
-    stream of cuda:1, every event on cuda:1; the metrics count the block
-    pairs and both launches."""
+# direction -> (warp entry point, block entry point, the engine's metrics
+# prefix, the block path's counter, the warp kernel's counter, B8's
+# block counter)
+SEQ = {True: ("sw_reverse", "sw_reverse_shards_block", "rev",
+              "REVERSE_SEQ_BLOCK_LAUNCHES", "REVERSE_LAUNCHES",
+              "REVERSE_BLOCK_LAUNCHES"),
+       False: ("sw_forward", "sw_forward_shards_block", "fwd",
+               "FORWARD_SEQ_BLOCK_LAUNCHES", "FORWARD_LAUNCHES",
+               "FORWARD_BLOCK_LAUNCHES")}
+
+
+def _stage_plan(card, reverse: bool) -> None:
+    """DeviceAlignDB's stage of the direction on cuda:1 is planned as one
+    shard over the card's warps: its three pairs of many strips go first
+    in the table to the sequence block kernel, at block_rows' class, with
+    their rings (two slots of tlen columns of the direction's boundary
+    cell) from 0, reading the engine's one-tensor pointer table (made with
+    the engine, before every stage) on the side stream; the other pairs
+    go to one launch of the warp kernel over the rest of the table in
+    cells order, which reads the target array itself; every C call is
+    under cuda:1 on a stream of cuda:1, every event on cuda:1; the
+    metrics count the block pairs and both launches, and the block
+    path's counter is not B8's."""
+    warp, block_name, d, block_counter, warp_counter, b8 = SEQ[reverse]
     jobs, _nq, _nt = _stage()
     jobs = _giants(jobs)
     nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
     eng = _engine(nq, nt)
     assert card.lib.calls == [("sw_load", CARD, ())]
     before = card.mem.top
-    pending = _reverse_stage(eng, jobs)
+    pending = _engine_stage(eng, jobs, reverse)
     assert len(pending) == 1
-    _pos, _out, events, d = pending[0]
-    assert d == "rev" and {"wrapper", "card", "long", "short"} <= set(events)
+    _pos, _out, events, got_d = pending[0]
+    assert got_d == d
+    assert {"wrapper", "card", "long", "short"} <= set(events)
     assert set(card.cuda.events) == {CARD}
     calls = {c[0]: c for c in card.lib.calls}
-    assert set(calls) == {"sw_load", "sw_reverse", "sw_reverse_shards_block"}
+    assert set(calls) == {"sw_load", warp, block_name}
+    # the block launch first, on the side stream; the short one on the
+    # current stream
+    assert [c[0] for c in card.lib.calls[1:]] == [block_name, warp]
     for name, current, args in card.lib.calls[1:]:
         assert current == CARD, name
-        assert args[-1] in (0x1000 * (CARD + 1), 0x1000 * (CARD + 1) + 1)
-    block, short = calls["sw_reverse_shards_block"], calls["sw_reverse"]
+    assert calls[block_name][2][-1] == 0x1000 * (CARD + 1) + 1
+    assert calls[warp][2][-1] == 0x1000 * (CARD + 1)
+    block, short = calls[block_name], calls[warp]
     base, at = card.mem.find(block[2][2])
     assert base is eng._targets.base and at == 0
     assert base.data.tolist() == [eng.tdata.data_ptr()]
@@ -459,73 +481,93 @@ def test_sequence_reverse_stage_plan(card):
     np.testing.assert_array_equal(table[:5, :3], jobs[:, :3])
     np.testing.assert_array_equal(
         table[5, :3], sw_cuda.block_rows(jobs[1, :3], sw_cuda.BLOCK_WARPS))
+    assert (table[1, :3] > 32 * table[5, :3]).all()
+    ring = 2 * table[3, :3]
+    np.testing.assert_array_equal(table[6, :3], np.cumsum(ring) - ring)
+    ring_buf, _at = card.mem.find(block[2][11])
+    assert ring_buf.shape == (int(ring.sum())
+                              * sw_cuda.WARP_SCRATCH[reverse],)
     assert (table[7] == 0).all()
     rest = _seq_table(card, short)
     assert short[2][7] == jobs.shape[1] - 3
     order = np.argsort(-(jobs[1, 3:] * jobs[3, 3:]), kind="stable") + 3
     np.testing.assert_array_equal(rest[:5, :short[2][7]], jobs[:, order])
     m = eng.metrics
-    assert m["rev_block_pairs"] == 3 and m["rev_block_launches"] == 1
-    assert m["rev_launches"] == 2 and m["rev_pairs"] == jobs.shape[1]
-    assert sw_cuda.REVERSE_SEQ_BLOCK_LAUNCHES == 1
-    assert sw_cuda.REVERSE_LAUNCHES == 1
-    assert sw_cuda.REVERSE_BLOCK_LAUNCHES == 0       # B8's count
+    assert m[f"{d}_block_pairs"] == 3 and m[f"{d}_block_launches"] == 1
+    assert m[f"{d}_launches"] == 2 and m[f"{d}_pairs"] == jobs.shape[1]
+    assert getattr(sw_cuda, block_counter) == 1
+    assert getattr(sw_cuda, warp_counter) == 1
+    assert getattr(sw_cuda, b8) == 0                 # B8's count
+    other = "rev" if d == "fwd" else "fwd"
+    assert m[f"{other}_block_pairs"] == m[f"{other}_block_launches"] == 0
 
 
-def test_sequence_reverse_results_in_job_order(card):
-    """sw_reverse on a card hands back column p for the caller's job p
-    whatever order the plan launches them in: the giant pairs sit at 7,
-    100 and 2,000 of the caller's order, the block path takes them
-    first, and the stand-in kernels write each job's qoff (and 1 on the
-    block path) where the table puts it.  A pointer table of another
-    array is refused."""
+def test_sequence_reverse_stage_plan(card):
+    """K2 in the single engine: the reverse stage's plan (_stage_plan)."""
+    _stage_plan(card, reverse=True)
+
+
+def test_sequence_forward_stage_plan(card):
+    """K1 in the single engine: the forward stage's plan (_stage_plan),
+    the forward mirror of the reverse stage's; and the wrapper called
+    alone hands back the split stage's events and its block pairs."""
+    _stage_plan(card, reverse=False)
+    jobs, _nq, _nt = _stage()
+    jobs = _giants(jobs)
+    nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
+    u8 = torch.uint8
+    seq = (card.tensor(nq, u8), card.tensor(nq, torch.int8),
+           card.tensor(nt, u8), card.tensor(21, torch.int8, (21, 21)))
+    ev: dict = {}
+    sw_cuda.sw_forward(*seq, jobs, 11, 1, events=ev)
+    assert {"card", "long", "short"} <= set(ev) and ev["n_long"] == 3
+    assert sw_cuda.FORWARD_SEQ_BLOCK_LAUNCHES == 2
+    assert sw_cuda.FORWARD_BLOCK_LAUNCHES == 0
+
+
+def _results_in_job_order(card, reverse: bool) -> None:
+    """The wrapper of the direction on a card hands back column p for the
+    caller's job p whatever order the plan launches them in: the giant
+    pairs sit at 7, 100 and 2,000 of the caller's order, the block path
+    takes them first, and the stand-in kernels write each job's qoff (and
+    1 on the block path) where the table puts it.  A pointer table of
+    another array is refused."""
+    fn = getattr(sw_cuda, SEQ[reverse][0])
     jobs, _nq, _nt = _stage(giant=(100, 100))
     jobs = _giants(jobs, at=(7, 100, 2000))
     nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
     u8 = torch.uint8
     seq = (card.tensor(nq, u8), card.tensor(nq, torch.int8),
            card.tensor(nt, u8), card.tensor(21, torch.int8, (21, 21)))
-    out = sw_cuda.sw_reverse(*seq, jobs, 11, 1)
+    out = fn(*seq, jobs, 11, 1)
     np.testing.assert_array_equal(out.data[0], jobs[0])
     long = np.zeros(jobs.shape[1], np.int64)
     long[[7, 100, 2000]] = 1
     np.testing.assert_array_equal(out.data[1], long)
     other = sw_cuda.ShardTargets([card.tensor(nt, u8)])
     with pytest.raises(ValueError, match="one-tensor ShardTargets"):
-        sw_cuda.sw_reverse(*seq, jobs, 11, 1, targets=other)
+        fn(*seq, jobs, 11, 1, targets=other)
 
 
-def test_forward_sequence_stage_is_never_split(card):
-    """A forward sequence stage with the same giant pairs is one
-    sw_forward launch over every pair, with no block path, through the
-    wrapper and through the engine (no forward block metrics)."""
-    jobs, _nq, _nt = _stage()
-    jobs = _giants(jobs)
-    nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
-    eng = _engine(nq, nt)
-    ev: dict = {}
-    sw_cuda.sw_forward(eng.qdata, eng.qbias, eng.tdata, eng.sub, jobs, 11, 1,
-                       events=ev)
-    assert set(ev) == {"card"}
-    eng.flush(11, 1, False)
-    eng.enqueue([(*jobs, np.arange(jobs.shape[1]))], 11, 1, reverse=False)
-    eng.flush(11, 1, reverse=False)
-    names = [c[0] for c in card.lib.calls if c[0] != "sw_load"]
-    assert names == ["sw_forward", "sw_forward"]
-    assert all(c[2][7] == jobs.shape[1] for c in card.lib.calls[1:])
-    assert sw_cuda.REVERSE_SEQ_BLOCK_LAUNCHES == 0
-    assert eng.metrics["fwd_launches"] == 1
-    assert not any(k.startswith("fwd_block") for k in eng.metrics)
+def test_sequence_reverse_results_in_job_order(card):
+    """sw_reverse: _results_in_job_order."""
+    _results_in_job_order(card, reverse=True)
 
 
-def test_with_targets_view_reads_its_own_targets(card):
+def test_sequence_forward_results_in_job_order(card):
+    """sw_forward: _results_in_job_order."""
+    _results_in_job_order(card, reverse=False)
+
+
+def _view_reads_its_own_targets(card, reverse: bool) -> None:
     """An engine's with_targets view (the --alt-ali rounds' masked
-    targets) makes its own pointer table when it is made, and its reverse
-    stage's block path reads the view's target array, not the parent's:
-    the block launch's pointer table holds the view's tdata, the short
-    launch reads it too.  The planted fault -- the view keeping the
-    parent's table, as copy.copy would leave it -- is refused, not
-    scored against the unmasked targets."""
+    targets) makes its own pointer table when it is made, and the block
+    path of its stage in the direction reads the view's target array, not
+    the parent's: the block launch's pointer table holds the view's
+    tdata, the short launch reads it too.  The planted fault -- the view
+    keeping the parent's table, as copy.copy would leave it -- is refused,
+    not scored against the unmasked targets."""
+    warp, block_name, d = SEQ[reverse][:3]
     jobs, _nq, _nt = _stage()
     jobs = _giants(jobs)
     nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
@@ -535,10 +577,9 @@ def test_with_targets_view_reads_its_own_targets(card):
     assert view._targets is not eng._targets
     assert view.qdata is eng.qdata and view.tdata is not eng.tdata
     before = card.mem.top
-    _reverse_stage(view, jobs)
-    block = next(c for c in card.lib.calls
-                 if c[0] == "sw_reverse_shards_block")
-    short = next(c for c in card.lib.calls if c[0] == "sw_reverse")
+    _engine_stage(view, jobs, reverse)
+    block = next(c for c in card.lib.calls if c[0] == block_name)
+    short = next(c for c in card.lib.calls if c[0] == warp)
     base, _at = card.mem.find(block[2][2])
     assert base is view._targets.base
     assert base.data.tolist() == [view.tdata.data_ptr()]
@@ -548,10 +589,21 @@ def test_with_targets_view_reads_its_own_targets(card):
     assert base.data_ptr() <= before
     assert all(t.shape != (1,) for b, t in card.mem.tensors.items()
                if b > before)
-    assert view.metrics["rev_block_pairs"] == 3
-    assert eng.metrics["rev_block_pairs"] == 0
+    assert view.metrics[f"{d}_block_pairs"] == 3
+    assert eng.metrics[f"{d}_block_pairs"] == 0
 
     faulty = eng.with_targets(masked)
     faulty._targets = eng._targets       # the planted fault: a shared table
     with pytest.raises(ValueError, match="one-tensor ShardTargets"):
-        _reverse_stage(faulty, jobs)
+        _engine_stage(faulty, jobs, reverse)
+
+
+def test_with_targets_view_reads_its_own_targets(card):
+    """The reverse stage (K2's block path): _view_reads_its_own_targets."""
+    _view_reads_its_own_targets(card, reverse=True)
+
+
+def test_with_targets_view_forward_reads_its_own_targets(card):
+    """The forward stage (K1's block path), as the --alt-ali rounds'
+    forward stages run it: _view_reads_its_own_targets."""
+    _view_reads_its_own_targets(card, reverse=False)
