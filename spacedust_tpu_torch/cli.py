@@ -37,6 +37,7 @@ import torch
 
 from .db.setdb import SetDB
 from .search.convert import DEFAULT_FORMAT
+from .utils import trace
 
 
 _INT_MAX = 2147483647
@@ -101,6 +102,13 @@ def _check_dropped(p: argparse.ArgumentParser, a: argparse.Namespace
                 shown = flag if val is True else f"{flag} {val}"
                 p.error(f"{shown} has no effect with {path}; leave it at "
                         f"its default {default}")
+
+
+def _trace_file_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace-file", default=None,
+                   help="write the command's stage spans to this file as "
+                        "Chrome-trace JSON (Perfetto, chrome://tracing), "
+                        "on the epoch clock of a torch.profiler trace")
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
@@ -257,28 +265,42 @@ def cmd_createsetdb(argv: list[str]) -> int:
     _gff_args(p, required=False)
     p.add_argument("--file-include", default=".*")
     p.add_argument("--file-exclude", default="^$")
+    _trace_file_arg(p)
     a = p.parse_args(argv)
     _check_dropped(p, a)
-    db = create_setdb(a.inputs, a.out_db, gff_dir=a.gff_dir,
-                      gff_type=a.gff_type,
-                      translation_table=a.translation_table,
-                      file_include=a.file_include,
-                      file_exclude=a.file_exclude)
+    with trace.recording_to(a.trace_file):
+        db = create_setdb(a.inputs, a.out_db, gff_dir=a.gff_dir,
+                          gff_type=a.gff_type,
+                          translation_table=a.translation_table,
+                          file_include=a.file_include,
+                          file_exclude=a.file_exclude)
     print(f"createsetdb: {db.size} genes in {db.num_sets} sets -> {a.out_db}")
     return 0
 
 
 def cmd_clustersearch(argv: list[str]) -> int:
-    from .workflow.clustersearch import (ClusterSearchParams,
-                                         cluster_search_to_file)
     p = argparse.ArgumentParser(prog="spacedust clustersearch")
     _add_clustersearch_args(p)
+    _trace_file_arg(p)
     a = p.parse_args(argv)
     _check_dropped(p, a)
     if a.multihost > 1 and a.target_db != a.query_db:
         p.error("--multihost requires query_db == target_db")
+    with trace.recording_to(a.trace_file):
+        with trace.span("clustersearch") as sp:
+            tag, tsv, timings = _clustersearch(a)
+        _report_clustersearch(tag, tsv, a.output, sp.seconds, timings)
+    return 0
+
+
+def _clustersearch(a: argparse.Namespace) -> tuple[str, str, dict]:
+    """The search of `clustersearch`, up to its TSV and sidecar on disk;
+    returns (the report's tag, the TSV, the stage timings)."""
+    from .workflow.clustersearch import (ClusterSearchParams,
+                                         cluster_search_to_file)
     device = _device(a)
-    qdb, tdb = _load_dbs(a)
+    with trace.span("clustersearch.open_db"):
+        qdb, tdb = _load_dbs(a)
     params = ClusterSearchParams(
         sensitivity=a.sensitivity, max_seqs=a.max_seqs, cov_thr=a.cov_thr,
         cov_mode=a.cov_mode, eval_thr=a.eval_thr, aln_len_thr=a.aln_len_thr,
@@ -313,15 +335,13 @@ def cmd_clustersearch(argv: list[str]) -> int:
                             or (a.query_db.rstrip("/") + "_foldseek"))
         tmap = (qmap if a.target_db == a.query_db
                 else load_mapping(a.target_db.rstrip("/") + "_foldseek"))
-    t0 = time.time()
     res = cluster_search_to_file(qdb, tdb, a.output, a.tmp_dir, params=params,
                                  target_cluster_db=cdb,
                                  query_mapping=qmap, target_mapping=tmap,
                                  device=device)
-    _write_seq_to_clu(a.output, res.seq_to_clu)
-    _report_clustersearch("clustersearch", res.tsv, a.output, t0,
-                          res.timings)
-    return 0
+    with trace.span("clustersearch.seq_to_clu"):
+        _write_seq_to_clu(a.output, res.seq_to_clu)
+    return "clustersearch", res.tsv, res.timings
 
 
 def _write_seq_to_clu(output: str, s2c: dict) -> None:
@@ -334,12 +354,12 @@ def _write_seq_to_clu(output: str, s2c: dict) -> None:
                       for k, clus in sorted(s2c.items())], dbtype=5)
 
 
-def _report_clustersearch(tag: str, tsv: str, output: str, t0: float,
+def _report_clustersearch(tag: str, tsv: str, output: str, seconds: float,
                           timings: dict) -> None:
     n_hits = sum(1 for ln in tsv.splitlines() if ln.startswith(">"))
     n_clusters = sum(1 for ln in tsv.splitlines() if ln.startswith("#"))
     print(f"{tag}: {n_clusters} clusters / {n_hits} hits "
-          f"in {time.time()-t0:.1f}s -> {output}")
+          f"in {seconds:.1f}s -> {output}")
     for k, v in timings.items():
         if isinstance(v, float):
             print(f"  {k}: {v:.2f}s")
@@ -347,19 +367,18 @@ def _report_clustersearch(tag: str, tsv: str, output: str, t0: float,
 
 
 def _clustersearch_multihost(a: argparse.Namespace, params,
-                             device: torch.device) -> int:
+                             device: torch.device) -> tuple[str, str, dict]:
     """--multihost N > 1: N worker processes (parallel/multihost.py), each
     over --multihost-local-devices target shards."""
     from pathlib import Path
     from .parallel.multihost import read_seq_to_clu, run_multihost
-    t0 = time.time()
     run_multihost(a.query_db, a.output, a.multihost, params,
                   tmp_dir=a.tmp_dir, local_devices=a.multihost_local_devices,
                   device=str(device))
-    _write_seq_to_clu(a.output, read_seq_to_clu(a.output))
-    _report_clustersearch(f"clustersearch[multihost x{a.multihost}]",
-                          Path(a.output).read_text(), a.output, t0, {})
-    return 0
+    with trace.span("clustersearch.seq_to_clu"):
+        _write_seq_to_clu(a.output, read_seq_to_clu(a.output))
+    return (f"clustersearch[multihost x{a.multihost}]",
+            Path(a.output).read_text(), {})
 
 
 def cmd_clusterdb(argv: list[str]) -> int:

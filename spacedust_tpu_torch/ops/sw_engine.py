@@ -47,11 +47,11 @@ kernels; its reverse stage sends its long pairs to the block path
 from __future__ import annotations
 
 import copy
-import time
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import sw_cuda
 from .sw import PROF_COLS
 
@@ -112,7 +112,7 @@ class DeviceAlignDB:
                          if self.device.type == "cuda" and self.CELL == "seq"
                          else None)
         self._buf: dict[tuple, list] = {}
-        self.metrics = {"n_batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
+        self.metrics = {"n_batches": 0,
                         "fwd_launches": 0, "rev_launches": 0,
                         "fwd_pairs": 0, "rev_pairs": 0,
                         "fwd_cells": 0, "rev_cells": 0,
@@ -165,11 +165,14 @@ class DeviceAlignDB:
         if not buf or sum(len(b[0]) for b in buf) == 0:
             return []
         cols = [np.concatenate([b[i] for b in buf]) for i in range(6)]
-        return [self._dispatch(cols, gap_open, gap_extend, reverse)]
+        with trace.span("sw.dispatch", dir="rev" if reverse else "fwd",
+                        pairs=len(cols[0]),
+                        cells=int((cols[1].astype(np.int64)
+                                   * cols[3].astype(np.int64)).sum())):
+            return [self._dispatch(cols, gap_open, gap_extend, reverse)]
 
     def _dispatch(self, cols, gap_open: int, gap_extend: int,
                   reverse: bool):
-        t0 = time.perf_counter()
         jobs = np.stack([c.astype(np.int64) for c in cols[:5]])
         cells = jobs[1] * jobs[3]
         order = np.argsort(-cells, kind="stable")
@@ -205,7 +208,6 @@ class DeviceAlignDB:
             m[f"{d}_block_pairs"] += events.get("n_long", 0)
         m[f"{d}_pairs"] += jobs.shape[1]
         m[f"{d}_cells"] += int(cells.sum())
-        m["dispatch_s"] += time.perf_counter() - t0
         return (cols[5][order], out, events, d)
 
     def collect(self, pending):
@@ -214,9 +216,9 @@ class DeviceAlignDB:
         stage."""
         if not pending:
             return []
-        t1 = time.perf_counter()
-        flat = torch.cat([o for _, o, _, _ in pending], dim=1).cpu().numpy()
-        self.metrics["fetch_s"] += time.perf_counter() - t1
+        with trace.span("sw.fetch"):
+            flat = torch.cat([o for _, o, _, _ in pending],
+                             dim=1).cpu().numpy()
         out, col = [], 0
         for pos, o, events, d in pending:
             for key, name in (("wrapper", "wrapper_ms"),

@@ -34,13 +34,12 @@ may share a card.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..ops import sw_cuda
 from ..ops.sw_engine import DISPATCH_PAIRS, _check_tokens, _device, _upload
+from ..utils import trace
 from .split import residue_balanced_splits
 
 
@@ -119,8 +118,7 @@ class ShardedAlignDB:
         self.plan_kw: dict = {}
         self._buf: dict[tuple, list] = {}
         nd, nc = len(devices), len(self.cards)
-        self._metrics = {"n_batches": 0, "dispatch_s": 0.0, "fetch_s": 0.0,
-                         "stages": 0, "stage_wall_ms": 0.0}
+        self._metrics = {"n_batches": 0, "stages": 0, "stage_wall_ms": 0.0}
         for d in ("fwd", "rev"):
             self._metrics.update({
                 f"{d}_launches": 0, f"{d}_pairs": 0, f"{d}_cells": 0,
@@ -239,9 +237,15 @@ class ShardedAlignDB:
         buf = self._buf.pop((gap_open, gap_extend, reverse), [])
         if not buf or sum(len(b[0]) for b in buf) == 0:
             return []
-        t0 = time.perf_counter()
         cols = [np.concatenate([b[i] for b in buf]).astype(np.int64)
                 for i in range(6)]
+        with trace.span("sw.dispatch", dir="rev" if reverse else "fwd",
+                        pairs=len(cols[0]),
+                        cells=int((cols[1] * cols[3]).sum())):
+            return self._dispatch(cols, gap_open, gap_extend, reverse)
+
+    def _dispatch(self, cols, gap_open: int, gap_extend: int,
+                  reverse: bool):
         shard = np.searchsorted(self.tok_starts, cols[2], side="right") - 1
         jobs = np.stack(cols[:5])
         jobs[2] -= self.tok_starts[shard]
@@ -288,7 +292,6 @@ class ShardedAlignDB:
         if ev is not None:
             ev[1].record(torch.cuda.current_stream(cuda[0]))
         m["stages"] += 1
-        m["dispatch_s"] += time.perf_counter() - t0
         return [(parts, ev, d)]
 
     def collect(self, pending):
@@ -297,23 +300,22 @@ class ShardedAlignDB:
         and stage, positions the jobs' own."""
         if not pending:
             return []
-        t1 = time.perf_counter()
         by_card: dict[int, list] = {}
         for parts, _ev, _d in pending:
             for part in parts:
                 by_card.setdefault(part[0], []).append(part)
         out = []
-        for c in sorted(by_card):
-            flat = torch.cat([o for _c, _p, o, _e in by_card[c]],
-                             dim=1).cpu().numpy()
-            col = 0
-            for _c, pos, o, _e in by_card[c]:
-                n = o.shape[1]
-                out.append((pos, tuple(flat[i, col:col + n]
-                                       for i in range(6))))
-                col += n
+        with trace.span("sw.fetch"):
+            for c in sorted(by_card):
+                flat = torch.cat([o for _c, _p, o, _e in by_card[c]],
+                                 dim=1).cpu().numpy()
+                col = 0
+                for _c, pos, o, _e in by_card[c]:
+                    n = o.shape[1]
+                    out.append((pos, tuple(flat[i, col:col + n]
+                                           for i in range(6))))
+                    col += n
         m = self._metrics
-        m["fetch_s"] += time.perf_counter() - t1
         for parts, ev, d in pending:
             for c, _pos, _o, events in parts:
                 if events is None:

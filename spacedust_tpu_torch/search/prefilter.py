@@ -44,6 +44,7 @@ from ..constants import X_INDEX
 from ..db.setdb import SetDB
 from ..native import tantan_mask
 from ..stats.submat import SubstitutionMatrix, load_pinned_matrix
+from ..utils import trace
 
 SPACED_PATTERN_6 = np.array([0, 1, 3, 5, 8, 9], dtype=np.int32)
 KMER_SIZE = 6
@@ -411,7 +412,8 @@ class PrefilterEngine:
                                        pattern=self.pattern)
                 if cache is not None:
                     try:
-                        self.index.save(cache)
+                        with trace.span("prefilter.index_save"):
+                            self.index.save(cache)
                     except OSError:
                         pass
         self._bin_count = compute_bin_count(target_db.size)
@@ -496,8 +498,11 @@ class PrefilterEngine:
             qoffs_all[start:end] - qoffs_all[start], dtype=np.int64)
         qlens = np.ascontiguousarray(qdb.lengths[start:end], dtype=np.int32)
         base = start if self.same_qt_db else -1
-        hits = self._match_native(qdata, qoffs, qlens, base)
-        return {start + i: h for i, h in enumerate(hits)}
+        # a chunk is named by its first query key (`prefilter.wait` too)
+        with trace.span("prefilter.match", chunk=int(start),
+                        queries=int(end - start)):
+            hits = self._match_native(qdata, qoffs, qlens, base)
+            return {start + i: h for i, h in enumerate(hits)}
 
     def _match_native(self, qdata, qoffs, qlens, identity_base
                       ) -> list[list[PrefilterHit]]:

@@ -24,7 +24,6 @@ approximation.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -36,6 +35,7 @@ from ..native import banded_align_profile_u16, comp_bias_batch
 from ..ops.sw_engine import StructureDeviceDB
 from ..stats.evalue import EvalueComputation, GumbelParams
 from ..stats.submat import c_round, load_pinned_matrix
+from ..utils import trace
 from .alignment import AlignmentEngine, AlignmentParams, COV_MODE_QUERY
 from .prefilter import PrefilterEngine
 from .records import AlnRecord
@@ -229,41 +229,41 @@ def structure_search(query_db: SetDB, target_db: SetDB,
                      ) -> dict[int, list[AlnRecord]]:
     """3Di k-mer prefilter + combined-alphabet gapped alignment; the SW
     passes run on `device`.  `metrics`, if given, receives the SW
-    engine's metrics (StructureDeviceDB.metrics) and the host-clock
-    seconds of the three steps: index_s (the 3Di k-mer index), prefilter_s
-    (match_all) and align_all_s (the alignment engine: SW passes,
-    tracebacks and records)."""
+    engine's metrics (StructureDeviceDB.metrics) and the seconds of the
+    three steps' spans: index_s (`structure.index`: the 3Di k-mer index),
+    prefilter_s (`structure.match`: match_all) and align_all_s
+    (`structure.align`: the alignment engine, SW passes, tracebacks and
+    records)."""
     par = params or StructureSearchParams()
     if same_qt_db is None:
         same_qt_db = query_db is target_db
     q_ss = query_db.ss_view()
     t_ss = target_db.ss_view() if target_db is not query_db else q_ss
 
-    t0 = time.perf_counter()
-    pref = PrefilterEngine(q_ss, t_ss, sensitivity=par.sensitivity,
-                           max_seqs=par.max_seqs, same_qt_db=same_qt_db,
-                           comp_bias_correction=par.comp_bias_correction,
-                           mask=par.mask,
-                           cov_thr=par.cov_thr, cov_mode=par.cov_mode,
-                           seed_matrix_name="mat3di_bf8_bias",
-                           ungapped_matrix_name="mat3di",
-                           kmer_thr=par.kmer_thr_3di)
-    t1 = time.perf_counter()
-    cands = {qk: [h.seq_id for h in hits]
-             for qk, hits in pref.match_all().items()}
-    t2 = time.perf_counter()
+    with trace.span("structure.index") as index:
+        pref = PrefilterEngine(q_ss, t_ss, sensitivity=par.sensitivity,
+                               max_seqs=par.max_seqs, same_qt_db=same_qt_db,
+                               comp_bias_correction=par.comp_bias_correction,
+                               mask=par.mask,
+                               cov_thr=par.cov_thr, cov_mode=par.cov_mode,
+                               seed_matrix_name="mat3di_bf8_bias",
+                               ungapped_matrix_name="mat3di",
+                               kmer_thr=par.kmer_thr_3di)
+    with trace.span("structure.match") as match:
+        cands = {qk: [h.seq_id for h in hits]
+                 for qk, hits in pref.match_all().items()}
 
-    aln_par = AlignmentParams(gap_open=par.gap_open,
-                              gap_extend=par.gap_extend,
-                              eval_thr=par.eval_thr, cov_thr=par.cov_thr,
-                              cov_mode=par.cov_mode,
-                              aln_len_thr=par.aln_len_thr,
-                              comp_bias_correction=par.comp_bias_correction)
-    eng = StructureAlignmentEngine(query_db, target_db, aln_par,
-                                   same_qt_db=same_qt_db, device=device)
-    out = eng.align_all(cands)
+    with trace.span("structure.align") as align:
+        aln_par = AlignmentParams(
+            gap_open=par.gap_open, gap_extend=par.gap_extend,
+            eval_thr=par.eval_thr, cov_thr=par.cov_thr,
+            cov_mode=par.cov_mode, aln_len_thr=par.aln_len_thr,
+            comp_bias_correction=par.comp_bias_correction)
+        eng = StructureAlignmentEngine(query_db, target_db, aln_par,
+                                       same_qt_db=same_qt_db, device=device)
+        out = eng.align_all(cands)
     if metrics is not None:
         metrics.update(eng._device_db().metrics)
-        metrics.update(index_s=t1 - t0, prefilter_s=t2 - t1,
-                       align_all_s=time.perf_counter() - t2)
+        metrics.update(index_s=index.seconds, prefilter_s=match.seconds,
+                       align_all_s=align.seconds)
     return out

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import time
 from dataclasses import dataclass, asdict, field
 from pathlib import Path
 
@@ -30,6 +29,7 @@ from ..cluster.aggregate import (besthit_by_set, merge_results_by_set,
                                  combine_hits, Match)
 from ..cluster.clusterhits import cluster_hits, Cluster
 from ..cluster.summarize import summarize_results, seq_to_clu
+from ..utils import trace
 
 # MMseqs2 .dbtype ids for the checkpoint DBs (Parameters.h:68-94):
 # 5 = alignment result, 12 = generic/prefilter result
@@ -207,13 +207,12 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
         from ..search.expandaln import ExpandParams, expand_alignments
         from .clusterdb import cluster_db as build_cluster_db
         if target_cluster_db is None:
-            t0 = time.time()
             detail = {}
-            target_cluster_db = build_cluster_db(target_db, device=device,
-                                                 metrics=detail)
-            timings["clusterdb"] = time.time() - t0
+            with trace.span("search.clusterdb") as sp:
+                target_cluster_db = build_cluster_db(target_db, device=device,
+                                                     metrics=detail)
+            timings["clusterdb"] = sp.seconds
             timings["clusterdb_detail"] = detail
-        t0 = time.time()
         # the search stage runs at the outer -e (oracle: searchtarget-
         # profile.sh with -e 10); profile_eval_thr applies at expandaln
         ppar = ProfileSearchParams(
@@ -225,16 +224,18 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
         detail = {}
         # with --split-memory-limit, memory-bounded profile-DB slices
         # (searchslicedtargetprofile.sh, Search.cpp:398)
-        profile_hits = search_profile_target_sliced(
-            query_db, target_db, target_cluster_db, ppar,
-            split_memory_limit=par.split_memory_limit, device=device,
-            metrics=detail)
-        timings["profile_search"] = time.time() - t0
+        with trace.span("search.profile") as sp:
+            profile_hits = search_profile_target_sliced(
+                query_db, target_db, target_cluster_db, ppar,
+                split_memory_limit=par.split_memory_limit, device=device,
+                metrics=detail)
+        timings["profile_search"] = sp.seconds
         timings["profile_detail"] = detail
-        t0 = time.time()
-        records = expand_alignments(profile_hits, target_cluster_db.clu_aln,
-                                    ExpandParams(eval_thr=par.profile_eval_thr))
-        timings["expandaln"] = time.time() - t0
+        with trace.span("search.expandaln") as sp:
+            records = expand_alignments(
+                profile_hits, target_cluster_db.clu_aln,
+                ExpandParams(eval_thr=par.profile_eval_thr))
+        timings["expandaln"] = sp.seconds
     elif par.search_mode == 1:
         # foldseek search of the aa2foldseek-mapped subset + sequence
         # search of the unmapped genes vs the full target, concatenated
@@ -243,61 +244,62 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
         if query_mapping is None or target_mapping is None:
             raise ValueError("--search-mode 1 requires aa2foldseek mappings "
                              "for query and target (see workflow.aa2foldseek)")
-        t0 = time.time()
-        q_att = query_mapping.attach(query_db)
-        t_att = (q_att if (same_qt_db and target_mapping is query_mapping)
-                 else target_mapping.attach(target_db))
         detail: dict = {}
-        fs_records = structure_search(q_att, t_att, _structure_params(par),
-                                      same_qt_db=same_qt_db, device=device,
-                                      metrics=detail)
-        mapped = set(query_mapping.mapping)
-        records = {qk: v for qk, v in fs_records.items() if qk in mapped}
-        timings["structure_search"] = time.time() - t0
+        with trace.span("structure") as sp:
+            q_att = query_mapping.attach(query_db)
+            t_att = (q_att if (same_qt_db and target_mapping is query_mapping)
+                     else target_mapping.attach(target_db))
+            fs_records = structure_search(q_att, t_att,
+                                          _structure_params(par),
+                                          same_qt_db=same_qt_db,
+                                          device=device, metrics=detail)
+            mapped = set(query_mapping.mapping)
+            records = {qk: v for qk, v in fs_records.items() if qk in mapped}
+        timings["structure_search"] = sp.seconds
         timings["align_detail"] = detail
 
-        t0 = time.time()
-        unmapped = query_mapping.unmapped_keys(query_db)
-        if unmapped:
-            pref = PrefilterEngine(query_db, target_db,
-                                   sensitivity=par.sensitivity,
-                                   max_seqs=par.max_seqs,
-                                   same_qt_db=same_qt_db,
-                                   comp_bias_correction=par.comp_bias_correction,
-                                   mask=par.mask,
-                                   cov_thr=par.cov_thr, cov_mode=par.cov_mode)
-            cands = {qk: [h.seq_id for h in hits]
-                     for qk, hits in pref.match_all(list(unmapped)).items()}
-            eng = AlignmentEngine(query_db, target_db,
-                                  _sequence_aln_params(par),
-                                  same_qt_db=same_qt_db, device=device)
-            records.update(eng.align_all(cands))
-            timings["unmapped_align_detail"] = dict(
-                eng._device_db().metrics)
-        timings["unmapped_search"] = time.time() - t0
+        with trace.span("search.unmapped") as sp:
+            unmapped = query_mapping.unmapped_keys(query_db)
+            if unmapped:
+                pref = PrefilterEngine(
+                    query_db, target_db, sensitivity=par.sensitivity,
+                    max_seqs=par.max_seqs, same_qt_db=same_qt_db,
+                    comp_bias_correction=par.comp_bias_correction,
+                    mask=par.mask, cov_thr=par.cov_thr,
+                    cov_mode=par.cov_mode)
+                cands = {qk: [h.seq_id for h in hits] for qk, hits
+                         in pref.match_all(list(unmapped)).items()}
+                eng = AlignmentEngine(query_db, target_db,
+                                      _sequence_aln_params(par),
+                                      same_qt_db=same_qt_db, device=device)
+                records.update(eng.align_all(cands))
+                timings["unmapped_align_detail"] = dict(
+                    eng._device_db().metrics)
+        timings["unmapped_search"] = sp.seconds
     elif par.search_mode == 2:
         from ..search.structure import structure_search
-        t0 = time.time()
         detail = {}
-        records = structure_search(query_db, target_db,
-                                   _structure_params(par),
-                                   same_qt_db=same_qt_db, device=device,
-                                   metrics=detail)
-        timings["structure_search"] = time.time() - t0
+        with trace.span("structure") as sp:
+            records = structure_search(query_db, target_db,
+                                       _structure_params(par),
+                                       same_qt_db=same_qt_db, device=device,
+                                       metrics=detail)
+        timings["structure_search"] = sp.seconds
         timings["align_detail"] = detail
     elif shard_devices is not None:
         # target-sharded: the concurrent split prefilter, then the SW of
         # each target shard on its device
         from ..parallel.pipeline import sharded_search
-        t0 = time.time()
         detail = {}
-        records = sharded_search(query_db, target_db, devices=shard_devices,
-                                 params=_sequence_aln_params(par),
-                                 same_qt_db=same_qt_db,
-                                 sensitivity=par.sensitivity,
-                                 max_seqs=par.max_seqs, mask=par.mask,
-                                 metrics=detail)
-        timings["search"] = time.time() - t0
+        with trace.span("search.sharded") as sp:
+            records = sharded_search(query_db, target_db,
+                                     devices=shard_devices,
+                                     params=_sequence_aln_params(par),
+                                     same_qt_db=same_qt_db,
+                                     sensitivity=par.sensitivity,
+                                     max_seqs=par.max_seqs, mask=par.mask,
+                                     metrics=detail)
+        timings["search"] = sp.seconds
         timings["search_detail"] = detail
     elif par.split_memory_limit > 0:
         # out-of-core: sequential residue-balanced target splits bounded
@@ -306,41 +308,41 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
         # one alignment pass over the merged candidates
         from ..parallel.pipeline import sharded_prefilter
         from ..parallel.split import splits_for_memory_budget
-        t0 = time.time()
-        shards = splits_for_memory_budget(target_db.lengths,
-                                          par.split_memory_limit)
-        hits = sharded_prefilter(
-            query_db, target_db, shards, sensitivity=par.sensitivity,
-            max_seqs=par.max_seqs,
-            comp_bias_correction=par.comp_bias_correction, mask=par.mask,
-            cov_thr=par.cov_thr, cov_mode=par.cov_mode,
-            same_qt_db=same_qt_db, sequential=True)
-        candidates = {qk: [h.seq_id for h in hs] for qk, hs in hits.items()}
-        timings["prefilter"] = time.time() - t0
+        with trace.span("prefilter.split") as sp:
+            shards = splits_for_memory_budget(target_db.lengths,
+                                              par.split_memory_limit)
+            hits = sharded_prefilter(
+                query_db, target_db, shards, sensitivity=par.sensitivity,
+                max_seqs=par.max_seqs,
+                comp_bias_correction=par.comp_bias_correction, mask=par.mask,
+                cov_thr=par.cov_thr, cov_mode=par.cov_mode,
+                same_qt_db=same_qt_db, sequential=True)
+            candidates = {qk: [h.seq_id for h in hs]
+                          for qk, hs in hits.items()}
+        timings["prefilter"] = sp.seconds
         timings["split_detail"] = {"shards": len(shards),
                                    **sharded_prefilter.last_stats}
 
-        t0 = time.time()
-        aln = AlignmentEngine(query_db, target_db, _sequence_aln_params(par),
-                              same_qt_db=same_qt_db, device=device)
-        records = aln.align_all(candidates)
-        timings["align"] = time.time() - t0
+        with trace.span("align") as sp:
+            aln = AlignmentEngine(query_db, target_db,
+                                  _sequence_aln_params(par),
+                                  same_qt_db=same_qt_db, device=device)
+            records = aln.align_all(candidates)
+        timings["align"] = sp.seconds
         timings["align_detail"] = dict(aln._device_db().metrics)
     else:
         aln = AlignmentEngine(query_db, target_db, _sequence_aln_params(par),
                               same_qt_db=same_qt_db, device=device)
 
-        t0 = time.time()
-        pref = PrefilterEngine(query_db, target_db,
-                               sensitivity=par.sensitivity,
-                               max_seqs=par.max_seqs,
-                               same_qt_db=same_qt_db,
-                               comp_bias_correction=par.comp_bias_correction,
-                               mask=par.mask,
-                               cov_thr=par.cov_thr, cov_mode=par.cov_mode,
-                               kmer_size=par.kmer_size or None,
-                               spaced_kmer_mode=par.spaced_kmer_mode)
-        timings["index"] = time.time() - t0
+        with trace.span("prefilter.index_build") as sp:
+            pref = PrefilterEngine(
+                query_db, target_db, sensitivity=par.sensitivity,
+                max_seqs=par.max_seqs, same_qt_db=same_qt_db,
+                comp_bias_correction=par.comp_bias_correction,
+                mask=par.mask, cov_thr=par.cov_thr, cov_mode=par.cov_mode,
+                kmer_size=par.kmer_size or None,
+                spaced_kmer_mode=par.spaced_kmer_mode)
+        timings["index"] = sp.seconds
 
         # streamed search: the prefilter runs in contiguous query chunks
         # and each chunk's forward SW pairs go to the device engine,
@@ -348,59 +350,59 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
         # scoring overlaps the host prefilter.  The NEXT chunk's native
         # prefilter (OpenMP, GIL-free) runs on a background thread while
         # the main thread does this chunk's Python-side stage0/enqueue
-        # work; "prefilter" reports the EXPOSED wait time.
+        # work; "prefilter" reports the EXPOSED wait time (the
+        # `prefilter.wait` spans), "align" the rest of the `align` span.
         from concurrent.futures import ThreadPoolExecutor
-        t0 = time.time()
-        stream = aln.stream()
-        chunk = max(256, (query_db.size + 7) // 8)
-        ranges = [(s, min(s + chunk, query_db.size))
-                  for s in range(0, query_db.size, chunk)]
-        pref_s = 0.0
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            fut = pool.submit(pref.match_range, *ranges[0])
-            for i in range(len(ranges)):
-                tp = time.time()
-                hits = fut.result()
-                pref_s += time.time() - tp
-                if i + 1 < len(ranges):
-                    fut = pool.submit(pref.match_range, *ranges[i + 1])
-                stream.add({qk: [h.seq_id for h in hs]
-                            for qk, hs in hits.items()})
-        timings["prefilter"] = round(pref_s, 4)
-        stats = getattr(pref, "stats", None)
-        if stats:
-            from ..utils import log
-            log.info(
-                f"{stats['db_matches_per_seq']} DB matches per sequence; "
-                f"{stats['passed_per_seq']:.1f} sequences passed "
-                f"prefiltering per query ({stats['median_result_list']} "
-                f"median, {stats['empty_lists']} empty)")
+        with trace.span("align") as sp:
+            stream = aln.stream()
+            chunk = max(256, (query_db.size + 7) // 8)
+            ranges = [(s, min(s + chunk, query_db.size))
+                      for s in range(0, query_db.size, chunk)]
+            pref_s = 0.0
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                fut = pool.submit(pref.match_range, *ranges[0])
+                for i in range(len(ranges)):
+                    with trace.span("prefilter.wait",
+                                    chunk=ranges[i][0]) as wait:
+                        hits = fut.result()
+                    pref_s += wait.seconds
+                    if i + 1 < len(ranges):
+                        fut = pool.submit(pref.match_range, *ranges[i + 1])
+                    stream.add({qk: [h.seq_id for h in hs]
+                                for qk, hs in hits.items()})
+            stats = getattr(pref, "stats", None)
+            if stats:
+                from ..utils import log
+                log.info(
+                    f"{stats['db_matches_per_seq']} DB matches per sequence; "
+                    f"{stats['passed_per_seq']:.1f} sequences passed "
+                    f"prefiltering per query ({stats['median_result_list']} "
+                    f"median, {stats['empty_lists']} empty)")
 
-        records = stream.finish()
-        timings["align"] = time.time() - t0 - pref_s
+            with trace.span("align.finish"):
+                records = stream.finish()
+        timings["prefilter"] = pref_s
+        timings["align"] = sp.seconds - pref_s
         timings["align_detail"] = dict(aln._device_db().metrics)
 
-    # prefixid: records -> prefixed column lines
-    t0 = time.time()
-    agg_detail = {}
-    if records is None:
-        results = {qk: [[str(qk)] + c for c in cols]
-                   for qk, cols in ck.load_lines("result").items()}
-    else:
-        # format each record's columns ONCE; the checkpoint save reuses
-        # the formatted lists (string formatting dominates this step on
-        # large runs)
-        results = {qk: [[str(qk)] + r.columns() for r in recs]
-                   for qk, recs in records.items()}
-        agg_detail["format_s"] = round(time.time() - t0, 2)
-        ts = time.time()
-        ck.save_lines("result", {qk: [c[1:] for c in cols]
-                                 for qk, cols in results.items()})
-        agg_detail["ckpt_s"] = round(time.time() - ts, 2)
-    matches, clusters, tsv = aggregate_results(results, query_db, target_db,
-                                               par, ck, agg_detail)
-    timings["aggregate"] = time.time() - t0
-    timings["aggregate_detail"] = agg_detail
+    # prefixid: records -> prefixed column lines, then the tail
+    with trace.span("cluster") as sp:
+        if records is None:
+            results = {qk: [[str(qk)] + c for c in cols]
+                       for qk, cols in ck.load_lines("result").items()}
+        else:
+            # format each record's columns ONCE; the checkpoint save
+            # reuses the formatted lists (string formatting dominates this
+            # step on large runs)
+            with trace.span("cluster.format"):
+                results = {qk: [[str(qk)] + r.columns() for r in recs]
+                           for qk, recs in records.items()}
+            with trace.span("cluster.checkpoint"):
+                ck.save_lines("result", {qk: [c[1:] for c in cols]
+                                         for qk, cols in results.items()})
+        matches, clusters, tsv = aggregate_results(results, query_db,
+                                                   target_db, par, ck)
+    timings["aggregate"] = sp.seconds
 
     return ClusterSearchResult(tsv=tsv, clusters=clusters, matches=matches,
                                seq_to_clu=seq_to_clu(clusters),
@@ -410,50 +412,45 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
 def aggregate_results(results: dict[int, list[list[str]]],
                       query_db: SetDB, target_db: SetDB,
                       par: ClusterSearchParams,
-                      ck: StageCheckpoints | None = None,
-                      agg_detail: dict | None = None
+                      ck: StageCheckpoints | None = None
                       ) -> tuple[list[Match], list[Cluster], str]:
     """The aggregation tail on the search results (query key -> prefixed
     column lists): besthitbyset -> mergeresultsbyset -> combinehits ->
     clusterhits -> summarizeresults, resuming from and saving to the
-    checkpoints `ck`.  Returns (matches, clusters, TSV); agg_detail, if
-    given, receives each step's seconds."""
+    checkpoints `ck`.  Returns (matches, clusters, TSV)."""
     ck = StageCheckpoints(None) if ck is None else ck
-    agg_detail = {} if agg_detail is None else agg_detail
     if ck.has("matches"):
         matches = ck.load_matches()
     else:
         if ck.has("aggregate_merged"):
             merged = ck.load_lines("aggregate_merged")
         else:
-            ts = time.time()
-            agg = besthit_by_set(results, target_db,
-                                 simple_best_hit=par.simple_best_hit,
-                                 subopt_hits_factor=par.subopt_hits_factor)
-            agg_detail["besthit_s"] = round(time.time() - ts, 2)
-            ts = time.time()
-            ck.save_lines("aggregate", agg)
-            merged = merge_results_by_set(agg, query_db)
-            ck.save_lines("aggregate_merged", merged)
-            agg_detail["ckpt_s"] = (agg_detail.get("ckpt_s", 0.0)
-                                    + round(time.time() - ts, 2))
-        ts = time.time()
-        matches = combine_hits(merged, query_db, target_db, alpha=par.alpha,
-                               aggregation_mode=par.aggregation_mode,
-                               filter_self_match=par.filter_self_match)
-        ck.save_matches(matches)
-        agg_detail["combine_s"] = round(time.time() - ts, 2)
-    ts = time.time()
-    clusters = cluster_hits(matches, query_db, target_db,
-                            max_gene_gaps=par.max_gene_gaps,
-                            cluster_size=par.cluster_size,
-                            p_clu_thr=par.p_clu_thr,
-                            p_mh_thr=par.p_mh_thr,
-                            alpha=par.alpha)
-    agg_detail["clusterhits_s"] = round(time.time() - ts, 2)
-    ts = time.time()
-    tsv = summarize_results(clusters, query_db, target_db)
-    agg_detail["summarize_s"] = round(time.time() - ts, 2)
+            with trace.span("cluster.besthit"):
+                agg = besthit_by_set(
+                    results, target_db, simple_best_hit=par.simple_best_hit,
+                    subopt_hits_factor=par.subopt_hits_factor)
+            with trace.span("cluster.checkpoint"):
+                ck.save_lines("aggregate", agg)
+            with trace.span("cluster.merge"):
+                merged = merge_results_by_set(agg, query_db)
+            with trace.span("cluster.checkpoint"):
+                ck.save_lines("aggregate_merged", merged)
+        with trace.span("cluster.combine"):
+            matches = combine_hits(merged, query_db, target_db,
+                                   alpha=par.alpha,
+                                   aggregation_mode=par.aggregation_mode,
+                                   filter_self_match=par.filter_self_match)
+        with trace.span("cluster.checkpoint"):
+            ck.save_matches(matches)
+    with trace.span("cluster.clusterhits"):
+        clusters = cluster_hits(matches, query_db, target_db,
+                                max_gene_gaps=par.max_gene_gaps,
+                                cluster_size=par.cluster_size,
+                                p_clu_thr=par.p_clu_thr,
+                                p_mh_thr=par.p_mh_thr,
+                                alpha=par.alpha)
+    with trace.span("cluster.summarize"):
+        tsv = summarize_results(clusters, query_db, target_db)
     return matches, clusters, tsv
 
 
@@ -477,7 +474,9 @@ def cluster_search_to_file(query_db: SetDB, target_db: SetDB, out_path: str,
     if res is None:
         res = cluster_search(query_db, target_db, **kwargs)
         if tmp_dir is not None:
-            ckpt.parent.mkdir(parents=True, exist_ok=True)
-            ckpt.write_text(res.tsv)
-    Path(out_path).write_text(res.tsv)
+            with trace.span("clustersearch.write_tsv"):
+                ckpt.parent.mkdir(parents=True, exist_ok=True)
+                ckpt.write_text(res.tsv)
+    with trace.span("clustersearch.write_tsv"):
+        Path(out_path).write_text(res.tsv)
     return res

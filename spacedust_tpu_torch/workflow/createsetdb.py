@@ -16,6 +16,7 @@ from pathlib import Path
 from ..db.fasta import create_setdb_from_fastas
 from ..db.gff import create_setdb_from_gff
 from ..db.setdb import SetDB
+from ..utils import trace
 
 
 def expand_inputs(inputs: list[str],
@@ -46,29 +47,33 @@ def create_setdb(inputs: list[str], out_path: str | None = None,
                  translation_table: int = 1,
                  file_include: str = ".*",
                  file_exclude: str = "^$") -> SetDB:
+    with trace.span("createsetdb.read"):
+        db = _read_inputs(inputs, gff_dir, gff_type, translation_table,
+                          file_include, file_exclude)
+    if out_path is not None:
+        with trace.span("createsetdb.write"):
+            db.save(out_path)
+    return db
+
+
+def _read_inputs(inputs, gff_dir, gff_type, translation_table,
+                 file_include, file_exclude) -> SetDB:
     # pre-built MMseqs2/Foldseek DB input (createsetdb.sh:51-77 "external"
     # path): copy sequences (+ _ss 3Di sidecar) and rewrite the lookup
     if len(inputs) == 1 and Path(f"{inputs[0]}.dbtype").exists():
         from ..db.flatdb_ingest import create_setdb_from_flatdb
-        db = create_setdb_from_flatdb(inputs[0])
-        if out_path is not None:
-            db.save(out_path)
-        return db
+        return create_setdb_from_flatdb(inputs[0])
     files = expand_inputs(inputs, file_include, file_exclude)
     if not files:
         raise ValueError("no input files after expansion")
     is_nucl = any(f.endswith((".fna", ".fa", ".fasta")) and _looks_nucl(f)
                   for f in files[:1])
     if gff_dir is not None:
-        db = create_setdb_from_gff(gff_files(gff_dir), files, gff_type,
-                                   translation_table)
-    elif is_nucl:
+        return create_setdb_from_gff(gff_files(gff_dir), files, gff_type,
+                                     translation_table)
+    if is_nucl:
         raise ValueError("nucleotide input requires --gff-dir")
-    else:
-        db = create_setdb_from_fastas(files)
-    if out_path is not None:
-        db.save(out_path)
-    return db
+    return create_setdb_from_fastas(files)
 
 
 def gff_files(gff_dir: str) -> list[str]:
