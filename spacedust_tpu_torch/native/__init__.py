@@ -1,18 +1,23 @@
 """Native (C++/OpenMP) host engines: k-mer index and prefilter (sequence
 and profile queries; the cached-beam probes of the concurrent target
 split), tantan masking, composition bias, banded traceback (sequence,
-profile and profile-profile), the banded nucleotide aligner,
+structure, profile and profile-profile), the banded nucleotide aligner,
 clusterhits, and the profile helpers (global PSSM bias correction,
 target-profile k-mer postings).
 
 The sources are the JAX package's, copied, but for `profile_native.cpp`,
 which is the port's own (the JAX package runs those two as numpy loops,
 search/profile.py and search/profilesearch.py); `banded_sw.cpp` here writes its compressed
-CIGARs without the one-byte overrun of the original.  The
+CIGARs without the one-byte overrun of the original, and traces the
+structure search's pairs in one batched call
+(`banded_align_struct_batch`), where the JAX package makes one
+`banded_align_profile_u16` call a pair over a (441, L) profile.  The
 shared library is compiled with g++ at first use into the package's
 `_build/` directory (content-hashed, git-ignored).  Only the symbols the
 port's paths call are bound, and `banded_align_profile_profile`, which no
-command calls in either package (library parity).
+command calls in either package (library parity), and
+`banded_align_profile_u16`, which the tests hold the structure batch
+against.
 """
 
 from __future__ import annotations
@@ -159,6 +164,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P(i32), P(i32), P(i32), P(i32), P(i32), P(i32), P(i32),
         ctypes.c_int, ctypes.c_int, P(i64), ctypes.c_char_p, P(i32), P(i32),
         ctypes.c_char_p, P(i32)]
+    lib.banded_align_struct_batch.restype = ctypes.c_int
+    lib.banded_align_struct_batch.argtypes = [
+        P(ctypes.c_uint8), P(ctypes.c_uint8), P(i64),      # query 3Di, aa
+        P(ctypes.c_int8),                                 # query 3Di bias
+        P(ctypes.c_uint8), P(ctypes.c_uint8), P(i64),      # target 3Di, aa
+        P(i32), P(i32),                                   # m3di, aa_scaled
+        ctypes.c_int, P(i32), P(i32), P(i32), P(i32), P(i32), P(i32),
+        P(i32), ctypes.c_int, ctypes.c_int, P(i64), ctypes.c_char_p,
+        P(i32), P(i32)]
     lib.banded_align_profile.restype = ctypes.c_int
     lib.banded_align_profile.argtypes = [
         P(ctypes.c_uint8),                # t
@@ -719,6 +733,58 @@ def banded_align_batch(qdata, qoffs, tdata, toffs, bias_data, mat_int8,
     cigs = [craw[2 * int(out_offs[i]):2 * int(out_offs[i])
                  + int(out_clen[i])].decode("ascii") for i in range(n)]
     return ops, out_ident, cigs
+
+
+def banded_align_struct_batch(qss, qaa, qoffs, bias, tss, taa, toffs, m3di,
+                              aa_scaled, qk, tk, qstart, qend, tstart, tend,
+                              score, gap_open: int, gap_extend: int):
+    """Batched banded tracebacks of the structure search (OpenMP over
+    pairs), each cell int8(m3di[qss_i, tss_j] + bias_i + aa_scaled[qaa_i,
+    taa_j]): the query DB's 3Di and amino-acid arrays and its int8 3Di
+    bias over the offsets `qoffs` (a key's first residue), the target
+    DB's over `toffs`, the two (21, 21) tables, and each pair's keys,
+    rectangle and score.  Returns (ops_list, n_ident array), an identity
+    being an M column with equal amino acids; raises on any failed
+    traceback."""
+    qss, qaa, tss, taa = (np.ascontiguousarray(a, dtype=np.uint8)
+                          for a in (qss, qaa, tss, taa))
+    bias = np.ascontiguousarray(bias, dtype=np.int8)
+    qoffs = np.ascontiguousarray(qoffs, dtype=np.int64)
+    toffs = np.ascontiguousarray(toffs, dtype=np.int64)
+    m3di = np.ascontiguousarray(m3di, dtype=np.int32)
+    aa_scaled = np.ascontiguousarray(aa_scaled, dtype=np.int32)
+    if (qss.shape != qaa.shape or bias.shape != qss.shape
+            or tss.shape != taa.shape or m3di.shape != (21, 21)
+            or aa_scaled.shape != (21, 21)):
+        raise ValueError("banded_align_struct_batch: bad shapes")
+    qk, tk, qstart, qend, tstart, tend, score = (
+        np.ascontiguousarray(a, dtype=np.int32)
+        for a in (qk, tk, qstart, qend, tstart, tend, score))
+    n = len(qk)
+    caps = ((qend - qstart + 1).astype(np.int64)
+            + (tend - tstart + 1).astype(np.int64) + 8)
+    out_offs = np.concatenate(([0], np.cumsum(caps)))
+    out_ops = ctypes.create_string_buffer(int(out_offs[-1]))
+    out_len = np.empty(n, dtype=np.int32)
+    out_ident = np.empty(n, dtype=np.int32)
+    bad = get_lib().banded_align_struct_batch(
+        _ptr(qss, ctypes.c_uint8), _ptr(qaa, ctypes.c_uint8),
+        _ptr(qoffs, ctypes.c_int64), _ptr(bias, ctypes.c_int8),
+        _ptr(tss, ctypes.c_uint8), _ptr(taa, ctypes.c_uint8),
+        _ptr(toffs, ctypes.c_int64), _ptr(m3di, ctypes.c_int32),
+        _ptr(aa_scaled, ctypes.c_int32), n, _ptr(qk, ctypes.c_int32),
+        _ptr(tk, ctypes.c_int32), _ptr(qstart, ctypes.c_int32),
+        _ptr(qend, ctypes.c_int32), _ptr(tstart, ctypes.c_int32),
+        _ptr(tend, ctypes.c_int32), _ptr(score, ctypes.c_int32), gap_open,
+        gap_extend, _ptr(out_offs, ctypes.c_int64), out_ops,
+        _ptr(out_len, ctypes.c_int32), _ptr(out_ident, ctypes.c_int32))
+    if bad:
+        raise RuntimeError(
+            f"banded_align_struct_batch: {bad} failed tracebacks")
+    raw = out_ops.raw
+    ops = [raw[o:o + k].decode("ascii")
+           for o, k in zip(out_offs[:-1].tolist(), out_len.tolist())]
+    return ops, out_ident
 
 
 def banded_align_profile(t: np.ndarray, q_len: int, prof_aa_qpos: np.ndarray,

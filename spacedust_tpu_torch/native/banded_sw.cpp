@@ -20,6 +20,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <type_traits>
 #include <vector>
 
 namespace {
@@ -35,6 +36,31 @@ inline long band_d(int w, int i, int j, int p) {
     x = x > 0 ? x : 0;
     return (long)(j - x) * 3 + p;
 }
+
+// The scoring modes below are chosen at run time from which tables are
+// given; a cell functor (Cell) is chosen at compile time instead, so the
+// instantiations of the runtime modes compile to the code they had.
+struct RuntimeCell {};
+
+// Structure search: the combined 3Di x amino-acid alphabet scored from its
+// two 21x21 tables, int8(m3di[qss_i][tss_j] + bias_i + aa[qaa_i][taa_j]):
+// the same int32 sum and narrowing as the entry the (441, L) combined
+// profile holds at (tss_j*21 + taa_j, i).  Pointers start at the
+// rectangle's first residues.
+struct StructCell {
+    static constexpr int kAlpha = 21;
+    const uint8_t* qss;
+    const uint8_t* qaa;
+    const int8_t* bias;
+    const uint8_t* tss;
+    const uint8_t* taa;
+    const int32_t* m3di;
+    const int32_t* aa;
+    int operator()(int i, int j) const {
+        return (int8_t)(m3di[qss[i] * kAlpha + tss[j]] + bias[i] +
+                        aa[qaa[i] * kAlpha + taa[j]]);
+    }
+};
 
 }  // namespace
 
@@ -53,7 +79,9 @@ inline long band_d(int w, int i, int j, int p) {
 //     scores s1 = prof[t[j]][qs+i], s2 = tprof[qcons[i]][ts+j] as
 //     ((|mn|+mn)+(|mn|+mx)+1)/2 - |mn| (the reference's rounded mean
 //     with negative-score clamp-to-min, StripedSmithWaterman.cpp:1464-1470)
-template <typename TT>
+// A Cell other than RuntimeCell replaces all three: cell score =
+// (*cell_fn)(i, j), and q, t, mat and prof are not read.
+template <typename TT, typename Cell = RuntimeCell>
 static int banded_align_impl(const uint8_t* q, const TT* t,
                              const int8_t* bias, int q_len, int t_len,
                              const int8_t* mat, int alpha_size,
@@ -63,7 +91,8 @@ static int banded_align_impl(const uint8_t* q, const TT* t,
                              int out_cap,
                              const int8_t* tprof = NULL,
                              int tprof_tlen = 0, int target_start = 0,
-                             const uint8_t* qcons = NULL) {
+                             const uint8_t* qcons = NULL,
+                             const Cell* cell_fn = NULL) {
     std::vector<int32_t> h_b, e_b, h_c;
     std::vector<int8_t> direction;
     long width = 0, width_d = 0;
@@ -113,7 +142,9 @@ static int banded_align_impl(const uint8_t* q, const TT* t,
                 int e1 = e_b[u] > 0 ? e_b[u] : 0;
                 temp1 = e1 > f1 ? e1 : f1;
                 int cell;
-                if (tprof != NULL) {
+                if constexpr (!std::is_same<Cell, RuntimeCell>::value) {
+                    cell = (*cell_fn)(i, j);
+                } else if (tprof != NULL) {
                     const int s1 =
                         prof[(int)t[j] * prof_qlen + (query_start + i)];
                     const int s2 = tprof[(int)qcons[i] * tprof_tlen +
@@ -257,6 +288,58 @@ int banded_align_batch(const uint8_t* qdata, const int64_t* qoffs,
             }
             out_clen[i] = ci;
         }
+    }
+    return bad;
+}
+
+// Batched traceback of the structure search (StructCell): one call for all
+// survivors of a stage, OpenMP-parallel over pairs, as banded_align_batch.
+// The query and target DBs come as their 3Di and amino-acid arrays over
+// one offset table each; bias_data is the query's 3Di composition bias in
+// the same layout; m3di and aa_scaled are 21x21.  Writes each pair's
+// expanded ops into its slice of out_ops, the op length and the identity
+// count (M columns with equal amino acids); no CIGAR.  Returns the number
+// of failed pairs (out_len -1).
+int banded_align_struct_batch(const uint8_t* qss_data,
+                              const uint8_t* qaa_data, const int64_t* qoffs,
+                              const int8_t* bias_data,
+                              const uint8_t* tss_data,
+                              const uint8_t* taa_data, const int64_t* toffs,
+                              const int32_t* m3di, const int32_t* aa_scaled,
+                              int n, const int32_t* qk, const int32_t* tk,
+                              const int32_t* qstart, const int32_t* qend,
+                              const int32_t* tstart, const int32_t* tend,
+                              const int32_t* score,
+                              int gap_open, int gap_extend,
+                              const int64_t* out_offs, char* out_ops,
+                              int32_t* out_len, int32_t* out_ident) {
+    int bad = 0;
+#pragma omp parallel for schedule(dynamic, 16) reduction(+:bad)
+    for (int i = 0; i < n; ++i) {
+        const int64_t qo = qoffs[qk[i]] + qstart[i];
+        const int64_t to = toffs[tk[i]] + tstart[i];
+        const StructCell cell = {qss_data + qo, qaa_data + qo,
+                                 bias_data + qo, tss_data + to,
+                                 taa_data + to, m3di, aa_scaled};
+        const int q_len = qend[i] - qstart[i] + 1;
+        const int t_len = tend[i] - tstart[i] + 1;
+        const int band = (q_len > t_len ? q_len - t_len : t_len - q_len) + 1;
+        char* out = out_ops + out_offs[i];
+        const int cap = (int)(out_offs[i + 1] - out_offs[i]);
+        int len = banded_align_impl<uint8_t, StructCell>(
+            NULL, NULL, NULL, q_len, t_len, NULL, 0, NULL, 0, 0, score[i],
+            gap_open, gap_extend, band, out, cap, NULL, 0, 0, NULL, &cell);
+        if (len < 0) { bad++; out_len[i] = -1; continue; }
+        out_len[i] = len;
+        int ids = 0, qp = 0, tp = 0;
+        for (int c = 0; c < len; ++c) {
+            if (out[c] == 'M') {
+                ids += (cell.qaa[qp] == cell.taa[tp]);
+                ++qp; ++tp;
+            } else if (out[c] == 'I') ++qp;
+            else ++tp;
+        }
+        out_ident[i] = ids;
     }
     return bad;
 }

@@ -25,15 +25,16 @@ Every pair goes through the engine, at any length: there is no length
 cap and no separate host SW path.  A subclass may replace the scoring
 through three hooks (the structure search, search/structure.py, does):
 `_device_db` (the resident engine), `evaluer` (the E-value statistics),
-and the optional per-key `_identity_record` / per-pair `_traceback`,
-which, when set, take the place of the batched identity and traceback
-paths of the sequence search.
+and the optional per-key `_identity_record` and `_traceback_batch`
+(all of a stage's pairs in one call), which, when set, take the place of
+the batched identity and traceback paths of the sequence search.
 
 Profile queries (`query_profiles`, the target-profile search of
 search/profilesearch.py) are scored per position from their (L, 21) int8
 alignment profiles with no composition bias: the SW passes run on the
 profile kernels (ops/sw_engine.py::ProfileDeviceDB), the traceback is one
-banded profile alignment per pair, and identities are counted against the
+banded profile alignment per pair (`_pair_tracebacks`, their
+`_traceback_batch`), and identities are counted against the
 profile's stored query residues (`query_profile_seqs`).  The identity
 record of a profile query scores the query's residues against its own
 profile rows, accumulated in int16 (scoreIdentical over a profile).
@@ -159,9 +160,12 @@ class AlignmentParams:
 class AlignmentEngine:
     # optional hooks (None: the batched sequence-search paths):
     #   _identity_record(qk) -> AlnRecord of the self hit;
-    #   _traceback(qk, tk, q_start, q_end, t_start, t_end, score) -> ops
+    #   _traceback_batch(qk, tk, q_start, q_end, t_start, t_end, score)
+    #       -> (ops list, identity counts) of a stage's pairs, its route
+    #       named by `_traceback_route` on the `align.traceback` span
     _identity_record = None
-    _traceback = None
+    _traceback_batch = None
+    _traceback_route = "seq"
 
     def __init__(self, query_db: SetDB, target_db: SetDB,
                  params: AlignmentParams | None = None,
@@ -196,7 +200,8 @@ class AlignmentEngine:
         self.query_profiles = query_profiles or {}
         self.query_profile_seqs = query_profile_seqs or {}
         if self.query_profiles:
-            self._traceback = self._profile_traceback
+            self._traceback_batch = self._pair_tracebacks
+            self._traceback_route = "per_pair"
             self._prof_t: dict[int, np.ndarray] = {}
         # what the --alt-ali rounds did: chains in each round, their
         # host-clock seconds, and the masked-target engines' metrics
@@ -495,15 +500,17 @@ class AlignmentEngine:
 
     def _pair_tracebacks(self, qk, tk, q_start, q_end, t_start, t_end,
                          score):
-        """Per-pair `_traceback` calls: (ops list, identity counts), where
-        an identity is an M column with equal amino acids (for a profile
-        query, between the profile's stored query residues and the
-        target)."""
+        """The profile queries' `_traceback_batch`: one
+        `_profile_traceback` call a pair, counted as
+        `traceback_pair_calls`.  Returns (ops list, identity counts),
+        where an identity is an M column with equal amino acids, between
+        the profile's stored query residues and the target."""
+        trace.count("traceback_pair_calls", len(qk))
         ops_list, idents = [], []
         for i in range(len(qk)):
-            ops = self._traceback(int(qk[i]), int(tk[i]), int(q_start[i]),
-                                  int(q_end[i]), int(t_start[i]),
-                                  int(t_end[i]), int(score[i]))
+            ops = self._profile_traceback(
+                int(qk[i]), int(tk[i]), int(q_start[i]), int(q_end[i]),
+                int(t_start[i]), int(t_end[i]), int(score[i]))
             b = np.frombuffer(ops.encode(), dtype=np.uint8)
             is_m = b == ord("M")
             q_adv = is_m | (b == ord("I"))
@@ -521,8 +528,8 @@ class AlignmentEngine:
     def _finish_pairs(self, survivors, starts, targets: tuple | None = None
                       ) -> list["AlnRecord | None"]:
         """Stage 3: vectorized coverage gate and one batched native
-        traceback call for all survivors (OpenMP over pairs), or one
-        `_traceback` call per pair when the hook is set.  targets:
+        traceback call for all survivors (OpenMP over pairs), or the
+        `_traceback_batch` hook's when it is set.  targets:
         (tdata, toffs, rows) to trace against the token array tdata, where
         survivor i's target starts at toffs[rows[i]], instead of the
         resident targets; such records carry no precompressed CIGAR."""
@@ -548,9 +555,9 @@ class AlignmentEngine:
         if len(sel) == 0:
             return recs
         trace.count("traceback_pairs", len(sel))
-        with trace.span("align.traceback"):
-            if self._traceback is not None:
-                ops_list, idents = self._pair_tracebacks(
+        with trace.span("align.traceback", route=self._traceback_route):
+            if self._traceback_batch is not None:
+                ops_list, idents = self._traceback_batch(
                     qk[sel], tk[sel], q_start[sel], q_end[sel], t_start[sel],
                     t_end[sel], score[sel])
                 cigars = [None] * len(sel)
@@ -611,7 +618,7 @@ class AlignmentEngine:
         records are appended parent by parent, each parent's in round
         order, as a loop over the parents would append them: the stable
         sort that follows keeps that order among ties."""
-        if self._traceback is not None:
+        if self._traceback_batch is not None:
             raise NotImplementedError(
                 "--alt-ali serves the sequence search only")
         par = self.par

@@ -14,8 +14,10 @@ defaults).
 The SW score passes run on the engine's device as two 21-wide channels
 (ops/sw_engine.py::StructureDeviceDB: the structure CUDA kernels, or
 their plain version on the CPU), each channel cast to int8 on its own.
-The traceback keeps the combined 441-symbol profile (symbol = ss*21 + aa)
-through the native banded_align_profile_u16.  E-values use the ungapped
+The traceback scores the combined 441-symbol alphabet (symbol = ss*21 +
+aa) in one int8 cell read from the two 21x21 tables, for every survivor
+of a stage in one OpenMP call (native banded_align_struct_batch).
+E-values use the ungapped
 Karlin-Altschul lambda of the combined matrix under the product
 background with K pinned at 300 — the reference's foldseek uses a
 neural-net E-value model that is not vendored, so this is a documented
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from ..db.setdb import SetDB
-from ..native import banded_align_profile_u16, comp_bias_batch
+from ..native import banded_align_struct_batch, comp_bias_batch
 from ..ops.sw_engine import StructureDeviceDB
 from ..stats.evalue import EvalueComputation, GumbelParams
 from ..stats.submat import c_round, load_pinned_matrix
@@ -49,8 +51,6 @@ COMBINED_ALPHA = ALPHA * ALPHA
 # vendored, and the naive ungapped-KA K applied to these gapped
 # combined-alphabet scores understates E by orders of magnitude.
 STRUCT_K = 300.0
-# query profiles the structure engine keeps for its tracebacks
-PROFILE_CACHE = 4
 
 
 @lru_cache(maxsize=1)
@@ -124,6 +124,8 @@ class StructureSearchParams:
 class StructureAlignmentEngine(AlignmentEngine):
     """Gapped alignment over the combined 3Di x AA alphabet."""
 
+    _traceback_route = "struct"
+
     def __init__(self, query_db: SetDB, target_db: SetDB,
                  params: AlignmentParams, same_qt_db: bool, *,
                  device: torch.device | str):
@@ -134,8 +136,6 @@ class StructureAlignmentEngine(AlignmentEngine):
         self.m3di, self.aa_scaled, gumbel = combined_matrices()
         self.evaluer = EvalueComputation(target_db.total_residues, gumbel)
         self._ss_bias_arr: np.ndarray | None = None
-        # the last PROFILE_CACHE queries' (L, 441) profiles, oldest first
-        self._prof_cache: dict[int, np.ndarray] = {}
 
     def _ss_bias_all(self) -> np.ndarray:
         """int8 composition-bias correction over the 3Di channel for
@@ -171,31 +171,8 @@ class StructureAlignmentEngine(AlignmentEngine):
                 device=self.device)
         return self._dev
 
-    # combined symbol = ss*21 + aa
-    def _target_symbols(self, tk: int) -> np.ndarray:
-        return (self.tdb.ss_sequence(tk).astype(np.int32) * ALPHA
-                + self.tdb.sequence(tk).astype(np.int32))
-
-    def _combined_profile(self, qk: int) -> np.ndarray:
-        """(L, 441) int32: profile[i, ss*21+aa] = 3Di + bias + scaled-AA
-        score (bias = 3Di composition correction, foldseek semantics).
-        Only the tracebacks read it, and they come grouped by query, so
-        the last few profiles are kept: 1,764 bytes a residue each."""
-        if qk not in self._prof_cache:
-            if len(self._prof_cache) >= PROFILE_CACHE:
-                del self._prof_cache[next(iter(self._prof_cache))]
-            qss = self.qdb.ss_sequence(qk).astype(np.int64)
-            qaa = self.qdb.sequence(qk).astype(np.int64)
-            p3 = (self.m3di[qss]
-                  + self._ss_bias(qk).astype(np.int32)[:, None])  # (L, 21)
-            paa = self.aa_scaled[qaa]    # (L, 21)
-            self._prof_cache[qk] = (
-                p3[:, :, None] + paa[:, None, :]).reshape(len(qss), -1)
-        return self._prof_cache[qk]
-
     def _identity_record(self, qk: int) -> AlnRecord:
-        # the combined profile's entries at the symbols of target qk,
-        # without building the profile
+        # the combined scores on the diagonal of the pair (qk, qk)
         qss = self.qdb.ss_sequence(qk).astype(np.int64)
         qaa = self.qdb.sequence(qk).astype(np.int64)
         tss = self.tdb.ss_sequence(qk).astype(np.int64)
@@ -212,13 +189,14 @@ class StructureAlignmentEngine(AlignmentEngine):
                          tlen=L, backtrace="M" * L, raw_score=raw,
                          qcov=1.0, tcov=1.0)
 
-    def _traceback(self, qk: int, tk: int, q_start: int, q_end: int,
-                   t_start: int, t_end: int, score: int) -> str:
-        # (441, L) profile; every combined score fits int8
-        return banded_align_profile_u16(
-            self._target_symbols(tk)[t_start:t_end + 1],
-            q_end - q_start + 1, self._combined_profile(qk).T, q_start,
-            score, self.par.gap_open, self.par.gap_extend)
+    def _traceback_batch(self, qk, tk, q_start, q_end, t_start, t_end,
+                         score):
+        qdb, tdb = self.qdb, self.tdb
+        return banded_align_struct_batch(
+            qdb.ss_data, qdb.seq_data, qdb.offsets[:-1], self._ss_bias_all(),
+            tdb.ss_data, tdb.seq_data, tdb.offsets[:-1], self.m3di,
+            self.aa_scaled, qk, tk, q_start, q_end, t_start, t_end, score,
+            self.par.gap_open, self.par.gap_extend)
 
 
 def structure_search(query_db: SetDB, target_db: SetDB,

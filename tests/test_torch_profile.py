@@ -436,6 +436,32 @@ def test_profile_queries_align_like_jax(tiny, tiny_cdb):
     assert sum(len(v) for v in got.values()) >= 2 * len(cands)
 
 
+def test_profile_queries_trace_pair_by_pair(tiny, tiny_cdb):
+    """Profile queries keep one traceback call a pair: their
+    `align.traceback` spans name the route "per_pair", and every traced
+    pair is counted as a per-pair call."""
+    from spacedust_tpu_torch.utils import trace
+    db, _jdb = tiny
+    cands = {rep: list(range(db.size)) for rep in tiny_cdb.rep_keys[:4]}
+    eng = AlignmentEngine(db, db, AlignmentParams(eval_thr=10.0,
+                                                  cov_thr=0.0),
+                          same_qt_db=False,
+                          query_profiles=tiny_cdb.aln_profiles,
+                          query_profile_seqs=tiny_cdb.query_seqs,
+                          device="cpu")
+    trace.start()
+    try:
+        eng.align_all(cands)
+    finally:
+        rec = trace.stop()
+    spans = [s for s in rec.spans if s[0] == "align.traceback"]
+    assert spans and all(s[4] == {"route": "per_pair"} for s in spans)
+    n = {"traceback_pairs": 0, "traceback_pair_calls": 0}
+    for name, _tid, _t, k in rec.counts:
+        n[name] += k
+    assert n["traceback_pair_calls"] == n["traceback_pairs"] > 0
+
+
 def test_profile_query_identity_is_not_ported(tiny, tiny_cdb):
     """Ported since this test was named: the identity record of a profile
     query in a same-DB search (scoreIdentical over the profile rows)

@@ -211,6 +211,16 @@ def test_no_span_a_pair(jobs):
     assert 0 < count[3] <= detail["align_detail"]["rev_pairs"]
 
 
+def test_traceback_names_its_route(jobs):
+    """The sequence search traces every pair in one native batch: each
+    `align.traceback` span names the route "seq", and no pair is counted
+    on the per-pair route."""
+    _d, rec, _f = jobs["on"]
+    spans = _named(rec, "align.traceback")
+    assert spans and all(s[4] == {"route": "seq"} for s in spans)
+    assert all(c[0] != "traceback_pair_calls" for c in rec.counts)
+
+
 def test_dispatch_carries_its_stage(jobs):
     detail, rec, _f = jobs["on"]
     by_dir = {d: [s[4] for s in _named(rec, "sw.dispatch")
