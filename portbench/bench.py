@@ -102,11 +102,17 @@ def forbidden_modules() -> list[str]:
 # ------------------------------------------------------------------ inputs
 def make_inputs(cell: Cell, genes, seed: int, out_dir: Path):
     """(input paths for createsetdb, judge Inputs) of a set of `genes`
-    (gene counts of genome A and B) drawn from the cell's traffic."""
+    (gene counts of genome A and B) drawn from the cell's traffic; where
+    the configuration states `genomes` N above 2, the N genomes that the
+    generator derives from that pair."""
     cfg = cell.config
+    n = cfg.get("genomes", 2)
     if cell.kind == "seq":
-        genomes, truth = synth.make_genomes(genes, seed, cell.traffic)
+        genomes, truth = synth.make_genomes(genes, seed, cell.traffic, n)
         paths = synth.write_genome_set(out_dir, genomes)
+    elif n != 2:
+        raise ValueError(f"{cfg['name']}: a structure set holds two "
+                         f"genomes, not {n}")
     else:
         genomes, truth = synth.make_struct_genomes(genes, seed, cell.traffic)
         paths = [synth.write_struct_set(out_dir, genomes)]

@@ -22,6 +22,11 @@ the benchmark's inputs.  Three things differ from the original:
     then gives the same sizes and the same amount of work.  Unset (the
     default), one stream draws all, in the original's order.
 
+One addition has no counterpart in the original and draws nothing unless
+asked for, so that the traffic files above keep their bytes: a collection
+(`make_genomes(..., n_genomes=N)`, N > 2), N genomes derived from the pair
+as `tools/make_scale_db.py` derives its collection from two proteomes.
+
 Everything is drawn from `numpy.random.default_rng` through `random()`
 and `integers()` only, with integer arithmetic for every length and
 position, so a seed gives byte-identical files on any machine.
@@ -30,6 +35,7 @@ position, so a seed gives byte-identical files on any machine.
 from __future__ import annotations
 
 import json
+import string
 import struct
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -70,12 +76,22 @@ DEFAULTS = {
     "ss_ident": [60, 86],
 }
 
+# a collection's derived genomes, as tools/make_scale_db.py makes them: each
+# gene kept with probability KEEP_P, operon-scale blocks of BLOCK_GENES
+# genes, a share MOVE_FRAC of them moved, each moved one inverted with
+# probability INVERT_P, every gene mutated to IDENT % (1 - SUB_RATE)
+KEEP_P = 0.9
+BLOCK_GENES = (5, 21)
+MOVE_FRAC = 0.25
+INVERT_P = 0.4
+IDENT = 88
+
 
 @dataclass
 class Truth:
-    """What a generator planted: cross-genome homolog pairs as (gene of A,
-    gene of B, identity %, 3Di identity % or -1), and conserved blocks as
-    lists of indices into `pairs`."""
+    """What a generator planted: cross-genome homolog pairs as (genome,
+    gene, genome, gene, identity %, 3Di identity % or -1), and conserved
+    blocks as lists of indices into `pairs`."""
     pairs: list = field(default_factory=list)
     blocks: list = field(default_factory=list)
 
@@ -172,9 +188,13 @@ class _Runs:
                 return s
 
 
-def make_genomes(sizes, seed: int, traffic: dict | None = None):
-    """Two genomes as lists of [protein, strand] in genome order, and the
-    Truth of what was planted."""
+def make_genomes(sizes, seed: int, traffic: dict | None = None,
+                 n_genomes: int = 2):
+    """Two genomes (of `sizes` genes) as lists of [protein, strand] in
+    genome order, and the Truth of what was planted; with n_genomes > 2,
+    that many genomes derived from the two (`_collection`)."""
+    if n_genomes < 2:
+        raise ValueError(f"a set holds two genomes or more, not {n_genomes}")
     p = params(traffic)
     g = _Gen(seed, p["stream"], p["length_bins"], p["shape_seed"])
     truth = Truth()
@@ -192,7 +212,7 @@ def make_genomes(sizes, seed: int, traffic: dict | None = None):
         genomes[1][b1][0] = g.mutate(
             genomes[0][a1][0][:int(g.sints(*p["giant_b1_prefix"]))],
             p["giant_b1_ident"])
-        truth.pairs.append((a1, b1, p["giant_b1_ident"], -1))
+        truth.pairs.append((0, a1, 1, b1, p["giant_b1_ident"], -1))
 
     # conserved neighbourhood blocks, some inverted in genome B
     n_blocks = max(p["blocks_min"], p["blocks_per_1600"] * scale // 1600)
@@ -208,7 +228,7 @@ def make_genomes(sizes, seed: int, traffic: dict | None = None):
             genomes[1][j] = [g.mutate(prot, ident),
                              -strand if inverted else strand]
             block.append(len(truth.pairs))
-            truth.pairs.append((sa + i, j, ident, -1))
+            truth.pairs.append((0, sa + i, 1, j, ident, -1))
         truth.blocks.append(block)
 
     # scattered cross-genome homologs
@@ -217,7 +237,7 @@ def make_genomes(sizes, seed: int, traffic: dict | None = None):
         sa, sb = free_run(0, 1), free_run(1, 1)
         ident = int(g.sints(*p["homolog_ident"]))
         genomes[1][sb][0] = g.mutate(genomes[0][sa][0], ident)
-        truth.pairs.append((sa, sb, ident, -1))
+        truth.pairs.append((0, sa, 1, sb, ident, -1))
 
     # paralog families within each genome
     for gi, n in ((0, na), (1, nb)):
@@ -231,7 +251,81 @@ def make_genomes(sizes, seed: int, traffic: dict | None = None):
                 genomes[gi][j][0] = g.mutate(
                     genomes[gi][founder][0],
                     int(g.sints(*p["paralog_ident"])))
+
+    if n_genomes > 2:
+        return _collection(g, genomes, truth, n_genomes)
     return genomes, truth
+
+
+def _collection(g: _Gen, pair, truth: Truth, n: int):
+    """n genomes derived from the pair, alternately from A and from B (A
+    first), the pair itself not among them, as tools/make_scale_db.py
+    derives its collection: each keeps a gene with probability KEEP_P,
+    is cut into operon-scale blocks of BLOCK_GENES genes, has a share
+    MOVE_FRAC of its blocks moved elsewhere, each of them inverted (order
+    and strands) with probability INVERT_P, and every gene mutated
+    (`_Gen.mutate`: substitutions and short indels, where the tool draws
+    BLOSUM62-conditional substitutions and no indels) at IDENT %.  The
+    shape's draws come from the shape stream, the mutations from the
+    run's.
+
+    The Truth holds every pair of genes in two derived genomes that
+    descend from one gene of the pair (identity IDENT^2 / 100) or from
+    the two genes of one planted pair (its identity times
+    (IDENT / 100)^2), and each planted block once in every pair of
+    genomes, one from A's line and one from B's, in which two or more of
+    its pairs survive."""
+    genomes, origin = [], []
+    for d in range(n):
+        src = pair[d % 2]
+        kept = np.nonzero(g.shape.random(len(src)) < KEEP_P)[0]
+        blocks, i = [], 0
+        while i < len(kept):
+            w = int(g.sints(*BLOCK_GENES))
+            blocks.append(kept[i:i + w].tolist())
+            i += w
+        order = list(range(len(blocks)))
+        n_move = int(len(blocks) * MOVE_FRAC)
+        inverted = set()
+        for b in np.argsort(g.shape.random(len(blocks)),
+                            kind="stable")[:n_move].tolist():
+            order.remove(b)
+            order.insert(int(g.sints(0, len(order) + 1)), b)
+            if g.shape.random() < INVERT_P:
+                inverted.add(b)
+        genes, where = [], {}
+        for b in order:
+            flip = b in inverted
+            for i in (blocks[b][::-1] if flip else blocks[b]):
+                prot, strand = src[i]
+                where[i] = len(genes)
+                genes.append([g.mutate(prot, IDENT),
+                              -strand if flip else strand])
+        genomes.append(genes)
+        origin.append(where)
+
+    out = Truth()
+    for d1 in range(n):
+        for d2 in range(d1 + 1, n):
+            w1, w2 = origin[d1], origin[d2]
+            if d1 % 2 == d2 % 2:
+                for i in sorted(w1.keys() & w2.keys()):
+                    out.pairs.append((d1, w1[i], d2, w2[i],
+                                      IDENT * IDENT // 100, -1))
+                continue
+            wa, wb = (w1, w2) if d1 % 2 == 0 else (w2, w1)
+            da, db = (d1, d2) if d1 % 2 == 0 else (d2, d1)
+            index = {}
+            for k, (_ga, a, _gb, b, ident, ss) in enumerate(truth.pairs):
+                if a in wa and b in wb:
+                    index[k] = len(out.pairs)
+                    out.pairs.append((da, wa[a], db, wb[b],
+                                      ident * IDENT * IDENT // 10000, ss))
+            for block in truth.blocks:
+                kept = [index[k] for k in block if k in index]
+                if len(kept) >= 2:
+                    out.blocks.append(kept)
+    return genomes, out
 
 
 def _struct_mutate(g: _Gen, aa: np.ndarray, ss: np.ndarray, aa_ident: int,
@@ -282,7 +376,7 @@ def make_struct_genomes(sizes, seed: int, traffic: dict | None = None):
         ai, si = int(g.sints(*p["aa_ident"])), int(g.sints(*p["ss_ident"]))
         aa, ss = _struct_mutate(g, src[0], src[2], ai, si, cap)
         if pair is not None:
-            truth.pairs.append((pair[0], pair[1], ai, si))
+            truth.pairs.append((0, pair[0], 1, pair[1], ai, si))
         return [aa, strand, ss]
 
     # long genes at the cap: two in genome A, one homolog of the first in B
@@ -343,7 +437,13 @@ def decode(tokens: np.ndarray) -> str:
 
 
 def contig(gi: int) -> str:
-    return f"SYN{'AB'[gi]}_000001.1"
+    """SYNA_000001.1, SYNB_000001.1, SYNC_000001.1, ... of genome gi."""
+    return f"SYN{string.ascii_uppercase[gi]}_000001.1"
+
+
+def fasta_name(gi: int) -> str:
+    """genome_a.faa, genome_b.faa, genome_c.faa, ... of genome gi."""
+    return f"genome_{string.ascii_lowercase[gi]}.faa"
 
 
 def write_fasta(path: Path, contig_name: str, genes) -> None:
@@ -358,11 +458,11 @@ def write_fasta(path: Path, contig_name: str, genes) -> None:
 
 
 def write_genome_set(out_dir: Path, genomes) -> list[Path]:
-    """genome_a.faa / genome_b.faa of a make_genomes set."""
+    """genome_a.faa, genome_b.faa, ... of a make_genomes set."""
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = []
     for gi, genes in enumerate(genomes):
-        p = out_dir / f"genome_{'ab'[gi]}.faa"
+        p = out_dir / fasta_name(gi)
         write_fasta(p, contig(gi), genes)
         paths.append(p)
     return paths
@@ -404,5 +504,6 @@ def write_struct_set(out_dir: Path, genomes) -> Path:
     write_flatdb(Path(f"{base}_ss"), sss, dbtype=0)
     write_flatdb(Path(f"{base}_h"), heads, dbtype=12)
     Path(f"{base}.lookup").write_text("".join(lookup))
-    Path(f"{base}.source").write_text("0\tgenome_a.faa\n1\tgenome_b.faa\n")
+    Path(f"{base}.source").write_text("".join(
+        f"{gi}\t{fasta_name(gi)}\n" for gi in range(len(genomes))))
     return base

@@ -27,9 +27,13 @@ it works out again from the generated sequences.  The numbers:
     rule by which the tail picks a hit.  Exact: limit 0.
   * pairs_missed: the share of the planted cross-genome homolog pairs that
     a sound search finds (identity and length over the traffic's floor)
-    with no record in either direction.
+    with no record in either direction.  In a collection (more than two
+    genomes) these are the pairs of genes, in any two genomes, that
+    descend from one gene of the source pair or from one planted pair.
   * blocks_missed: the share of the planted conserved blocks of which no
-    cluster of the TSV holds two pairs or more.
+    cluster of the TSV holds two pairs or more.  In a collection a
+    planted block counts once in each pair of genomes, one from each
+    source's line, that keeps two or more of its pairs.
   * jobs_differ: jobs of the window whose TSV or search result differ from
     the last job's (every job has the same input).  Exact: limit 0.
   * output_missing: 1 where the last job left no TSV or no result DB.
@@ -37,6 +41,8 @@ it works out again from the generated sequences.  The numbers:
 
 from __future__ import annotations
 
+import bisect
+import string
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -80,22 +86,25 @@ class Inputs:
                  gap_extend: int):
         self.genomes, self.truth, self.kind = genomes, truth, kind
         self.gap_open, self.gap_extend = gap_open, gap_extend
-        self.first_b = len(genomes[0])
+        # the key of each genome's first gene: genomes follow one another
+        self.first = np.cumsum([0] + [len(g) for g in genomes]).tolist()
         self.genes = [g for genome in genomes for g in genome]
         self.residues = sum(len(g[0]) for g in self.genes)
         self._bias: dict[int, np.ndarray] = {}
         self._memo: dict = {}
 
     def key(self, gi: int, i: int) -> int:
-        return i if gi == 0 else self.first_b + i
+        return self.first[gi] + i
 
     def genome(self, k: int) -> int:
-        return int(k >= self.first_b)
+        return bisect.bisect_right(self.first, k) - 1
 
     def key_of_name(self, name: str) -> int:
-        """A TSV gene name `SYN<A|B>_000001.1_<i>_...` (i from 1)."""
+        """A TSV gene name `SYN<A|B|C...>_000001.1_<i>_...` (i from 1; the
+        contig's letter is its genome's, gen/synth.py::contig)."""
         parts = name.split("_")
-        return self.key("AB".index(parts[0][-1]), int(parts[2]) - 1)
+        return self.key(string.ascii_uppercase.index(parts[0][-1]),
+                        int(parts[2]) - 1)
 
     def bias(self, k: int) -> np.ndarray:
         if k not in self._bias:
@@ -300,17 +309,16 @@ def judge(outputs: JobOutputs, digests: list, inputs: Inputs, params: dict,
         for _c, q, t, c in hits)
     nums["hits_not_best"] = hits_not_best(records, hits, inputs, cols)
 
-    pairs = inputs.truth.pairs
-    lens = [min(len(inputs.genes[inputs.key(0, a)][0]),
-                len(inputs.genes[inputs.key(1, b)][0]))
-            for a, b, _i, _s in pairs]
-    ident_col = 2 if inputs.kind == "seq" else 3
-    eligible = [p for p, n in zip(pairs, lens)
+    # each planted pair as its two keys
+    pairs = [(inputs.key(ga, a), inputs.key(gb, b))
+             for ga, a, gb, b, _i, _s in inputs.truth.pairs]
+    ident_col = 4 if inputs.kind == "seq" else 5
+    eligible = [k for k, p in zip(pairs, inputs.truth.pairs)
                 if p[ident_col] >= params["pair_min_ident"]
-                and n >= params["pair_min_len"]]
+                and min(len(inputs.genes[k[0]][0]),
+                        len(inputs.genes[k[1]][0])) >= params["pair_min_len"]]
     missed = 0
-    for a, b, _i, _s in eligible:
-        ka, kb = inputs.key(0, a), inputs.key(1, b)
+    for ka, kb in eligible:
         missed += (ka, kb) not in records and (kb, ka) not in records
     nums["pairs_missed"] = missed / max(len(eligible), 1)
 
@@ -319,8 +327,7 @@ def judge(outputs: JobOutputs, digests: list, inputs: Inputs, params: dict,
         clusters.setdefault(c, set()).add(frozenset((q, t)))
     blocks_missed = 0
     for block in inputs.truth.blocks:
-        want = {frozenset((inputs.key(0, pairs[i][0]),
-                           inputs.key(1, pairs[i][1]))) for i in block}
+        want = {frozenset(pairs[i]) for i in block}
         best = max((len(want & got_pairs) for got_pairs in clusters.values()),
                    default=0)
         blocks_missed += best < 2

@@ -205,7 +205,7 @@ def _walk(direc, ql, tl, w, dev):
 
 def traceback(q, qb, t, sub, rect: dict, gap_open: int, gap_extend: int,
               device, q2=None, t2=None, sub2=None, ident_q=None,
-              ident_t=None, cells: int = 1 << 28):
+              ident_t=None, cells: int = 1 << 31):
     """The banded traceback of every pair in its rectangle.
 
     q, qb, t (and q2, t2): per-pair whole token arrays (numpy), sub
@@ -213,7 +213,12 @@ def traceback(q, qb, t, sub, rect: dict, gap_open: int, gap_extend: int,
     t_end, score (the raw SW score the band has to reach).  ident_q /
     ident_t: the tokens whose equality in an M column is an identity
     (default q, t).  Returns (ops strings, None where the walk fails,
-    identity counts)."""
+    identity counts).  A batch holds up to `cells` int8 direction cells
+    (2 GiB by default): its rows cost the same launches at any width, so
+    long pairs go together rather than a few to a batch (on an H100, 272
+    traced pairs of a job rich in 1,500-6,000 aa genes took 21 s where
+    2**28 took 93).
+    The batches change no pair's result."""
     n = len(q)
     dev = torch.device(device)
     ident_q = q if ident_q is None else ident_q

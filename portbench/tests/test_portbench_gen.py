@@ -58,8 +58,8 @@ def test_planted_pairs_are_homologs():
     genomes, truth = synth.make_genomes((150, 150), 7,
                                         _traffic("regression_shape"))
     inputs = Inputs(genomes, truth, "seq", 11, 1)
-    close = [(inputs.key(0, a), inputs.key(1, b))
-             for a, b, ident, _s in truth.pairs if ident >= 50]
+    close = [(inputs.key(ga, a), inputs.key(gb, b))
+             for ga, a, gb, b, ident, _s in truth.pairs if ident >= 50]
     rng = np.random.default_rng(0)
     shuffled = [(q, inputs.key(1, int(rng.integers(0, 150))))
                 for q, _t in close]
