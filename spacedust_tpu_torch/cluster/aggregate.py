@@ -19,6 +19,7 @@ import numpy as np
 from ..db.setdb import SetDB
 from ..stats import pvalues as pv
 from ..stats.fmt import fmt_double_3e
+from ..utils import trace
 
 
 def _group_by_target_set(lines: list[list[str]], set_ids: np.ndarray
@@ -40,12 +41,16 @@ def besthit_by_set(results: dict[int, list[list[str]]],
 
     `results[qkey]` holds prefixed column lists in result order. Returns
     the aggregated lines per query gene (already ordered by target set).
+    Counts the (query gene, target set) groups as `besthit_groups`.
     """
     set_ids = target_db.set_ids
     out: dict[int, list[list[str]]] = {}
+    n_groups = 0
     for qkey, lines in results.items():
         agg_lines: list[list[str]] = []
-        for _tset, group in _group_by_target_set(lines, set_ids).items():
+        groups = _group_by_target_set(lines, set_ids)
+        n_groups += len(groups)
+        for _tset, group in groups.items():
             best_eval = math.inf
             best_score = -math.inf
             second_best = -math.inf
@@ -90,6 +95,7 @@ def besthit_by_set(results: dict[int, list[list[str]]],
                 new_cols[2] = fmt_double_3e(logp)
                 agg_lines.append(new_cols)
         out[qkey] = agg_lines
+    trace.count("besthit_groups", n_groups)
     return out
 
 
@@ -144,6 +150,7 @@ def combine_hits(merged: dict[int, list[list[str]]],
     (query set asc, target set asc) order with sequential keys —
     the reference's thread-local key counter makes its on-disk keys
     meaningless, so deterministic sequential order is canonical here.
+    Counts the matches emitted as `combine_set_pairs`.
     """
     q_sizes = query_db.set_sizes
     t_sizes = target_db.set_sizes
@@ -218,4 +225,5 @@ def combine_hits(merged: dict[int, list[list[str]]],
             matches.append(Match(qset=qset, tset=tset, nq=orf_count,
                                  nt=target_orf_count, k=k,
                                  combined_eval_str=eval_str, lines=body))
+    trace.count("combine_set_pairs", len(matches))
     return matches

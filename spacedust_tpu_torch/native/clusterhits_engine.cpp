@@ -5,9 +5,10 @@
 // (src/util/ClusterHits.cpp:363-453): row-major first-maximum argmax,
 // from-scratch groupNodes rescoring each iteration, the dmin j==0 reset
 // quirk, and uint32-wrapping gap compatibility.  The Python loop is
-// O(K^2) score evaluations at init + O(K) per merge with K up to a few
-// hundred per genome pair — the dominant aggregation-tail cost in
-// Python, negligible in C++ with OpenMP over the init rows.
+// O(K^2) score evaluations at init + O(K) per merge, with K from a few
+// hundred hits per genome pair to a few thousand between genomes of one
+// lineage — the dominant aggregation-tail cost in Python; in C++ the
+// init rows run under OpenMP, the merges serially.
 //
 // Outputs node membership lists (concatenated, in nodes[0..K-1] index
 // order with members in merge-concatenation order) plus each surviving
@@ -181,29 +182,20 @@ int cluster_hits_engine(const int64_t* qpos, const int64_t* tpos,
     nodes[i2].clear();
     boxes[i1] = box_union(boxes[i1], boxes[i2]);
 
-    // row rescore is the expensive part; scores are order-independent,
-    // the dmin maintenance below replicates the sequential j-scan.
-    // The if-clause keeps small-K merges serial: one merge = one
-    // parallel region, and ~400k tiny fork/join barriers both waste
-    // time and busy-wait pathologically when the host is shared
-    std::vector<double> newrow(K, 0.0);
-#pragma omp parallel if (K >= 512)
-    {
-      Scratch psc;
-#pragma omp for schedule(dynamic, 16)
-      for (int j = 0; j < K; ++j) {
-        if (j != i1 && j != i2)
-          newrow[j] = pair_score(h, nodes, boxes, i1, j, d, psc, lookup,
-                                 lookup_len, logq0);
-      }
-    }
+    // the merged node's row is rescored serially, in the j-scan that
+    // maintains dmin, as the Python loop does: most of a row fails the
+    // compatibility box at once, so a parallel region a merge (tens of
+    // thousands in a genome collection) would cost more in fork/join
+    // than the scores, and several times more on a shared host
     for (int j = 0; j < K; ++j) {
       if (j == i1 || j == i2) {
         dist[(size_t)i1 * K + j] = 0.0;
         dist[(size_t)j * K + i1] = 0.0;
       } else {
-        dist[(size_t)i1 * K + j] = newrow[j];
-        dist[(size_t)j * K + i1] = newrow[j];
+        const double s = pair_score(h, nodes, boxes, i1, j, d, sc, lookup,
+                                    lookup_len, logq0);
+        dist[(size_t)i1 * K + j] = s;
+        dist[(size_t)j * K + i1] = s;
       }
       dist[(size_t)i2 * K + j] = 0.0;
       dist[(size_t)j * K + i2] = 0.0;

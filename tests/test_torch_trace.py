@@ -51,6 +51,8 @@ NESTED = [
     ("cluster.merge", "cluster"),
     ("cluster.combine", "cluster"),
     ("cluster.clusterhits", "cluster"),
+    ("cluster.clusterhits.hits", "cluster.clusterhits"),
+    ("cluster.clusterhits.merge", "cluster.clusterhits"),
     ("cluster.summarize", "cluster"),
     ("clustersearch.write_tsv", "clustersearch"),
     ("clustersearch.seq_to_clu", "clustersearch"),
@@ -206,9 +208,26 @@ def test_no_span_a_pair(jobs):
     names = [s[0] for s in rec.spans]
     assert detail["align_detail"]["fwd_pairs"] > 100
     assert max(names.count(n) for n in set(names)) <= 4
-    (count,) = rec.counts
-    assert count[0] == "traceback_pairs"
-    assert 0 < count[3] <= detail["align_detail"]["rev_pairs"]
+    counts = {c[0]: c[3] for c in rec.counts}
+    assert len(counts) == len(rec.counts)         # one of each a job
+    assert set(counts) == {"traceback_pairs", "besthit_groups",
+                           "combine_set_pairs", "clusterhits_pairs",
+                           "clusterhits_hits", "clusterhits_cells"}
+    assert 0 < counts["traceback_pairs"] <= detail["align_detail"]["rev_pairs"]
+
+
+def test_recording_changes_no_output(jobs):
+    """The cluster TSV and the search's result DB are the same bytes with
+    recording off and on."""
+    def outputs(tag):
+        run = jobs[tag][2]["clustersearch"].parent
+        files = [run / "out.tsv", *sorted((run / "tmp").glob("*/result")),
+                 *sorted((run / "tmp").glob("*/result.index"))]
+        return [(p.relative_to(run), p.read_bytes()) for p in files]
+
+    off = outputs("off")
+    assert len(off) == 3 and off[0][1].count(b"\n") > 10
+    assert outputs("on") == off
 
 
 def test_traceback_names_its_route(jobs):
