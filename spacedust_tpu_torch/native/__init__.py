@@ -11,7 +11,12 @@ search/profile.py and search/profilesearch.py); `banded_sw.cpp` here writes its 
 CIGARs without the one-byte overrun of the original, and traces the
 structure search's pairs in one batched call
 (`banded_align_struct_batch`), where the JAX package makes one
-`banded_align_profile_u16` call a pair over a (441, L) profile.  The
+`banded_align_profile_u16` call a pair over a (441, L) profile; and
+the target k-mer index is built on the calling thread's OpenMP team in
+each phase (`tantan_mask_batch` over every sequence, `build_kmer_index`'s
+bucketed scatter in place of one serial sort, `build_kmer_hash`'s
+parallel fill), where the JAX package masks a gene a call and sorts and
+fills the hash on one thread.  The
 shared library is compiled with g++ at first use into the package's
 `_build/` directory (content-hashed, git-ignored).  Only the symbols the
 port's paths call are bound, and `banded_align_profile_profile`, which no
@@ -149,11 +154,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_uint8,                   # mask_to
         P(ctypes.c_float),                # probs_out (nullable)
     ]
+    lib.tantan_mask_batch.restype = None
+    lib.tantan_mask_batch.argtypes = [
+        P(ctypes.c_uint8), P(ctypes.c_uint8),  # src, dst
+        P(i64), ctypes.c_int,             # offsets (n + 1), n
+        P(ctypes.c_double), ctypes.c_int,  # ratio matrix, alpha
+        ctypes.c_int,                     # max_offset
+        ctypes.c_double, ctypes.c_double,  # repeat_prob, repeat_end_prob
+        ctypes.c_double, ctypes.c_double,  # decay, min_mask_prob
+        ctypes.c_uint8]                   # mask_to
     lib.build_kmer_index.restype = ctypes.c_int
     lib.build_kmer_index.argtypes = [
         P(ctypes.c_uint8), P(i64), P(i32), ctypes.c_int, P(i32),
         ctypes.c_int, ctypes.c_int, ctypes.c_int, P(i32), P(i32), P(i32),
-        P(i32), P(i64)]
+        P(i32), P(i64), P(i32)]
+    lib.count_kmer_runs.restype = i64
+    lib.count_kmer_runs.argtypes = [P(i32), i64]
     lib.build_kmer_hash.restype = ctypes.c_int
     lib.build_kmer_hash.argtypes = [
         P(i32), i64, P(i32), P(i32), P(i32), i64, P(ctypes.c_uint64), i64]
@@ -339,13 +355,38 @@ def comp_bias_batch(qdata, qoffs, qlens, sub_int, p_back):
     return out
 
 
+def tantan_mask_batch(seq_data: np.ndarray, offsets: np.ndarray,
+                      ratio: np.ndarray, mask_to: int, max_offset: int = 50,
+                      repeat_prob: float = 0.005,
+                      repeat_end_prob: float = 0.05, decay: float = 0.9,
+                      min_mask_prob: float = 0.9) -> np.ndarray:
+    """Masked copy of the sequences seq_data[offsets[i]:offsets[i + 1]],
+    concatenated (each as `tantan_mask` masks it), by the calling
+    thread's OpenMP team."""
+    lib = get_lib()
+    seq_data = np.ascontiguousarray(seq_data, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n = len(offsets) - 1
+    if n > 0 and not (0 <= offsets[0] <= offsets[-1] <= len(seq_data)):
+        raise ValueError("offsets outside seq_data")
+    out = np.empty(int(offsets[-1] - offsets[0]) if n > 0 else 0, np.uint8)
+    ratio = np.ascontiguousarray(ratio, dtype=np.float64)
+    lib.tantan_mask_batch(
+        _ptr(seq_data, ctypes.c_uint8), _ptr(out, ctypes.c_uint8),
+        _ptr(offsets, ctypes.c_int64), max(n, 0),
+        _ptr(ratio, ctypes.c_double), ratio.shape[0], max_offset,
+        repeat_prob, repeat_end_prob, decay, min_mask_prob, mask_to)
+    return out
+
+
 def build_kmer_index(tdata: np.ndarray, toffs: np.ndarray,
                      tlens: np.ndarray, diag_scores: np.ndarray,
                      x_index: int, kmer_thr: int, kmer_size: int,
                      pattern: np.ndarray):
-    """Parallel k-mer index build (IndexBuilder::fillDatabase analog).
-    Returns (kmers, seq_ids, positions) in (kmer, seq, pos) posting
-    order."""
+    """Parallel k-mer index build (IndexBuilder::fillDatabase analog) on
+    the calling thread's OpenMP team.  Returns (kmers, seq_ids,
+    positions) in (kmer, seq, pos) posting order, all int32, and the
+    team's size."""
     lib = get_lib()
     pattern = np.ascontiguousarray(pattern, dtype=np.int32)
     span = int(pattern[-1]) + 1
@@ -358,25 +399,29 @@ def build_kmer_index(tdata: np.ndarray, toffs: np.ndarray,
     out_seq = np.empty(max(cap, 1), dtype=np.int32)
     out_pos = np.empty(max(cap, 1), dtype=np.int32)
     n_out = ctypes.c_int64(0)
+    threads = ctypes.c_int32(0)
     rc = lib.build_kmer_index(
         _ptr(tdata, ctypes.c_uint8), _ptr(toffs, ctypes.c_int64),
         _ptr(tlens, ctypes.c_int32), len(tlens),
         _ptr(diag_scores, ctypes.c_int32), int(x_index), int(kmer_thr),
         int(kmer_size), _ptr(pattern, ctypes.c_int32),
         _ptr(out_kmer, ctypes.c_int32), _ptr(out_seq, ctypes.c_int32),
-        _ptr(out_pos, ctypes.c_int32), ctypes.byref(n_out))
+        _ptr(out_pos, ctypes.c_int32), ctypes.byref(n_out),
+        ctypes.byref(threads))
     if rc != 0:
         raise RuntimeError(f"build_kmer_index failed: {rc}")
     n = int(n_out.value)
-    return out_kmer[:n], out_seq[:n], out_pos[:n]
+    return out_kmer[:n], out_seq[:n], out_pos[:n], int(threads.value)
 
 
 def build_kmer_hash(post_kmer: np.ndarray, n_bits: int):
     """Compact posting-range hash + occupancy bitmap from the sorted
-    posting k-mer column."""
+    posting k-mer column, on the calling thread's OpenMP team.  Returns
+    (hkeys, hoff, hcnt, bitmap, unique k-mers)."""
     lib = get_lib()
     post_kmer = np.ascontiguousarray(post_kmer, dtype=np.int32)
-    n_unique = int(len(np.unique(post_kmer))) if len(post_kmer) else 0
+    n_unique = int(lib.count_kmer_runs(_ptr(post_kmer, ctypes.c_int32),
+                                       ctypes.c_int64(len(post_kmer))))
     cap = 1
     while cap < max(2 * n_unique, 2):
         cap *= 2
@@ -391,7 +436,7 @@ def build_kmer_hash(post_kmer: np.ndarray, n_bits: int):
         _ptr(bitmap, ctypes.c_uint64), ctypes.c_int64(n_bits))
     if rc != 0:
         raise RuntimeError(f"build_kmer_hash failed: {rc}")
-    return hkeys, hoff, hcnt, bitmap
+    return hkeys, hoff, hcnt, bitmap, n_unique
 
 
 def prefilter_match_batch(qdata, qoffs, qlens, seed_sub, p_back, do_bias,

@@ -14,9 +14,15 @@
 // remainder (tantan.cpp:316-341, mcf_simd.h:175-179). We replicate that
 // order exactly.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <vector>
+
+#if defined(_OPENMP)
+#include <omp.h>
+#endif
 
 namespace {
 
@@ -147,6 +153,42 @@ int tantan_mask(uint8_t *seq, int n, const double *ratio, int alpha,
         }
     }
     return masked;
+}
+
+// Masked copy of a whole DB: sequence i is src[offs[i], offs[i+1]),
+// written to dst at offs[i] - offs[0] and masked there as tantan_mask
+// masks it (masking keeps lengths, so every output offset is known up
+// front).  The calling thread's OpenMP team takes blocks of whole
+// sequences of about equal residue counts, dynamically.
+void tantan_mask_batch(const uint8_t *src, uint8_t *dst, const int64_t *offs,
+                       int n, const double *ratio, int alpha, int max_offset,
+                       double repeat_prob, double repeat_end_prob,
+                       double decay, double min_mask_prob, uint8_t mask_to) {
+    if (n <= 0) return;
+    const int64_t base = offs[0];
+    int teams = 1;
+#if defined(_OPENMP)
+    teams = omp_get_max_threads();
+#endif
+    // ~32 blocks a thread; a sequence longer than a block is one alone
+    const int64_t want = std::max<int64_t>(
+        1, (offs[n] - base) / (static_cast<int64_t>(teams) * 32));
+    std::vector<int> cut(1, 0);
+    for (int i = 0; i < n; ++i)
+        if (offs[i + 1] - offs[cut.back()] >= want) cut.push_back(i + 1);
+    if (cut.back() != n) cut.push_back(n);
+    const int nblocks = static_cast<int>(cut.size()) - 1;
+#pragma omp parallel for schedule(dynamic, 1)
+    for (int b = 0; b < nblocks; ++b) {
+        const int lo = cut[b], hi = cut[b + 1];
+        std::memcpy(dst + (offs[lo] - base), src + offs[lo],
+                    static_cast<size_t>(offs[hi] - offs[lo]));
+        for (int i = lo; i < hi; ++i)
+            tantan_mask(dst + (offs[i] - base),
+                        static_cast<int>(offs[i + 1] - offs[i]), ratio,
+                        alpha, max_offset, repeat_prob, repeat_end_prob,
+                        decay, min_mask_prob, mask_to, nullptr);
+    }
 }
 
 }  // extern "C"

@@ -42,7 +42,7 @@ import numpy as np
 
 from ..constants import X_INDEX
 from ..db.setdb import SetDB
-from ..native import tantan_mask
+from ..native import tantan_mask_batch
 from ..stats.submat import SubstitutionMatrix, load_pinned_matrix
 from ..utils import trace
 
@@ -219,16 +219,15 @@ def pack_kmers(kmers: np.ndarray) -> np.ndarray:
     return (kmers.astype(np.int64) * powers[None, :]).sum(axis=1)
 
 
-def mask_sequences(db: SetDB, seed_matrix: SubstitutionMatrix) -> list[np.ndarray]:
-    """tantan-masked copies of all sequences (Masker semantics)."""
-    ratio = seed_matrix.prob / (seed_matrix.p_back[:, None]
-                                * seed_matrix.p_back[None, :])
-    return [tantan_mask(db.sequence(k), ratio, X_INDEX)
-            for k in range(db.size)]
-
-
 class KmerIndex:
-    """Dense sorted k-mer posting index over the (masked) target DB."""
+    """Dense sorted k-mer posting index over the (masked) target DB.
+
+    Built in three native phases, each on the calling thread's OpenMP
+    team and each a span inside the caller's (`prefilter.index_build`,
+    `structure.index`): `prefilter.index_mask` (tantan over every
+    sequence, into the one concatenated `t_data`),
+    `prefilter.index_postings` (the postings in (kmer, seq, pos) order)
+    and `prefilter.index_hash` (the posting-range hash)."""
 
     def __init__(self, target_db: SetDB, kmer_thr: int,
                  seed_matrix: SubstitutionMatrix | None = None,
@@ -240,37 +239,51 @@ class KmerIndex:
         self.kmer_size = kmer_size
         self.pattern = (pattern if pattern is not None
                         else KMER_PATTERNS[kmer_size])
-        self.masked = (mask_sequences(target_db, self.seed) if mask
-                       else [target_db.sequence(k) for k in range(target_db.size)])
-
-        # concatenated masked target residues (the engine's rescore input)
-        lens = np.array([len(s) for s in self.masked], dtype=np.int64)
-        self.t_offsets = np.concatenate(([0], np.cumsum(lens)))[:-1]
-        self.t_data = (np.concatenate(self.masked) if self.masked
-                       else np.empty(0, np.uint8))
+        offsets = target_db.offsets
+        # concatenated masked target residues (the engine's rescore
+        # input); masking keeps lengths (Masker semantics)
+        with trace.span("prefilter.index_mask"):
+            if mask:
+                ratio = self.seed.prob / (self.seed.p_back[:, None]
+                                          * self.seed.p_back[None, :])
+                self.t_data = tantan_mask_batch(target_db.seq_data, offsets,
+                                                ratio, X_INDEX)
+            else:
+                self.t_data = target_db.seq_data[
+                    offsets[0]:offsets[-1]].astype(np.uint8)
+        self.t_offsets = (offsets[:-1] - offsets[0]).astype(np.int64)
         # native parallel build (IndexBuilder::fillDatabase analog);
         # emits postings in (kmer, seq, pos) order.  The posting-range
-        # structure is a compact
-        # hash + occupancy bitmap, NOT a dense 20^6 offset table: two
-        # 256 MB fresh tables per process cost seconds of first-touch
-        # page faults on the target host.
+        # structure is a compact hash + occupancy bitmap, NOT a dense
+        # 20^6 offset table: two 256 MB fresh tables per process cost
+        # seconds of first-touch page faults on the target host.
         from ..native import build_kmer_index
-        km, sid, pos = build_kmer_index(
-            self.t_data, self.t_offsets, lens.astype(np.int32),
-            np.diagonal(self.seed.sub_int).astype(np.int32),
-            X_INDEX, self.kmer_thr, kmer_size=self.kmer_size,
-            pattern=self.pattern)
-        self.kmers = km.astype(np.int64)
-        self.seq_ids = sid
-        self.positions = pos
+        with trace.span("prefilter.index_postings") as sp:
+            (self.kmers, self.seq_ids, self.positions,
+             threads) = build_kmer_index(
+                self.t_data, self.t_offsets, target_db.lengths,
+                np.diagonal(self.seed.sub_int).astype(np.int32),
+                X_INDEX, self.kmer_thr, kmer_size=self.kmer_size,
+                pattern=self.pattern)
+            sp.attrs.update(postings=len(self.kmers), threads=threads)
         self._finish_hash()
+
+    @property
+    def masked(self) -> list[np.ndarray]:
+        """Each target's masked residues: views into `t_data`."""
+        bounds = np.append(self.t_offsets, len(self.t_data))
+        return [self.t_data[bounds[i]:bounds[i + 1]]
+                for i in range(len(self.t_offsets))]
 
     def _finish_hash(self) -> None:
         # compact posting-range hash + occupancy bitmap for the native
         # match engine
         from ..native import build_kmer_hash
-        self.hkeys, self.hoff, self.hcnt, self.occupied = build_kmer_hash(
-            self.kmers.astype(np.int32), SEED_ALPHA ** self.kmer_size)
+        with trace.span("prefilter.index_hash") as sp:
+            (self.hkeys, self.hoff, self.hcnt, self.occupied,
+             unique) = build_kmer_hash(self.kmers,
+                                       SEED_ALPHA ** self.kmer_size)
+            sp.attrs.update(unique_kmers=unique)
 
     # -- persistence (the PrefilteringIndexReader analog,
     #    lib/mmseqs/src/prefiltering/PrefilteringIndexReader.cpp): the
@@ -285,7 +298,7 @@ class KmerIndex:
         np.savez(path, version=self.FORMAT_VERSION, kmer_thr=self.kmer_thr,
                  kmer_size=self.kmer_size,
                  n_seqs=self.tdb.size, total_res=self.tdb.total_residues,
-                 kmers=self.kmers.astype(np.int32),
+                 kmers=self.kmers,
                  seq_ids=self.seq_ids, positions=self.positions,
                  t_data=self.t_data, t_offsets=self.t_offsets)
 
@@ -313,10 +326,7 @@ class KmerIndex:
                         else KMER_PATTERNS[kmer_size])
         self.t_data = z["t_data"]
         self.t_offsets = z["t_offsets"]
-        bounds = np.concatenate((self.t_offsets, [len(self.t_data)]))
-        self.masked = [self.t_data[bounds[i]:bounds[i + 1]]
-                       for i in range(target_db.size)]
-        self.kmers = z["kmers"].astype(np.int64)
+        self.kmers = z["kmers"]
         self.seq_ids = z["seq_ids"]
         self.positions = z["positions"]
         self._finish_hash()

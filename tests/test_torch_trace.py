@@ -32,6 +32,9 @@ NESTED = [
     ("clustersearch", None),
     ("clustersearch.open_db", "clustersearch"),
     ("prefilter.index_build", "clustersearch"),
+    ("prefilter.index_mask", "prefilter.index_build"),
+    ("prefilter.index_postings", "prefilter.index_build"),
+    ("prefilter.index_hash", "prefilter.index_build"),
     ("prefilter.index_save", "prefilter.index_build"),
     ("align", "clustersearch"),
     ("align.setup", "align"),
@@ -178,6 +181,28 @@ def test_matcher_runs_on_its_own_thread(jobs):
     assert all(s[1] == main for s in _named(rec, "prefilter.wait"))
     search = _named(rec, "clustersearch")[0]
     assert all(_within(s, search) for s in match)
+
+
+# the target index's phases, and the attrs each carries
+INDEX_PHASES = [("prefilter.index_mask", set()),
+                ("prefilter.index_postings", {"postings", "threads"}),
+                ("prefilter.index_hash", {"unique_kmers"})]
+
+
+@pytest.mark.parametrize("name,attrs", INDEX_PHASES)
+def test_index_phase_spans(jobs, name, attrs):
+    """One span of each phase of the index build, in the order the phases
+    run, with its attrs: the postings and the OpenMP team, the unique
+    k-mers."""
+    _d, rec, _f = jobs["on"]
+    (s,) = _named(rec, name)
+    assert set(s[4]) == attrs
+    assert all(isinstance(v, int) and v > 0 for v in s[4].values())
+    starts = [_named(rec, n)[0][2] for n, _a in INDEX_PHASES]
+    assert starts == sorted(starts)
+    if name == "prefilter.index_hash":
+        (post,) = _named(rec, "prefilter.index_postings")
+        assert s[4]["unique_kmers"] <= post[4]["postings"]
 
 
 @pytest.mark.parametrize("name", ["prefilter.match", "prefilter.wait",
@@ -370,6 +395,10 @@ def test_structure_search_spans(tmp_path):
         assert all(_within(s, align) for s in _named(rec, name))
     assert all(_within(s, _named(rec, "structure.match")[0])
                for s in _named(rec, "prefilter.match"))
+    (index,) = _named(rec, "structure.index")
+    for name, attrs in INDEX_PHASES:
+        (s,) = _named(rec, name)
+        assert _within(s, index) and set(s[4]) == attrs
 
 
 def test_sharded_engine_spans():
