@@ -33,7 +33,7 @@ the kernels line, the card and the result.
                 Then K1's and K2's block paths (sw_forward's and
                 sw_reverse's long pairs on sw_forward_shards_block /
                 sw_reverse_shards_block) with every pair forced onto them
-                at each width W and class R, on the batch's forward and
+                at each class R, on the batch's forward and
                 reverse jobs and on block_edge_batch (forward on its whole
                 pairs, the planted ties where the design puts them;
                 reverse on whole pairs and prefixes), and the engine's
@@ -111,7 +111,7 @@ the kernels line, the card and the result.
                 as profile rows, noise off the planted pairs), as in
                 phase 3.  Then the profile reverse stage's block path
                 (sw_reverse_prof_block) with every pair forced onto it at
-                each width W and class R, on the batch's reverse jobs and on
+                each class R, on the batch's reverse jobs and on
                 block_edge_batch_prof (whole pairs and prefixes), and the
                 engine's mixed plan (long pairs on the block path, the rest
                 on the warp kernel) through sw_reverse_prof; all six
@@ -177,16 +177,16 @@ the kernels line, the card and the result.
                 (each shard's first and last target and its giant genes
                 among the pairs) through enqueue / flush / collect, forward
                 and reverse, planned as the engine plans and forced onto
-                the block path at every width W and class R, then without
-                shard 0's pairs, every shard equal to the plain version;
+                the block path at every class R, then without shard 0's
+                pairs, every shard equal to the plain version;
                 block_edge_batch (ties on strip boundaries of different
-                warps, gaps through the ring) at every W and R, all six
-                outputs equal; and the largest sharded stage of each
-                direction again: its wall on the card, the long-pair
-                launch, the short launch and the card's dispatch, at the
-                engine's W and at each W, against the plain version (the
-                long and the short pairs apart), and the stage's longest
-                pair alone on one warp and on the block path at each W;
+                warps, gaps through the ring) at every R, all six outputs
+                equal; and the largest sharded stage of each direction
+                again: its wall on the card, the long-pair launch, the
+                short launch and the card's dispatch, against the plain
+                version (the long and the short pairs apart), and the
+                stage's longest pair alone on one warp and on the block
+                path;
  17. multihost -- the real set as 2 worker processes of 2 target shards,
                 all on the one card (parallel/multihost.py, a gloo group):
                 equal to torch_port_real.json, each rank launching the
@@ -216,9 +216,9 @@ the kernels line, the card and the result.
                 longest pair alone and what the classes of query rows per
                 lane buy.  For each stage of K1, K2 and B10 reverse also
                 the card's fork to join with the block launch and the
-                short launch beside each other, at each width W; the stage
-                on the warp kernel alone in one launch; its longest pair on
-                one warp and on a block at each W.  And the forward stages
+                short launch beside each other; the stage on the warp
+                kernel alone in one launch; its longest pair on one warp
+                and on a block.  And the forward stages
                 of the small slice and of the toolkit's searches on the
                 small sets (masked rounds among them): the wrapper's route
                 beside the warp kernel alone in one launch.
@@ -279,40 +279,45 @@ INT32_PER_S = 67e12 / 4
 # moves, shuffles) is its own cost and stands outside the bound.
 CELL_INT32 = {"fwd": 10, "rev": 12, "fwd_struct": 12, "rev_struct": 14,
               "fwd_prof": 8, "rev_prof": 10}
-# direction -> (wrapper, replaced TPU kernel / device program, launch
-# counter)
+# direction -> its stage's (cell, reverse?) in the port's one table of
+# C entry points (ops/sw_cuda.py::ENTRIES), and the TPU kernel or device
+# program its kernel replaces
 KERNELS = {
-    "fwd": ("sw_forward", "spacedust_tpu/ops/sw_pallas.py:41",
-            "FORWARD_LAUNCHES"),
-    "rev": ("sw_reverse", "spacedust_tpu/ops/sw_pallas.py:147",
-            "REVERSE_LAUNCHES"),
-    "fwd_struct": ("sw_forward_struct", STRUCT_REPLACES,
-                   "FORWARD_STRUCT_LAUNCHES"),
-    "rev_struct": ("sw_reverse_struct", STRUCT_REPLACES,
-                   "REVERSE_STRUCT_LAUNCHES"),
-    "fwd_prof": ("sw_forward_prof", "spacedust_tpu/ops/sw.py:125",
-                 "FORWARD_PROF_LAUNCHES"),
-    "rev_prof": ("sw_reverse_prof", "spacedust_tpu/ops/sw.py:137",
-                 "REVERSE_PROF_LAUNCHES")}
+    "fwd": (("seq", False), "spacedust_tpu/ops/sw_pallas.py:41"),
+    "rev": (("seq", True), "spacedust_tpu/ops/sw_pallas.py:147"),
+    "fwd_struct": (("struct", False), STRUCT_REPLACES),
+    "rev_struct": (("struct", True), STRUCT_REPLACES),
+    "fwd_prof": (("prof", False), "spacedust_tpu/ops/sw.py:125"),
+    "rev_prof": (("prof", True), "spacedust_tpu/ops/sw.py:137")}
 # the target-sharded stage (B8): its four kernels, the short pairs' and
-# the block path's of each direction -> (wrapper's C entry point, launch
-# counter)
-B8_KERNELS = {
-    "fwd_shards": ("sw_forward_shards", "FORWARD_SHARDS_LAUNCHES"),
-    "fwd_block": ("sw_forward_shards_block", "FORWARD_BLOCK_LAUNCHES"),
-    "rev_shards": ("sw_reverse_shards", "REVERSE_SHARDS_LAUNCHES"),
-    "rev_block": ("sw_reverse_shards_block", "REVERSE_BLOCK_LAUNCHES")}
+# the block path's of each direction
+B8_KERNELS = ("fwd_shards", "fwd_block", "rev_shards", "rev_block")
 # the block paths of the single engines' stages (their long pairs; K1,
-# K2 and B10 reverse): the stage's direction -> (key of the counts, C
-# entry point, launch counter)
-BLOCKS = {"fwd": ("fwd_seq_block", "sw_forward_shards_block",
-                  "FORWARD_SEQ_BLOCK_LAUNCHES"),
-          "rev": ("rev_seq_block", "sw_reverse_shards_block",
-                  "REVERSE_SEQ_BLOCK_LAUNCHES"),
-          "rev_prof": ("rev_prof_block", "sw_reverse_prof_block",
-                       "REVERSE_PROF_BLOCK_LAUNCHES")}
+# K2 and B10 reverse): the stage's direction -> key of the counts
+BLOCKS = {"fwd": "fwd_seq_block", "rev": "rev_seq_block",
+          "rev_prof": "rev_prof_block"}
 PROF_COLS = 21          # profile columns a residue (20 amino acids and X)
 GATHER = "spacedust_tpu/ops/sw_engine.py:82"     # fused into the kernels
+
+
+def stage_of(key: str) -> tuple:
+    """The (cell, reverse?) of ENTRIES of a direction of KERNELS or of a
+    key of B8_KERNELS."""
+    return (KERNELS[key][0] if key in KERNELS
+            else ("shards", key.startswith("rev")))
+
+
+def entry_point(key: str) -> str:
+    """The C entry point of a key of the counts, read from ENTRIES: of a
+    direction of KERNELS its warp kernel's (whose wrapper has its name),
+    of B8_KERNELS the short or the block kernel's, of a key of BLOCKS the
+    block path's."""
+    from spacedust_tpu_torch.ops.sw_cuda import ENTRIES
+    if key in BLOCKS.values():
+        d = next(d for d, k in BLOCKS.items() if k == key)
+        return ENTRIES[stage_of(d)][1]
+    return ENTRIES[stage_of(key.replace("_block", "_shards"))][
+        key.endswith("_block")]
 
 
 def fail(msg: str) -> None:
@@ -836,6 +841,43 @@ def plain(d: str):
     return lambda *args: ref(*args, reverse=d.startswith("rev"))
 
 
+def check_plan(key: str, js: np.ndarray, dev: torch.device,
+               force: bool | None = None, rows: int | None = None):
+    """The plan of a stage of direction `key` (KERNELS or B8_KERNELS'
+    "fwd_shards" / "rev_shards") on card dev as the checks make it
+    (sw_cuda.shard_plan): force True puts every pair on the block path,
+    False every pair on the warp kernel (one launch unless the scratch
+    bound cuts it), None as the wrappers plan; rows, one class for every
+    pair."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    cell, reverse = stage_of(key)
+    return sw_cuda.shard_plan(js, cell, reverse, force, rows,
+                              card_warps=sw_cuda.card_warps(dev))
+
+
+def launch_plan(key: str, resident, plan, go: int, ge: int,
+                events: dict | None = None, targets=None):
+    """A plan of check_plan through sw_cuda's one launcher, with the
+    wrapper's resident tensors (K1's and K2's block path reads `targets`,
+    their one-tensor ShardTargets; made here when the plan needs it)."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    cell, reverse = stage_of(key)
+    block = None
+    if cell == "seq" and plan.n_long:
+        q, b, t, s = resident
+        block = (q, b, targets or sw_cuda.ShardTargets([t]), s)
+    return sw_cuda.launch(cell, reverse, tuple(resident), plan, go, ge,
+                          events, block)
+
+
+def planned(key: str, resident, js: np.ndarray, go: int, ge: int,
+            force: bool | None = None, rows: int | None = None,
+            events: dict | None = None, targets=None):
+    """check_plan, then launch_plan."""
+    plan = check_plan(key, js, resident[0].device, force, rows)
+    return launch_plan(key, resident, plan, go, ge, events, targets)
+
+
 def check_batch(tag: str, resident: list, jobs: np.ndarray, go: int,
                 dirs: tuple, errs: dict) -> None:
     """Each kernel of dirs (forward, then reverse on the forward's
@@ -844,7 +886,7 @@ def check_batch(tag: str, resident: list, jobs: np.ndarray, go: int,
     fwd = None
     for d in dirs:
         js = jobs if fwd is None else reverse_jobs(jobs, fwd)
-        fn = getattr(sw_cuda, KERNELS[d][0])
+        fn = getattr(sw_cuda, entry_point(d))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = fn(*resident, js, go, GE)
@@ -875,9 +917,9 @@ def check_edges(tables: list, errs: dict, cell: str = "seq",
     tables: [sub], the grid pairs' bias from bias_of when given),
     edge_batch_struct ("struct", tables: [m3di, aasc]) or edge_batch_prof
     ("prof", tables: [sub], from which the profile rows are made), on the
-    card, every pair forced into the class (a plan of one class, handed
-    to the wrappers' launcher); the planted ties where the design puts
-    them."""
+    card, every pair forced into the class on the warp kernel (a plan of
+    one class without the block path, handed to the wrappers' launcher);
+    the planted ties where the design puts them."""
     from spacedust_tpu_torch.ops import sw_cuda
     tabs = [m.cpu().numpy().astype(np.int32) for m in tables]
     d_fwd, d_rev, go, tag0 = {
@@ -897,9 +939,7 @@ def check_edges(tables: list, errs: dict, cell: str = "seq",
             res += tables
 
         def both(d, js, what):
-            reverse = d == d_rev
-            got = sw_cuda._launch_warp(reverse, res, sw_cuda.warp_plan(
-                js, sw_cuda.WARP_SCRATCH[reverse], rows=rows), go, GE)
+            got = planned(d, res, js, go, GE, force=False, rows=rows)
             ref = plain(d)(*res, js, go, GE)
             errs[d] = max(errs[d], compare(f"{tag} edges R={rows} {what}",
                                            got, ref))
@@ -993,8 +1033,8 @@ def check_block(d: str, sub: torch.Tensor, resident: list,
     sw_forward's / sw_reverse's long pairs on sw_forward_shards_block /
     sw_reverse_shards_block; "rev_prof", sw_reverse_prof's on
     sw_reverse_prof_block) against the plain version at tolerance 0: with
-    every pair forced onto it (the wrapper with force=True, rows=R) at
-    each compiled width W and class R, on the seeded batch's jobs of the
+    every pair forced onto it (check_plan(force=True, rows=R) through the
+    launcher) at each class R, on the seeded batch's jobs of the
     direction (its forward jobs, or the reverse jobs derived from them)
     and on block_edge_batch (its profile form for "rev_prof"): forward on
     its whole pairs, the planted ties where the design puts them (in the
@@ -1004,16 +1044,21 @@ def check_block(d: str, sub: torch.Tensor, resident: list,
     pairs on the block path, the rest on the warp kernel) through the
     public wrapper on the seeded batch's jobs of the direction."""
     from spacedust_tpu_torch.ops import sw_cuda
-    key, entry, counter = BLOCKS[d]
+    key = BLOCKS[d]
+    entry = entry_point(key)
     reverse = d.startswith("rev")
     d_fwd = "fwd" + d[3:]
     tag = tag or "kernels" + d[3:].replace("_", "-")
-    fwd_fn, fn = (getattr(sw_cuda, KERNELS[x][0]) for x in (d_fwd, d))
+    fwd_fn, fn = (getattr(sw_cuda, entry_point(x)) for x in (d_fwd, d))
     dev = sub.device
     tab = sub.cpu().numpy().astype(np.int32)
+    warps = sw_cuda.BLOCK_WARPS
 
-    def held(res, js, what, ref=None, **kw):
-        got = fn(*res, js, GO, GE, **kw)
+    def held(res, js, what, ref=None, rows=None, events=None):
+        # rows: every pair forced onto the block path at that class;
+        # None: the wrapper's own plan
+        got = (fn(*res, js, GO, GE, events=events) if rows is None else
+               planned(d, res, js, GO, GE, force=True, rows=rows))
         if ref is None:
             ref = plain(d)(*res, js, GO, GE)
         errs[key] = max(errs[key], compare(what, got, ref))
@@ -1029,52 +1074,47 @@ def check_block(d: str, sub: torch.Tensor, resident: list,
         djobs = jobs
     dref = plain(d)(*resident, djobs, GO, GE)
     t0 = time.perf_counter()
-    for warps in sw_cuda.BLOCK_WARP_CHOICES:
-        for rows in sw_cuda.LANE_ROWS:
-            forced = {"warps": warps, "force": True, "rows": rows}
-            held(resident, djobs, f"{tag} block W={warps} R={rows}", dref,
-                 **forced)
-            if d == "rev_prof":
-                arrays, ejobs, expect = block_edge_batch_prof(rows, warps,
-                                                              tab)
-                res = [torch.from_numpy(a).to(dev) for a in arrays]
-            else:
-                *arrays, ejobs, expect = block_edge_batch(rows, warps, tab)
-                res = [torch.from_numpy(a).to(dev) for a in arrays] + [sub]
-            what = f"{tag} block edges W={warps} R={rows}"
-            efwd = (fwd_fn(*res, ejobs, GO, GE) if reverse else
-                    held(res, ejobs, f"{what} whole", **forced)).cpu().numpy()
-            for p, want in expect.items():
-                if tuple(efwd[:3, p]) != want:
-                    fail(f"{what}: planted tie {p} gave "
-                         f"{tuple(efwd[:3, p])}, the design says {want}")
-            if not reverse:
-                continue
-            whole = ejobs.copy()
-            whole[4] = efwd[0]
-            for js, part in ((whole, "whole"),
-                             (reverse_jobs(ejobs, efwd), "prefix")):
-                held(res, js, f"{what} {part}", **forced)
+    for rows in sw_cuda.LANE_ROWS:
+        held(resident, djobs, f"{tag} block R={rows}", dref, rows)
+        if d == "rev_prof":
+            arrays, ejobs, expect = block_edge_batch_prof(rows, warps, tab)
+            res = [torch.from_numpy(a).to(dev) for a in arrays]
+        else:
+            *arrays, ejobs, expect = block_edge_batch(rows, warps, tab)
+            res = [torch.from_numpy(a).to(dev) for a in arrays] + [sub]
+        what = f"{tag} block edges R={rows}"
+        efwd = (fwd_fn(*res, ejobs, GO, GE) if reverse else
+                held(res, ejobs, f"{what} whole", rows=rows)).cpu().numpy()
+        for p, want in expect.items():
+            if tuple(efwd[:3, p]) != want:
+                fail(f"{what}: planted tie {p} gave "
+                     f"{tuple(efwd[:3, p])}, the design says {want}")
+        if not reverse:
+            continue
+        whole = ejobs.copy()
+        whole[4] = efwd[0]
+        for js, part in ((whole, "whole"),
+                         (reverse_jobs(ejobs, efwd), "prefix")):
+            held(res, js, f"{what} {part}", rows=rows)
     kind = "reverse" if reverse else "forward"
-    print(f"[{tag}] {entry} ({KERNELS[d][0]}'s block path), every pair "
-          f"forced onto it at W = {sw_cuda.BLOCK_WARP_CHOICES} and every "
-          f"class: {djobs.shape[1]} {kind} pairs of the seeded batch and "
-          f"the block edge batch ("
+    print(f"[{tag}] {entry} ({entry_point(d)}'s block path), every pair "
+          f"forced onto it at W = {warps} and every class: "
+          f"{djobs.shape[1]} {kind} pairs of the seeded batch and the block "
+          f"edge batch ("
           + ("whole pairs and prefixes, " if reverse else "whole pairs, ")
           + f"planted ties where the design puts them), all six outputs "
           f"equal ({time.perf_counter() - t0:.1f} s)")
     ev: dict = {}
-    before = getattr(sw_cuda, counter)
+    before = sw_cuda.LAUNCHES[entry]
     held(resident, djobs, f"{tag} mixed plan", dref, events=ev)
     n_long = ev["n_long"]
     if not (0 < n_long < djobs.shape[1]) or \
-            getattr(sw_cuda, counter) != before + 1:
+            sw_cuda.LAUNCHES[entry] != before + 1:
         fail(f"{tag}: the mixed plan put {n_long} of {djobs.shape[1]} "
              f"pairs on the block path")
-    print(f"[{tag}] {KERNELS[d][0]}, the engine's plan: {n_long} of "
-          f"{djobs.shape[1]} pairs on the block path (W = "
-          f"{sw_cuda.BLOCK_WARPS}), the rest on the warp kernel, all six "
-          f"outputs equal")
+    print(f"[{tag}] {entry_point(d)}, the engine's plan: {n_long} of "
+          f"{djobs.shape[1]} pairs on the block path (W = {warps}), the "
+          f"rest on the warp kernel, all six outputs equal")
 
 
 def check_masked_engine(sub: torch.Tensor, arrays: tuple, jobs: np.ndarray,
@@ -1114,7 +1154,7 @@ def check_masked_engine(sub: torch.Tensor, arrays: tuple, jobs: np.ndarray,
         if err > TOL:
             fail(f"kernels with_targets: the split {d} stage over the "
                  f"masked targets != plain (max abs err {err})")
-        key = BLOCKS[d][0]
+        key = BLOCKS[d]
         errs[key] = max(errs[key], err)
         m = view.metrics
         if m[f"{d}_block_launches"] != 1 or m[f"{d}_launches"] != 2 or \
@@ -1172,10 +1212,14 @@ def small_slice(work: Path, small: list) -> None:
 
 
 def read_counts() -> dict:
+    """The launches sw_cuda.LAUNCHES has counted, under the keys of
+    KERNELS, B8_KERNELS and BLOCKS (B8's block kernels and those of K1's
+    and K2's block paths are one entry point each: a run of the sharded
+    engine counts its block launches under both keys, one of the single
+    engine under both too)."""
     from spacedust_tpu_torch.ops import sw_cuda
-    return {**{d: getattr(sw_cuda, k[2]) for d, k in KERNELS.items()},
-            **{d: getattr(sw_cuda, k[1]) for d, k in B8_KERNELS.items()},
-            **{k[0]: getattr(sw_cuda, k[2]) for k in BLOCKS.values()}}
+    return {k: sw_cuda.LAUNCHES[entry_point(k)]
+            for k in (*KERNELS, *B8_KERNELS, *BLOCKS.values())}
 
 
 def unlaunched(launched: dict, need: tuple, block: tuple = ()) -> list:
@@ -1187,11 +1231,10 @@ def unlaunched(launched: dict, need: tuple, block: tuple = ()) -> list:
     launched their block path itself."""
     missed = []
     for d in need:
-        key = BLOCKS[d][0] if d in BLOCKS else None
+        key = BLOCKS.get(d)
         if launched[d] + (launched[key] if key else 0) <= 0:
             missed.append(d if key is None else f"{d} or {key}")
-    return missed + [BLOCKS[d][0] for d in block
-                     if launched[BLOCKS[d][0]] <= 0]
+    return missed + [BLOCKS[d] for d in block if launched[BLOCKS[d]] <= 0]
 
 
 def prof_unlaunched(launched: dict, block: tuple = ()) -> list:
@@ -1208,7 +1251,7 @@ def recording(stages: dict, dirs: tuple):
     way to the wrapper (the wrappers are looked up at dispatch), and under
     "DIR_all" those of every stage of the direction, in dispatch order."""
     from spacedust_tpu_torch.ops import sw_cuda
-    saved = {d: getattr(sw_cuda, KERNELS[d][0]) for d in dirs}
+    saved = {d: getattr(sw_cuda, entry_point(d)) for d in dirs}
 
     def recorded(d, fn):
         def call(*args, **kw):
@@ -1220,12 +1263,12 @@ def recording(stages: dict, dirs: tuple):
         return call
 
     for d, fn in saved.items():
-        setattr(sw_cuda, KERNELS[d][0], recorded(d, fn))
+        setattr(sw_cuda, entry_point(d), recorded(d, fn))
     try:
         yield
     finally:
         for d, fn in saved.items():
-            setattr(sw_cuda, KERNELS[d][0], fn)
+            setattr(sw_cuda, entry_point(d), fn)
 
 
 def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
@@ -1252,7 +1295,7 @@ def real_slice(work: Path, dev: torch.device) -> tuple[dict, dict]:
 
     stages: dict = {}
     with recording(stages, ("fwd", "rev")):
-        sw_cuda.reset_counts()
+        sw_cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
         res = cluster_search_to_file(
             db, db, str(work / f"{size}.tsv"),
@@ -1355,7 +1398,7 @@ def struct_run(work: Path, dev: torch.device, size: str,
     t_ingest = time.perf_counter() - t0
     tmp = work / f"struct_{size}_tmp"
     with recording(stages, ("fwd_struct", "rev_struct")):
-        sw_cuda.reset_counts()
+        sw_cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
         res = cluster_search_to_file(
             db, db, str(work / f"struct_{size}.tsv"), str(tmp),
@@ -1439,7 +1482,7 @@ def check_masked_targets(sub: torch.Tensor, errs: dict) -> None:
     fwd = None
     for d in ("fwd", "rev"):
         js = jobs if fwd is None else reverse_jobs(jobs, fwd)
-        got = getattr(sw_cuda, KERNELS[d][0])(*res, js, GO, GE)
+        got = getattr(sw_cuda, entry_point(d))(*res, js, GO, GE)
         ref = plain(d)(*res, js, GO, GE)
         errs[d] = max(errs[d], compare(f"toolkit masked targets {d}", got,
                                        ref))
@@ -1519,7 +1562,7 @@ def toolkit_real(work: Path) -> dict:
     runs = {}
     for tag, flags in (("base", []), ("alt", ["--alt-ali", str(ALT_ALI)])):
         out = work / f"tk_real_{tag}.tsv"
-        sw_cuda.reset_counts()
+        sw_cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
         text = run_cli(["search", db, db, str(out), *flags, "--device",
                         "cuda"])
@@ -1577,7 +1620,7 @@ def toolkit_real(work: Path) -> dict:
             fail(f"toolkit real: the alternative records of {key} overlap")
     # a round's stage: its warp kernel, its block path or both
     extra = {d: sum(launches[k] - base_launches[k]
-                    for k in (d, BLOCKS[d][0])) for d in ("fwd", "rev")}
+                    for k in (d, BLOCKS[d])) for d in ("fwd", "rev")}
     alt = detail["alt_detail"]
     if not all(1 <= n <= 2 * ALT_ALI for n in extra.values()):
         fail(f"toolkit real: the masked rounds launched {extra} beyond the "
@@ -1696,7 +1739,7 @@ def profile_real(work: Path, dev: torch.device) -> tuple[dict, dict]:
     tmp = work / "prof_real_tmp"
     stages: dict = {}
     with recording(stages, ("fwd_prof", "rev_prof")):
-        sw_cuda.reset_counts()
+        sw_cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
         cm: dict = {}
         cdb = cluster_db(db, device=dev, metrics=cm)
@@ -1862,7 +1905,7 @@ def iterative_real(work: Path) -> dict:
     iterative.PrefilterEngine = Measured
     try:
         rss0, peak0 = rss_mb(), peak_rss_mb()
-        sw_cuda.reset_counts()
+        sw_cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
         text = run_cli(["search", db_path, db_path, str(out),
                         "--num-iterations", "2", "--device", "cuda"],
@@ -1974,7 +2017,7 @@ def split_phase(work: Path, dev: torch.device) -> dict:
     if not 3 <= n_split <= 4:
         fail(f"split: {SPLIT_BUDGET_REAL} bytes make {n_split} splits of the "
              f"real set, not 3-4")
-    sw_cuda.reset_counts()
+    sw_cuda.LAUNCHES.clear()
     t0 = time.perf_counter()
     res = cluster_search_to_file(
         rdb, rdb, str(work / "split_real.tsv"),
@@ -2059,58 +2102,67 @@ def recording_flushes(stages: dict):
 
 
 def check_block_edges(sub: torch.Tensor, errs: dict) -> None:
-    """The block path at every compiled width W and class R on
-    block_edge_batch (targets cut into two shards), every pair forced
-    onto it (sw_cuda.shard_plan(force=True, rows=R), handed to the
-    wrappers' launcher): forward with the planted ties where the design
-    puts them, reverse on the same pairs (terminate = their score) and on
-    the derived prefixes, all six outputs equal to the plain version."""
+    """The block path at every class R on block_edge_batch (targets cut
+    into two shards), every pair forced onto it (check_plan(force=True,
+    rows=R), handed to the wrappers' launcher): forward with the planted
+    ties where the design puts them, reverse on the same pairs (terminate
+    = their score) and on the derived prefixes, all six outputs equal to
+    the plain version."""
     from spacedust_tpu_torch.ops import sw_cuda
     from spacedust_tpu_torch.ops.sw import sw_shards_jobs_ref
     dev = sub.device
     tab = sub.cpu().numpy().astype(np.int32)
-    for warps in sw_cuda.BLOCK_WARP_CHOICES:
-        for rows in sw_cuda.LANE_ROWS:
-            q, b, t, jobs, expect = block_edge_batch(rows, warps, tab)
-            tparts, js = two_shards(t, jobs)
-            qd, bd = (torch.from_numpy(a).to(dev) for a in (q, b))
-            targets = sw_cuda.ShardTargets(
-                [torch.from_numpy(x).to(dev) for x in tparts])
+    for rows in sw_cuda.LANE_ROWS:
+        q, b, t, jobs, expect = block_edge_batch(rows, sw_cuda.BLOCK_WARPS,
+                                                 tab)
+        tparts, js = two_shards(t, jobs)
+        qd, bd = (torch.from_numpy(a).to(dev) for a in (q, b))
+        targets = sw_cuda.ShardTargets(
+            [torch.from_numpy(x).to(dev) for x in tparts])
 
-            def both(reverse, js6, what):
-                d = "rev_block" if reverse else "fwd_block"
-                got = sw_cuda._launch_split(
-                    reverse, (qd, bd, targets, sub),
-                    sw_cuda.shard_plan(js6, reverse, warps, force=True,
-                                       rows=rows,
-                                       card_warps=sw_cuda.card_warps(dev)),
-                    GO, GE, warps=warps)
-                ref = sw_shards_jobs_ref(qd, bd, targets.tensors, sub, js6,
-                                         GO, GE, reverse)
-                errs[d] = max(errs[d], compare(
-                    f"block edges W={warps} R={rows} {what}", got, ref))
-                return got.cpu().numpy()
+        def both(reverse, js6, what):
+            d = "rev" if reverse else "fwd"
+            got = planned(f"{d}_shards", (qd, bd, targets, sub), js6, GO,
+                          GE, force=True, rows=rows)
+            ref = sw_shards_jobs_ref(qd, bd, targets.tensors, sub, js6, GO,
+                                     GE, reverse)
+            errs[f"{d}_block"] = max(errs[f"{d}_block"], compare(
+                f"block edges R={rows} {what}", got, ref))
+            return got.cpu().numpy()
 
-            fwd = both(False, js, "fwd")
-            for p, want in expect.items():
-                if tuple(fwd[:3, p]) != want:
-                    fail(f"block edges W={warps} R={rows}: planted tie {p} "
-                         f"gave {tuple(fwd[:3, p])}, the design says {want}")
-            whole = js.copy()
-            whole[4] = fwd[0]
-            keep = np.nonzero(fwd[0] > 0)[0]
-            derived = js[:, keep].copy()
-            derived[1], derived[3], derived[4] = (fwd[2, keep] + 1,
-                                                  fwd[1, keep] + 1,
-                                                  fwd[0, keep])
-            both(True, whole, "rev whole")
-            got = both(True, np.ascontiguousarray(derived), "rev prefix")
-            if not got[3].all():
-                fail(f"block edges W={warps} R={rows}: a prefix job missed "
-                     f"its terminate score")
-        print(f"[sharded] block path W={warps}: every class on "
-              f"{jobs.shape[1]} edge pairs over two shards ({len(expect)} "
-              f"planted), forward and reverse, all six outputs equal")
+        fwd = both(False, js, "fwd")
+        for p, want in expect.items():
+            if tuple(fwd[:3, p]) != want:
+                fail(f"block edges R={rows}: planted tie {p} gave "
+                     f"{tuple(fwd[:3, p])}, the design says {want}")
+        whole = js.copy()
+        whole[4] = fwd[0]
+        keep = np.nonzero(fwd[0] > 0)[0]
+        derived = js[:, keep].copy()
+        derived[1], derived[3], derived[4] = (fwd[2, keep] + 1,
+                                              fwd[1, keep] + 1,
+                                              fwd[0, keep])
+        both(True, whole, "rev whole")
+        got = both(True, np.ascontiguousarray(derived), "rev prefix")
+        if not got[3].all():
+            fail(f"block edges R={rows}: a prefix job missed its terminate "
+                 f"score")
+    print(f"[sharded] block path W={sw_cuda.BLOCK_WARPS}: every class on "
+          f"{jobs.shape[1]} edge pairs over two shards ({len(expect)} "
+          f"planted), forward and reverse, all six outputs equal")
+
+
+@contextlib.contextmanager
+def forced_plans(**forced):
+    """Every stage planned inside the block with `forced` (shard_plan's
+    force and rows): the checks' plans through the engines' own path."""
+    from spacedust_tpu_torch.ops import sw_cuda
+    plan = sw_cuda.shard_plan
+    sw_cuda.shard_plan = lambda *a, **kw: plan(*a, **kw, **forced)
+    try:
+        yield
+    finally:
+        sw_cuda.shard_plan = plan
 
 
 def shard_edge_grid(db, shards, rng, per_shard: int = 48) -> np.ndarray:
@@ -2144,16 +2196,14 @@ def check_shard_grid(sdb, db, shards, errs: dict) -> int:
     reverse from the forward end points, each shard's results against the
     plain version over that shard's own resident tensors: planned as the
     engine plans, then with every pair forced onto the block path at each
-    width W and class R.  Then, planned as the engine plans, without the
+    class R (forced_plans).  Then, planned as the engine plans, without the
     first shard's jobs, so that the shard on whose card's stream the
     stage is timed gets none.  Returns the pairs a shard."""
     from spacedust_tpu_torch.ops import sw_cuda
     rng = np.random.default_rng(SEED)
     grid = shard_edge_grid(db, shards, rng)
     n_sh, per = grid.shape[1:]
-    plans = [{}] + [dict(warps=w, force=True, rows=r)
-                    for w in sw_cuda.BLOCK_WARP_CHOICES
-                    for r in sw_cuda.LANE_ROWS]
+    plans = [{}] + [dict(force=True, rows=r) for r in sw_cuda.LANE_ROWS]
     err = 0
     for first in (0, 1):
         glob = grid[:, first:].copy()
@@ -2171,10 +2221,11 @@ def check_shard_grid(sdb, db, shards, errs: dict) -> int:
 
         refs = {}
         for kw in (plans if first == 0 else plans[:1]):
-            sdb.plan_kw = kw
-            fwd = run(fcols, False)
-            rcols = [fcols[0], fwd[2] + 1, fcols[2], fwd[1] + 1, fwd[0]]
-            rev = run(rcols, True)
+            with forced_plans(**kw):
+                fwd = run(fcols, False)
+                rcols = [fcols[0], fwd[2] + 1, fcols[2], fwd[1] + 1,
+                         fwd[0]]
+                rev = run(rcols, True)
             if not rev[3].all():
                 fail("sharded: a reverse job of the edge grid missed its "
                      f"terminate score ({kw})")
@@ -2195,7 +2246,6 @@ def check_shard_grid(sdb, db, shards, errs: dict) -> int:
                              f"({kw or 'the engine plan'}) differs from the "
                              f"plain version (max abs err {e})")
                     err = max(err, e)
-    sdb.plan_kw = {}
     for k in B8_KERNELS:
         errs[k] = max(errs[k], err)
     return per
@@ -2216,14 +2266,13 @@ def shard_cols(sdb, buf: list):
 
 def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
     """The largest sharded stage of direction d again, on the engine that
-    ran it: at the engine's width and at each compiled width W of the
-    block path, its wall on the card (the events round the stage, 3 runs
+    ran it: its wall on the card (the events round the stage, 3 runs
     after a warm one) and the long-pair launch, the short launch and the
     card's whole dispatch (the wrapper's events); outputs equal to the
     plain version (host clock, the long pairs and the short pairs apart,
     shard by shard); the stage's longest pair alone on one warp (the
-    single engine's kernel) and on the block path at each W.  Returns the
-    kernels line's entries of the stage's two kernels."""
+    single engine's kernel) and on the block path.  Returns the kernels
+    line's entries of the stage's two kernels."""
     from spacedust_tpu_torch.ops import sw_cuda
     from spacedust_tpu_torch.ops.sw import sw_shards_jobs_ref
     sdb, buf, go, ge, n = stage
@@ -2238,8 +2287,7 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
         return sdb.collect(sdb.enqueue(buf, go, ge, reverse)
                            + sdb.flush(go, ge, reverse))
 
-    def walls(kw):
-        sdb.plan_kw = kw
+    def walls():
         run()
         w0 = sdb._metrics["stage_wall_ms"]
         for _ in range(3):
@@ -2248,22 +2296,19 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
         evs = []
         for _ in range(3):
             ev: dict = {}
-            sw_cuda._run_shards(reverse, qdata, qbias, targets, sub, js, go,
-                                ge, ev, kw.get("warps", sw_cuda.BLOCK_WARPS),
-                                False, None)
+            getattr(sw_cuda, entry_point(f"{d}_shards"))(
+                qdata, qbias, targets, sub, js, go, ge, events=ev)
             evs.append(ev)
         torch.cuda.synchronize()
         ms = {k: sum(e[0].elapsed_time(e[1]) for e in (x[k] for x in evs))
               / 3 for k in ("card", "long", "short") if k in evs[0]}
-        sdb.plan_kw = {}
         return wall, ms
 
     got = np.zeros((6, n), np.int64)
     for p, c in run():
         got[:, p] = np.stack(c)
     got = got[:, pos]
-    plan = sw_cuda.shard_plan(js, reverse,
-                              card_warps=sw_cuda.card_warps(qdata.device))
+    plan = check_plan(f"{d}_shards", js, qdata.device)
     long_js = js[:, plan.order[:plan.n_long]]
     short_js = js[:, plan.order[plan.n_long:]]
     ref = np.zeros((6, n), np.int64)
@@ -2282,7 +2327,7 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
         fail(f"sharded {d} stage: kernels != plain (max abs err {err})")
     per = np.bincount(js[5], minlength=sdb.n_shards).tolist()
     b_ms, b_by = bound_ms(d, js[:5])
-    wall, ms = walls({})
+    wall, ms = walls()
     print(f"[sharded] {d} stage of the main path, {n} pairs over "
           f"{sdb.n_shards} shards ({per}), {cells(js) / 1e9:.3f} G cells, "
           f"{plan.n_long} on the block path (W={sw_cuda.BLOCK_WARPS}): wall "
@@ -2292,51 +2337,38 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
           f"shard by shard) {p_ms['long']:.2f} + {p_ms['short']:.2f} ms; "
           f"bound {b_ms:.2f} ms by {b_by} ({b_ms / wall:.1%} of it "
           f"reached); equal; {card}")
-    by_w = {}
-    for w in sw_cuda.BLOCK_WARP_CHOICES:
-        by_w[w] = walls({"warps": w})
-        print(f"[sharded] {d} stage at W={w}: wall {by_w[w][0]:.2f} ms; "
-              f"long-pair launch {by_w[w][1].get('long', 0):.2f} ms, short "
-              f"launch {by_w[w][1].get('short', 0):.2f} ms; {card}")
     # the same pairs on the single engine's wrapper over the shards'
     # targets as one array (global offsets)
     whole = torch.cat(targets.tensors)
     glob = js[:5].copy()
     glob[2] += sdb.tok_starts[js[5]]
-    k1_ms = launch_ms(getattr(sw_cuda, KERNELS[d][0]),
+    k1_ms = launch_ms(getattr(sw_cuda, entry_point(d)),
                       (qdata, qbias, whole, sub, glob, go, ge))
     print(f"[sharded] {d} stage's pairs on the single engine's "
-          f"{KERNELS[d][0]} (its stage as one shard, the long pairs on the "
+          f"{entry_point(d)} (its stage as one shard, the long pairs on the "
           f"block path), longest first: {k1_ms:.2f} ms; {card}")
     # the stage's longest pair (by cells) alone
     top = int(np.argmax(js[1] * js[3]))
     one = np.ascontiguousarray(js[:, top:top + 1])
     shard_res = (qdata, qbias, sdb.tparts[int(one[5, 0])], sub)
-    warp_ms = event_ms(lambda: sw_cuda._launch_warp(
-        reverse, shard_res, sw_cuda.warp_plan(
-            np.ascontiguousarray(one[:5]), sw_cuda.WARP_SCRATCH[reverse]),
-        go, ge))
-    block_ms = {w: event_ms(lambda w=w: sw_cuda._launch_split(
-        reverse, (qdata, qbias, targets, sub),
-        sw_cuda.shard_plan(one, reverse, w, force=True,
-                           card_warps=sw_cuda.card_warps(qdata.device)),
-        go, ge, warps=w))
-        for w in sw_cuda.BLOCK_WARP_CHOICES}
-    rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
-               for w in sw_cuda.BLOCK_WARP_CHOICES}
+    one_plan = check_plan(d, np.ascontiguousarray(one[:5]), qdata.device,
+                          force=False)
+    warp_ms = event_ms(lambda: launch_plan(d, shard_res, one_plan, go, ge))
+    block_plan = check_plan(f"{d}_shards", one, qdata.device, force=True)
+    block_ms = event_ms(lambda: launch_plan(
+        f"{d}_shards", (qdata, qbias, targets, sub), block_plan, go, ge))
     print(f"[sharded] {d} stage's longest pair ({int(one[1, 0])} x "
           f"{int(one[3, 0])}, {int(one[1, 0] * one[3, 0]) / 1e6:.1f} M "
-          f"cells) alone: one warp {warp_ms:.2f} ms; block path "
-          + ", ".join(f"W={w} (R={rows_of[w]}) {t:.2f} ms"
-                      for w, t in block_ms.items())
-          + f"; {card}")
+          f"cells) alone: one warp {warp_ms:.2f} ms; block path W="
+          f"{sw_cuda.BLOCK_WARPS} (R={int(sw_cuda.block_rows(one[1])[0])}) "
+          f"{block_ms:.2f} ms; {card}")
     out = []
     for kind, part, k_ms in (("block", long_js, ms.get("long")),
                              ("shards", short_js, ms.get("short"))):
         key = f"{d}_{kind}"
         pb_ms, pb_by = bound_ms(d, part[:5]) if part.shape[1] else (0.0, "-")
         out.append({
-            "name": B8_KERNELS[key][0], "route": "cuda",
+            "name": entry_point(key), "route": "cuda",
             "source": "spacedust_tpu_torch/csrc/sw.cu",
             "replaces": B8_REPLACES, "launches": None, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms["long" if kind == "block"
@@ -2347,10 +2379,9 @@ def time_sharded_stage(d: str, stage: tuple, card: str) -> list:
             "block_warps": sw_cuda.BLOCK_WARPS,
             "stage_wall_ms": wall, "stage_bound_ms": b_ms,
             "stage_share_of_bound": b_ms / wall,
-            "stage_wall_ms_by_warps": {w: v[0] for w, v in by_w.items()},
             "single_engine_ms": k1_ms,
             "longest_pair_one_warp_ms": warp_ms,
-            "longest_pair_block_ms_by_warps": block_ms,
+            "longest_pair_block_ms": block_ms,
             "pairs_per_shard": per})
     return out
 
@@ -2403,7 +2434,7 @@ def sharded_phase(work: Path, dev: torch.device, errs: dict,
 
     stages: dict = {}
     with recording_flushes(stages):
-        sw_cuda.reset_counts()
+        sw_cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
         res = pipeline.sharded_cluster_search(
             db, db, ClusterSearchParams(filter_self_match=True),
@@ -2460,7 +2491,7 @@ def sharded_phase(work: Path, dev: torch.device, errs: dict,
     print(f"[sharded] edge grid through enqueue / flush / collect: {n} "
           f"pairs a shard (its first and last target and its giant genes "
           f"among them), forward and reverse, planned as the engine plans "
-          f"and forced onto the block path at every width and class, and "
+          f"and forced onto the block path at every class, and "
           f"again without shard 0's pairs; every shard equal to the plain "
           f"version ({time.perf_counter() - t0:.1f} s)")
     check_block_edges(torch.from_numpy(mat.sub_int.astype(np.int8)).to(dev),
@@ -2493,17 +2524,16 @@ def multihost_phase(work: Path) -> dict:
                   tmp_dir=str(tmp), local_devices=2, device="cuda")
     t_run = time.perf_counter() - t0
     equal_to_real("multihost", out.read_text(), fx)
-    seq = [BLOCKS[d] for d in ("fwd", "rev")]
-    total = dict.fromkeys([*KERNELS, *B8_KERNELS, *(b[0] for b in seq)], 0)
+    keys = [*KERNELS, *B8_KERNELS, *BLOCKS.values()]
+    total = dict.fromkeys(keys, 0)
     for r in range(2):
         m = json.loads((tmp / f"metrics.{r}.json").read_text())
-        lc = {d: m["launches"][KERNELS[d][2]] for d in KERNELS}
-        lc.update({b[0]: m["launches"][b[2]] for b in seq})
-        ld = {k: m["launches"][v[1]] for k, v in B8_KERNELS.items()}
+        # the rank's sw_cuda.LAUNCHES, by C entry point
+        lc = {k: m["launches"].get(entry_point(k), 0) for k in keys}
+        ld = {k: lc[k] for k in B8_KERNELS}
         if ld["fwd_shards"] <= 0 or ld["rev_shards"] <= 0:
             fail(f"multihost: rank {r} did not launch the sharded stage's "
                  f"kernels: {ld}")
-        lc.update(ld)
         for d in total:
             total[d] += lc[d]
         ad = m["align_detail"]
@@ -2560,7 +2590,7 @@ def gff_phase(work: Path, dev: torch.device) -> dict:
         fail(f"gff: the real ingest's digest {got} differs from "
              f"torch_port_real_gff.json")
     tmp = work / "gff_real_tmp"
-    sw_cuda.reset_counts()
+    sw_cuda.LAUNCHES.clear()
     t0 = time.perf_counter()
     res = cluster_search_to_file(
         rdb, rdb, str(work / "gff_real.tsv"), str(tmp),
@@ -2687,12 +2717,11 @@ def stage_detail(d: str, args: tuple) -> None:
     (sw_cuda.STEP_OVERHEAD_CELLS is taken from these fits).  The engine hands a stage over longest pair first."""
     from spacedust_tpu_torch.ops import sw_cuda
     *resident, jobs, go, ge = args
-    reverse = d.startswith("rev")
 
     def ms(js, rows=None):
-        plan = sw_cuda.warp_plan(js, sw_cuda.WARP_SCRATCH[reverse], rows=rows)
-        return event_ms(lambda: sw_cuda._launch_warp(reverse, resident,
-                                                     plan, go, ge))
+        # on the warp kernel alone, as one launch
+        plan = check_plan(d, js, resident[0].device, force=False, rows=rows)
+        return event_ms(lambda: launch_plan(d, resident, plan, go, ge))
 
     rest = jobs[:, 32:]
     print(f"[timing] {d} stage: longest pair ({int(jobs[1, 0])} x "
@@ -2727,9 +2756,10 @@ def time_stages(stages: dict, launches: dict, errs: dict,
           f"instructions/s (132 SMs x 64 lanes x 1.98 GHz), HBM "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; instructions a cell "
           f"{CELL_INT32}")
-    for d, (name, replaces, _counter) in KERNELS.items():
+    for d, (_stage, replaces) in KERNELS.items():
         if d not in stages:
             continue
+        name = entry_point(d)
         fn = getattr(sw_cuda, name)
         every = stages.get(f"{d}_all", [stages[d]])
         timed = []
@@ -2798,17 +2828,16 @@ def time_block(d: str, every: list, launches: dict, errs: dict,
     B10 reverse), each stage of `every` (the main path's stages of the
     direction, the wrappers' arguments) all in this call: the card's
     fork-to-join ms of the wrapper, its block launch and its short launch
-    beside each other, at the wrappers' width and at each compiled width
-    W; the same stage on the warp kernel alone in one launch (the route
-    before the block path); the stage's longest pair alone on one warp and
-    on a block at each W; the block pairs' outputs against the plain
-    version (host clock).  Returns the kernels line's entry of the block
-    path: its launch ms, plain ms, bound, pairs and cells summed over the
-    stages, and each stage's numbers under "stages"."""
+    beside each other; the same stage on the warp kernel alone in one
+    launch (the route before the block path); the stage's longest pair
+    alone on one warp and on a block; the block pairs' outputs against
+    the plain version (host clock).  Returns the kernels line's entry of
+    the block path: its launch ms, plain ms, bound, pairs and cells summed
+    over the stages, and each stage's numbers under "stages"."""
     from spacedust_tpu_torch.ops import sw_cuda
-    key, entry, _counter = BLOCKS[d]
-    reverse = d.startswith("rev")
-    name = KERNELS[d][0]
+    key = BLOCKS[d]
+    entry = entry_point(key)
+    name = entry_point(d)
     fn = getattr(sw_cuda, name)
     err = errs[key]
     per_stage = []
@@ -2817,22 +2846,17 @@ def time_block(d: str, every: list, launches: dict, errs: dict,
         dev = resident[0].device
         kw = engine_kw(d, args)
 
-        def stage(js=jobs, **o):
-            return card_ms(lambda events: fn(*resident, js, go, ge,
-                                             events=events, **kw, **o))
+        def forced(js, force):
+            # the stage's launches alone, every pair on the block path
+            # (True) or on the warp kernel (False)
+            plan = check_plan(d, js, dev, force)
+            return card_ms(lambda events: launch_plan(
+                d, resident, plan, go, ge, events, **kw))["card"]
 
-        def on_warps(js):
-            return card_ms(lambda events: sw_cuda._launch_warp(
-                reverse, resident, sw_cuda.warp_plan(
-                    js, sw_cuda.WARP_SCRATCH[reverse]), go, ge,
-                events))["card"]
-
-        by_w = {w: stage(warps=w) for w in sw_cuda.BLOCK_WARP_CHOICES}
-        ms = by_w[sw_cuda.BLOCK_WARPS]
-        one_launch = on_warps(jobs)
-        p = sw_cuda.shard_plan(
-            np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]),
-            reverse, card_warps=sw_cuda.card_warps(dev))
+        ms = card_ms(lambda events: fn(*resident, jobs, go, ge,
+                                       events=events, **kw))
+        one_launch = forced(jobs, False)
+        p = check_plan(d, jobs, dev)
         cols = p.order[:p.n_long]
         long_js = np.ascontiguousarray(jobs[:, cols])
         got = fn(*args, **kw)[:, torch.from_numpy(cols).to(dev)]
@@ -2845,9 +2869,8 @@ def time_block(d: str, every: list, launches: dict, errs: dict,
                                ref))
         top = int(np.argmax(jobs[1] * jobs[3]))
         one = np.ascontiguousarray(jobs[:, top:top + 1])
-        warp_ms = on_warps(one)
-        block_ms = {w: stage(one, warps=w, force=True)["card"]
-                    for w in sw_cuda.BLOCK_WARP_CHOICES}
+        warp_ms = forced(one, False)
+        block_ms = forced(one, True)
         b_ms, b_by = bound_ms(d, long_js)
         s_ms, _ = bound_ms(d, jobs)
         what = f"{d} stage {i + 1} of {len(every)}"
@@ -2861,17 +2884,11 @@ def time_block(d: str, every: list, launches: dict, errs: dict,
               f"{s_ms:.2f} ms ({s_ms / ms['card']:.1%} of it reached); block "
               f"pairs {cells(long_js) / 1e9:.3f} G cells, bound {b_ms:.2f} "
               f"ms by {b_by}, plain {p_ms:.2f} ms, equal; {card}")
-        for w, m in by_w.items():
-            print(f"[timing] {what} at W={w}: card {m['card']:.2f} ms, "
-                  f"block launch {m.get('long', 0):.2f} ms, short launch "
-                  f"{m.get('short', 0):.2f} ms; {card}")
-        rows_of = {w: int(sw_cuda.block_rows(one[1], w)[0])
-                   for w in sw_cuda.BLOCK_WARP_CHOICES}
         print(f"[timing] {what}'s longest pair ({int(one[1, 0])} x "
               f"{int(one[3, 0])}, {cells(one) / 1e6:.1f} M cells) alone: one "
-              f"warp {warp_ms:.2f} ms; block path "
-              + ", ".join(f"W={w} (R={rows_of[w]}) {t:.2f} ms"
-                          for w, t in block_ms.items()) + f"; {card}")
+              f"warp {warp_ms:.2f} ms; block path (R="
+              f"{int(sw_cuda.block_rows(one[1])[0])}) {block_ms:.2f} ms; "
+              f"{card}")
         per_stage.append({
             "pairs": int(jobs.shape[1]), "cells": cells(jobs),
             "block_pairs": int(p.n_long), "block_cells": cells(long_js),
@@ -2879,11 +2896,9 @@ def time_block(d: str, every: list, launches: dict, errs: dict,
             "block_bound_ms": b_ms, "block_bound_by": b_by,
             "card_ms": ms["card"], "short_ms": ms.get("short"),
             "bound_ms": s_ms, "share_of_bound": s_ms / ms["card"],
-            "card_ms_by_warps": {w: m["card"] for w, m in by_w.items()},
-            "block_ms_by_warps": {w: m.get("long") for w, m in by_w.items()},
             "one_warp_launch_ms": one_launch,
             "longest_pair_one_warp_ms": warp_ms,
-            "longest_pair_block_ms_by_warps": block_ms})
+            "longest_pair_block_ms": block_ms})
     errs[key] = err
     k_ms = sum(st["block_ms"] or 0.0 for st in per_stage)
     b_ms = sum(st["block_bound_ms"] for st in per_stage)
@@ -2923,12 +2938,11 @@ def time_small(small: list, card: str) -> list:
         kw = engine_kw("fwd", args)
         split = card_ms(lambda events: sw_cuda.sw_forward(
             *args, events=events, **kw))
-        warp = card_ms(lambda events: sw_cuda._launch_warp(
-            False, resident, sw_cuda.warp_plan(
-                jobs, sw_cuda.WARP_SCRATCH[False]), go, ge, events))["card"]
-        n_long = sw_cuda.shard_plan(
-            np.concatenate([jobs, np.zeros((1, jobs.shape[1]), np.int64)]),
-            False, card_warps=sw_cuda.card_warps(resident[0].device)).n_long
+        dev = resident[0].device
+        plan = check_plan("fwd", jobs, dev, force=False)
+        warp = card_ms(lambda events: launch_plan(
+            "fwd", resident, plan, go, ge, events))["card"]
+        n_long = check_plan("fwd", jobs, dev).n_long
         print(f"[timing] small fwd stage ({tag}): {jobs.shape[1]} pairs, "
               f"{cells(jobs) / 1e6:.1f} M cells, {n_long} on the block "
               f"path: the wrapper's route {split['card']:.3f} ms (block "
@@ -2992,8 +3006,7 @@ def main(argv: list | None = None) -> int:
 
     sub = torch.from_numpy(
         load_substitution_matrix().sub_int.astype(np.int8)).to(dev)
-    errs = dict.fromkeys([*KERNELS, *B8_KERNELS,
-                          *(k[0] for k in BLOCKS.values())], 0)
+    errs = dict.fromkeys([*KERNELS, *B8_KERNELS, *BLOCKS.values()], 0)
     launches: dict = {}
     stages: dict = {}
     small: list = []        # the small sets' forward stages (timing)
@@ -3077,18 +3090,19 @@ def main(argv: list | None = None) -> int:
     # the sharded kernels: their launches in this process's sharded run
     # (checked in the sharded phase) and in the 2 workers
     for entry in b8:
-        key = next(k for k, v in B8_KERNELS.items() if v[0] == entry["name"])
+        key = next(k for k in B8_KERNELS if entry_point(k) == entry["name"])
         entry["launches_multihost"] = mh_launches[key]
         if mh_launches[key] <= 0:
             fail(f"the multihost path did not launch {entry['name']}")
     report += b8
     # K1's and K2's block paths: their launches on the main path (checked
     # in real) and on the other paths that run the single sequence engine
+    # (the sharded paths launch the same entry points as B8's block
+    # kernels, reported there)
     for d in ("fwd", "rev"):
-        blocks[d].update({f"launches_{tag}": n[BLOCKS[d][0]] for tag, n in (
+        blocks[d].update({f"launches_{tag}": n[BLOCKS[d]] for tag, n in (
             ("toolkit", tk_launches), ("profile", p_launches),
             ("iterative", it_launches), ("split", split_launches),
-            ("sharded", sh_launches), ("multihost", mh_launches),
             ("gff", gff_launches))})
     # the profile reverse stage's block path: its launches in the profile
     # search (the main path of its slice, checked in profile-real) and in

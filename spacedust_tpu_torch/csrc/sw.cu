@@ -167,9 +167,13 @@
 //     index says nothing of its rows), after a named barrier (bar.sync 1,
 //     32 W) that every warp reaches, with or without a strip.  Reverse:
 //     lane 31 of the warp of the last strip ran the trackers and writes.
-//   * W in {4, 8, 16} is a template argument; __launch_bounds__(32 W,
-//     16 / W) keeps a thread at 128 registers whatever W, so R = 16 holds
-//     its rows without spilling.
+//   * W is a template argument, compiled at 16 alone (kBlockWarps): on an
+//     H100 80GB HBM3 at 700 W, W = 16 took the 5,917 x 5,496 pair in
+//     3.74 ms (W = 8: 4.63, W = 4: 6.60; a lone warp 21.51), and every
+//     stage timed at 4, 8 and 16 ran fastest at 16.  A width that is
+//     wanted again is one more instantiation, timed on the card.
+//     __launch_bounds__(32 W, 16 / W) keeps a thread at 128 registers, so
+//     R = 16 holds its rows without spilling.
 //
 // The profile reverse stage (B10 reverse, sw_reverse_prof) takes the same
 // split: its few long pairs go to sw_reverse_prof_block (sw_block_kernel<
@@ -180,9 +184,9 @@
 //     each warp of the block needs a region of its own: warp w sweeps
 //     strips w, w + W, ..., and a region shared with another warp would be
 //     overwritten by that warp's next strip while this one still reads it.
-//     W regions of kProfRegion bytes (43,008 / 86,016 / 172,032 bytes at
-//     W = 4 / 8 / 16) are dynamic shared memory, the opt-in limit raised
-//     by sw_load on every card it readies;
+//     W regions of kProfRegion bytes (172,032 bytes at W = 16) are
+//     dynamic shared memory, the opt-in limit raised by sw_load on every
+//     card it readies;
 //   * the targets are one array (no shard row), and there is no table.
 
 #include <cstdint>
@@ -199,6 +203,7 @@ constexpr int kMaxRows = 16;    // the largest class of rows a lane
 constexpr int kProfRegion = kProfCols * 32 * kMaxRows;  // bytes a warp
 constexpr int kNeg = -(1 << 30);
 constexpr int kWarps = 4;              // pairs per block
+constexpr int kBlockWarps = 16;        // the block path's warps a pair
 constexpr unsigned kFull = 0xffffffffu;
 
 // where a cell's score comes from: a 21x21 table with the query's bias
@@ -738,43 +743,27 @@ int launch_shards(const void* qdata, const void* qbias, const void* tbase,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the block path's dynamic shared memory: kProfCell's W profile regions
-template <int kCell, int W>
+// the block path's dynamic shared memory: kProfCell's profile regions
+template <int kCell>
 constexpr int block_shared() {
-  return kCell == kProfCell ? W * kProfRegion : 0;
+  return kCell == kProfCell ? kBlockWarps * kProfRegion : 0;
 }
 
-template <bool kReverse, int kCell, int W>
-void launch_block_w(const void* qdata, const void* qbias,
-                    const void* targets, const void* sub, int alpha,
-                    const void* jobs, long long job_stride, int n, int go,
-                    int ge, void* scratch, void* out, long long out_stride,
-                    void* stream) {
-  sw_block_kernel<kReverse, kCell, W>
-      <<<n, 32 * W, block_shared<kCell, W>(),
+template <bool kReverse, int kCell>
+int launch_block(const void* qdata, const void* qbias, const void* targets,
+                 const void* sub, int alpha, const void* jobs,
+                 long long job_stride, int n, int go, int ge, void* scratch,
+                 void* out, long long out_stride, void* stream) {
+  if (n <= 0) return 0;
+  if (alpha > kAlphaPad) return static_cast<int>(cudaErrorInvalidValue);
+  sw_block_kernel<kReverse, kCell, kBlockWarps>
+      <<<n, 32 * kBlockWarps, block_shared<kCell>(),
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint8_t*>(qdata),
           static_cast<const int8_t*>(qbias), targets,
           static_cast<const int8_t*>(sub), alpha,
           static_cast<const int64_t*>(jobs), job_stride, n, go, ge, scratch,
           static_cast<int32_t*>(out), out_stride);
-}
-
-template <bool kReverse, int kCell>
-int launch_block(const void* qdata, const void* qbias, const void* targets,
-                 const void* sub, int alpha, const void* jobs,
-                 long long job_stride, int n, int warps, int go, int ge,
-                 void* scratch, void* out, long long out_stride,
-                 void* stream) {
-  if (n <= 0) return 0;
-  if (alpha > kAlphaPad) return static_cast<int>(cudaErrorInvalidValue);
-  auto* launch = warps == 4    ? launch_block_w<kReverse, kCell, 4>
-                 : warps == 8  ? launch_block_w<kReverse, kCell, 8>
-                 : warps == 16 ? launch_block_w<kReverse, kCell, 16>
-                               : nullptr;
-  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  launch(qdata, qbias, targets, sub, alpha, jobs, job_stride, n, go, ge,
-         scratch, out, out_stride, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -791,16 +780,15 @@ int load_kernel(K* kernel) {
   return static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
 }
 
-// loads a block kernel of the profile cell and lets it take its W
+// loads the block kernel of the profile cell and lets it take its
 // profile regions, past the 48 KB a block gets without asking
-template <int W>
 int load_prof_block() {
-  auto* kernel = sw_block_kernel<true, kProfCell, W>;
+  auto* kernel = sw_block_kernel<true, kProfCell, kBlockWarps>;
   int rc = load_kernel(kernel);
   if (rc == 0)
     rc = static_cast<int>(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        block_shared<kProfCell, W>()));
+        block_shared<kProfCell>()));
   return rc;
 }
 
@@ -808,9 +796,10 @@ int load_prof_block() {
 
 extern "C" {
 
-// Loads the kernels onto the current device (CUDA loads a kernel at its
+// Loads the 11 kernels onto the current device (the six warp kernels, the
+// two sharded ones and the three block kernels; CUDA loads a kernel at its
 // first use otherwise, inside whatever times that launch) and sets the
-// profile block kernels' shared-memory limit there (an attribute of the
+// profile block kernel's shared-memory limit there (an attribute of the
 // device's context: the caller readies every card it launches on).
 // Returns the first CUDA error, or 0.
 int sw_load() {
@@ -822,15 +811,11 @@ int sw_load() {
   if (rc == 0) rc = load_kernel(sw_warp_kernel<true, kProfCell>);
   if (rc == 0) rc = load_kernel(sw_shards_kernel<false>);
   if (rc == 0) rc = load_kernel(sw_shards_kernel<true>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<false, kSeqCell, 4>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<true, kSeqCell, 4>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<false, kSeqCell, 8>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<true, kSeqCell, 8>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<false, kSeqCell, 16>);
-  if (rc == 0) rc = load_kernel(sw_block_kernel<true, kSeqCell, 16>);
-  if (rc == 0) rc = load_prof_block<4>();
-  if (rc == 0) rc = load_prof_block<8>();
-  if (rc == 0) rc = load_prof_block<16>();
+  if (rc == 0)
+    rc = load_kernel(sw_block_kernel<false, kSeqCell, kBlockWarps>);
+  if (rc == 0)
+    rc = load_kernel(sw_block_kernel<true, kSeqCell, kBlockWarps>);
+  if (rc == 0) rc = load_prof_block();
   return rc;
 }
 
@@ -933,41 +918,40 @@ int sw_reverse_shards(const void* qdata, const void* qbias, const void* tbase,
                              stream);
 }
 
-// Its long pairs: a block of `warps` (4, 8 or 16) warps a pair; soff is
-// the pair's ring of two slots of tlen columns (int2 forward, int4
+// Its long pairs: a block of kBlockWarps (16) warps a pair; soff is the
+// pair's ring of two slots of tlen columns (int2 forward, int4
 // reverse) when qlen > 32 * rows.
 int sw_forward_shards_block(const void* qdata, const void* qbias,
                             const void* tbase, const void* sub, int alpha,
                             const void* jobs, long long job_stride, int n,
-                            int warps, int go, int ge, void* scratch,
-                            void* out, long long out_stride, void* stream) {
+                            int go, int ge, void* scratch, void* out,
+                            long long out_stride, void* stream) {
   return launch_block<false, kSeqCell>(qdata, qbias, tbase, sub, alpha,
-                                       jobs, job_stride, n, warps, go, ge,
-                                       scratch, out, out_stride, stream);
+                                       jobs, job_stride, n, go, ge, scratch,
+                                       out, out_stride, stream);
 }
 
 int sw_reverse_shards_block(const void* qdata, const void* qbias,
                             const void* tbase, const void* sub, int alpha,
                             const void* jobs, long long job_stride, int n,
-                            int warps, int go, int ge, void* scratch,
-                            void* out, long long out_stride, void* stream) {
+                            int go, int ge, void* scratch, void* out,
+                            long long out_stride, void* stream) {
   return launch_block<true, kSeqCell>(qdata, qbias, tbase, sub, alpha,
-                                      jobs, job_stride, n, warps, go, ge,
-                                      scratch, out, out_stride, stream);
+                                      jobs, job_stride, n, go, ge, scratch,
+                                      out, out_stride, stream);
 }
 
-// The profile reverse stage's long pairs (B10 reverse): a block of `warps`
-// (4, 8 or 16) warps a pair, each warp with its own profile region; jobs
+// The profile reverse stage's long pairs (B10 reverse): a block of
+// kBlockWarps warps a pair, each warp with its own profile region; jobs
 // as sw_reverse_prof's, soff the pair's ring of two slots of tlen int4
 // columns when qlen > 32 * rows.
 int sw_reverse_prof_block(const void* qprof, const void* tdata,
                           const void* jobs, long long job_stride, int n,
-                          int warps, int go, int ge, void* scratch,
-                          void* out, long long out_stride, void* stream) {
+                          int go, int ge, void* scratch, void* out,
+                          long long out_stride, void* stream) {
   return launch_block<true, kProfCell>(qprof, nullptr, tdata, nullptr,
-                                       kProfCols, jobs, job_stride, n, warps,
-                                       go, ge, scratch, out, out_stride,
-                                       stream);
+                                       kProfCols, jobs, job_stride, n, go, ge,
+                                       scratch, out, out_stride, stream);
 }
 
 }  // extern "C"

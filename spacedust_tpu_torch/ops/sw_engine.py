@@ -5,7 +5,8 @@ The query tokens, their int8 composition bias and the target tokens are
 copied to the device once, unpadded, and addressed by int64 element
 offsets.  Forward and reverse jobs are buffered per direction and
 dispatched as one stage once DISPATCH_PAIRS pairs are waiting (or at
-flush()): the stage's pairs are sorted by cell count, longest first (a
+flush(); `StageBuffer`, which the target-sharded engine shares): the
+stage's pairs are sorted by cell count, longest first (a
 warp owns a pair and blocks start in order, so a launch ends on its
 short pairs), packed into one (5, n) int64 job array (qoff, qlen, toff,
 tlen, terminate) that the wrapper copies to the device once, and scored
@@ -78,7 +79,50 @@ def _upload(a: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(device)
 
 
-class DeviceAlignDB:
+class StageBuffer:
+    """The stage buffer of both engines: jobs buffered a (gap_open,
+    gap_extend, direction) and dispatched as one stage once DISPATCH_PAIRS
+    pairs wait (or at flush()).  An engine gives `_dispatch(cols,
+    gap_open, gap_extend, reverse)`, which launches a stage of the six
+    columns (qoff, qlen, toff, tlen, term, positions) and returns what
+    `collect(pending)` takes for it."""
+
+    _buf: dict
+
+    def enqueue(self, jobs, gap_open: int, gap_extend: int,
+                reverse: bool):
+        """Buffer jobs (an iterable of (qoff, qlen, toff, tlen, term,
+        positions) arrays) and dispatch the buffer as one stage once it
+        holds DISPATCH_PAIRS pairs.  Returns the pending stages
+        dispatched now (for collect())."""
+        key = (gap_open, gap_extend, reverse)
+        buf = self._buf.setdefault(key, [])
+        for job in jobs:
+            buf.append(tuple(np.asarray(c) for c in job))
+        if sum(len(b[0]) for b in buf) >= DISPATCH_PAIRS:
+            return self.flush(gap_open, gap_extend, reverse)
+        return []
+
+    def flush(self, gap_open: int, gap_extend: int, reverse: bool):
+        """Dispatch whatever is buffered for this direction."""
+        buf = self._buf.pop((gap_open, gap_extend, reverse), [])
+        if not buf or sum(len(b[0]) for b in buf) == 0:
+            return []
+        cols = [np.concatenate([b[i] for b in buf]) for i in range(6)]
+        with trace.span("sw.dispatch", dir="rev" if reverse else "fwd",
+                        pairs=len(cols[0]),
+                        cells=int((cols[1].astype(np.int64)
+                                   * cols[3].astype(np.int64)).sum())):
+            return [self._dispatch(cols, gap_open, gap_extend, reverse)]
+
+    def run_buckets(self, jobs, gap_open: int, gap_extend: int,
+                    reverse: bool):
+        """enqueue + flush + collect for one direction."""
+        return self.collect(self.enqueue(jobs, gap_open, gap_extend, reverse)
+                            + self.flush(gap_open, gap_extend, reverse))
+
+
+class DeviceAlignDB(StageBuffer):
     """Resident arrays for one (query DB, target DB) pair.
 
     qdata/qbias/tdata: concatenated uint8 tokens / int8 bias / uint8
@@ -86,7 +130,7 @@ class DeviceAlignDB:
     live and the SW runs (a CUDA device runs the kernels, the CPU the
     plain version)."""
 
-    # which of sw_cuda.ENTRY's wrappers score a stage
+    # the cell of sw_cuda.ENTRIES whose wrappers score a stage
     CELL = "seq"
 
     def __init__(self, qdata: np.ndarray, qbias: np.ndarray,
@@ -119,8 +163,8 @@ class DeviceAlignDB:
                         "fwd_kernel_ms": 0.0, "rev_kernel_ms": 0.0,
                         "fwd_wrapper_ms": 0.0, "rev_wrapper_ms": 0.0}
         # the directions whose stages take the block path too
-        for reverse, cell in sw_cuda.BLOCK_ENTRY:
-            if cell == self.CELL:
+        for reverse in (False, True):
+            if sw_cuda.ENTRIES[self.CELL, reverse][1]:
                 d = "rev" if reverse else "fwd"
                 self.metrics.update({f"{d}_block_pairs": 0,
                                      f"{d}_block_launches": 0})
@@ -145,32 +189,6 @@ class DeviceAlignDB:
         view._init_state()
         return view
 
-    def enqueue(self, jobs, gap_open: int, gap_extend: int,
-                reverse: bool):
-        """Buffer jobs (an iterable of (qoff, qlen, toff, tlen, term,
-        positions) arrays) and dispatch the buffer as one stage once it
-        holds DISPATCH_PAIRS pairs.  Returns the pending stages
-        dispatched now (for collect())."""
-        key = (gap_open, gap_extend, reverse)
-        buf = self._buf.setdefault(key, [])
-        for job in jobs:
-            buf.append(tuple(np.asarray(c) for c in job))
-        if sum(len(b[0]) for b in buf) >= DISPATCH_PAIRS:
-            return self.flush(gap_open, gap_extend, reverse)
-        return []
-
-    def flush(self, gap_open: int, gap_extend: int, reverse: bool):
-        """Dispatch whatever is buffered for this direction."""
-        buf = self._buf.pop((gap_open, gap_extend, reverse), [])
-        if not buf or sum(len(b[0]) for b in buf) == 0:
-            return []
-        cols = [np.concatenate([b[i] for b in buf]) for i in range(6)]
-        with trace.span("sw.dispatch", dir="rev" if reverse else "fwd",
-                        pairs=len(cols[0]),
-                        cells=int((cols[1].astype(np.int64)
-                                   * cols[3].astype(np.int64)).sum())):
-            return [self._dispatch(cols, gap_open, gap_extend, reverse)]
-
     def _dispatch(self, cols, gap_open: int, gap_extend: int,
                   reverse: bool):
         jobs = np.stack([c.astype(np.int64) for c in cols[:5]])
@@ -186,25 +204,22 @@ class DeviceAlignDB:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record(stream)
-        # the wrapper and its launch counters, looked up at dispatch
-        fn_name, counter = sw_cuda.ENTRY[reverse, self.CELL]
-        block = sw_cuda.BLOCK_ENTRY.get((reverse, self.CELL))
-        before = {c: getattr(sw_cuda, c)
-                  for c in ((counter, block[1]) if block else (counter,))}
+        # the wrapper, looked up at dispatch
+        wrapper = getattr(sw_cuda, sw_cuda.ENTRIES[self.CELL, reverse][0])
         extra = ({"targets": self._targets}
                  if self._targets is not None else {})
-        out = getattr(sw_cuda, fn_name)(*self._resident(), jobs, gap_open,
-                                        gap_extend, events=events, **extra)
+        out = wrapper(*self._resident(), jobs, gap_open, gap_extend,
+                      events=events, **extra)
         if timed:
             ev[1].record(stream)
             events["wrapper"] = ev
-        launched = {c: getattr(sw_cuda, c) - b for c, b in before.items()}
         d = "rev" if reverse else "fwd"
         m = self.metrics
         m["n_batches"] += 1
-        m[f"{d}_launches"] += sum(launched.values())
-        if block:
-            m[f"{d}_block_launches"] += launched[block[1]]
+        block = events.get("block_launches", 0)
+        m[f"{d}_launches"] += events.get("warp_launches", 0) + block
+        if f"{d}_block_launches" in m:
+            m[f"{d}_block_launches"] += block
             m[f"{d}_block_pairs"] += events.get("n_long", 0)
         m[f"{d}_pairs"] += jobs.shape[1]
         m[f"{d}_cells"] += int(cells.sum())
@@ -230,12 +245,6 @@ class DeviceAlignDB:
             out.append((pos, tuple(flat[i, col:col + n] for i in range(6))))
             col += n
         return out
-
-    def run_buckets(self, jobs, gap_open: int, gap_extend: int,
-                    reverse: bool):
-        """enqueue + flush + collect for one direction."""
-        return self.collect(self.enqueue(jobs, gap_open, gap_extend, reverse)
-                            + self.flush(gap_open, gap_extend, reverse))
 
 
 class StructureDeviceDB(DeviceAlignDB):

@@ -18,7 +18,7 @@ lib/mmseqs/src/commons/MMseqsMPI.h:26-34).  Here:
     one-card host share the card);
   * rendezvous: each process writes its records as a reference-format
     flat DB into the shared tmp dir (db/mmseqs_io.py), with its search
-    seconds, kernel launches (every counter of sw_cuda.COUNTERS) and SW
+    seconds, kernel launches (sw_cuda.LAUNCHES, by C entry point) and SW
     engine metrics beside them (`metrics.RANK.json`; the sharded engine's
     launches and kernel ms a card, `card_{fwd,rev}_*`); rank 0 merges the
     records
@@ -167,7 +167,7 @@ def _work(db_path: str, tmp: Path, out_path: str, params_json: str,
     from ..ops import sw_cuda
     (tmp / f"metrics.{proc_id}.json").write_text(json.dumps({
         "search_s": time.time() - t0,
-        "launches": {c: getattr(sw_cuda, c) for c in sw_cuda.COUNTERS},
+        "launches": dict(sw_cuda.LAUNCHES),
         "align_detail": eng._device_db().metrics}))
 
     # shared-filesystem rendezvous: a reference-format result DB a rank

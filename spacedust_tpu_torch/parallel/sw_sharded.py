@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..ops import sw_cuda
-from ..ops.sw_engine import DISPATCH_PAIRS, _check_tokens, _device, _upload
+from ..ops.sw_engine import StageBuffer, _check_tokens, _device, _upload
 from ..utils import trace
 from .split import residue_balanced_splits
 
@@ -68,13 +68,10 @@ def make_mesh(n: int | None = None, device: torch.device | str = "cuda",
     return [device] * (n or 1)
 
 
-class ShardedAlignDB:
+class ShardedAlignDB(StageBuffer):
     """Resident arrays of a target-sharded SW: query tokens, bias and
     matrix once a device, target shard d (tokens tok_bounds[d] of tdata)
-    on devices[d].
-
-    `plan_kw` goes to the wrappers' plan (sw_cuda.shard_plan: `warps`,
-    `force`, `rows`); the engine leaves it empty, a check sets it."""
+    on devices[d]."""
 
     def __init__(self, devices: list, qdata: np.ndarray, qbias: np.ndarray,
                  tdata: np.ndarray, tok_bounds: list[tuple[int, int]],
@@ -115,7 +112,6 @@ class ShardedAlignDB:
             if dev.type == "cuda":
                 # build and load the kernels now, outside every timed stage
                 sw_cuda.load(dev)
-        self.plan_kw: dict = {}
         self._buf: dict[tuple, list] = {}
         nd, nc = len(devices), len(self.cards)
         self._metrics = {"n_batches": 0, "stages": 0, "stage_wall_ms": 0.0}
@@ -144,14 +140,15 @@ class ShardedAlignDB:
         tlen, terminate, shard within the card) through the sharded
         wrapper of the direction, launches counted a card."""
         qdata, qbias, sub = self.queries[self.cards[c]]
-        name = sw_cuda.SHARD_ENTRY[reverse]
-        before = [getattr(sw_cuda, name[k]) for k in (1, 3)]
-        out = getattr(sw_cuda, name[0])(
-            qdata, qbias, self.targets[c], sub, np.ascontiguousarray(jobs),
-            gap_open, gap_extend, events=events, **self.plan_kw)
+        wrapper = (sw_cuda.sw_reverse_shards if reverse
+                   else sw_cuda.sw_forward_shards)
+        events = {} if events is None else events
+        out = wrapper(qdata, qbias, self.targets[c], sub,
+                      np.ascontiguousarray(jobs), gap_open, gap_extend,
+                      events=events)
         d = "rev" if reverse else "fwd"
-        launched = sum(getattr(sw_cuda, name[k]) - b
-                       for k, b in zip((1, 3), before))
+        launched = (events.get("warp_launches", 0)
+                    + events.get("block_launches", 0))
         self._metrics[f"card_{d}_launches"][c] += launched
         self._metrics[f"{d}_launches"] += launched
         return out
@@ -216,36 +213,12 @@ class ShardedAlignDB:
                     bounds)
         return view
 
-    def enqueue(self, jobs, gap_open: int, gap_extend: int,
-                reverse: bool):
-        """Buffer jobs ((qoff, qlen, toff, tlen, term, positions) arrays,
-        toff global) and dispatch the buffer as one stage once it holds
-        DISPATCH_PAIRS pairs.  Returns the stages dispatched now."""
-        key = (gap_open, gap_extend, reverse)
-        buf = self._buf.setdefault(key, [])
-        for job in jobs:
-            buf.append(tuple(np.asarray(c) for c in job))
-        if sum(len(b[0]) for b in buf) >= DISPATCH_PAIRS:
-            return self.flush(gap_open, gap_extend, reverse)
-        return []
-
-    def flush(self, gap_open: int, gap_extend: int, reverse: bool):
-        """Dispatch whatever is buffered for this direction as one stage:
-        each job routed to the shard its target lies in (offsets made
-        shard-local), each card's jobs sorted longest first across its
-        shards and launched at once."""
-        buf = self._buf.pop((gap_open, gap_extend, reverse), [])
-        if not buf or sum(len(b[0]) for b in buf) == 0:
-            return []
-        cols = [np.concatenate([b[i] for b in buf]).astype(np.int64)
-                for i in range(6)]
-        with trace.span("sw.dispatch", dir="rev" if reverse else "fwd",
-                        pairs=len(cols[0]),
-                        cells=int((cols[1] * cols[3]).sum())):
-            return self._dispatch(cols, gap_open, gap_extend, reverse)
-
     def _dispatch(self, cols, gap_open: int, gap_extend: int,
                   reverse: bool):
+        """The stage: each job routed to the shard its target lies in
+        (offsets made shard-local), each card's jobs sorted longest first
+        across its shards and launched at once."""
+        cols = [c.astype(np.int64) for c in cols]
         shard = np.searchsorted(self.tok_starts, cols[2], side="right") - 1
         jobs = np.stack(cols[:5])
         jobs[2] -= self.tok_starts[shard]
@@ -292,7 +265,7 @@ class ShardedAlignDB:
         if ev is not None:
             ev[1].record(torch.cuda.current_stream(cuda[0]))
         m["stages"] += 1
-        return [(parts, ev, d)]
+        return (parts, ev, d)
 
     def collect(self, pending):
         """Fetch every pending stage, one device-to-host copy a card.
@@ -330,12 +303,6 @@ class ShardedAlignDB:
                 ev[1].synchronize()
                 m["stage_wall_ms"] += _ms(ev)
         return out
-
-    def run_buckets(self, jobs, gap_open: int, gap_extend: int,
-                    reverse: bool):
-        """enqueue + flush + collect for one direction."""
-        return self.collect(self.enqueue(jobs, gap_open, gap_extend, reverse)
-                            + self.flush(gap_open, gap_extend, reverse))
 
     @property
     def metrics(self) -> dict:

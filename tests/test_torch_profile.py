@@ -152,12 +152,12 @@ def test_prof_wrapper_cpu_takes_plain_version_and_checks():
     no launch; malformed profile rows or jobs raise."""
     rows, t, jobs = prof_resident(6)
     P, T = torch.from_numpy(rows.reshape(-1)), torch.from_numpy(t)
-    sw_cuda.reset_counts()
+    before = sw_cuda.LAUNCHES.copy()
     for reverse, fn in ((False, sw_cuda.sw_forward_prof),
                         (True, sw_cuda.sw_reverse_prof)):
         np.testing.assert_array_equal(fn(P, T, jobs, GO, GE).numpy(),
                                       _plain(rows, t, jobs, reverse))
-    assert sw_cuda.FORWARD_PROF_LAUNCHES == sw_cuda.REVERSE_PROF_LAUNCHES == 0
+    assert sw_cuda.LAUNCHES == before
     with pytest.raises(ValueError):
         sw_cuda.sw_forward_prof(P[:-1], T, jobs, GO, GE)    # not 21 a row
     with pytest.raises(ValueError):

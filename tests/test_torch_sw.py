@@ -206,13 +206,13 @@ def test_wrapper_cpu_takes_plain_version_and_checks_jobs():
     S = torch.from_numpy(sub.astype(np.int8))
     jobs = np.stack([qoffs[:-1], qlens, toffs[:-1], tlens,
                      np.full(len(qlens), -1)]).astype(np.int64)
-    sw_cuda.reset_counts()
+    before = sw_cuda.LAUNCHES.copy()
     for reverse, fn in ((False, sw_cuda.sw_forward),
                         (True, sw_cuda.sw_reverse)):
         got = fn(Q, QB, T, S, jobs, GO, GE)
         ref = sw_jobs_ref(Q, QB, T, S, jobs, GO, GE, reverse)
         assert torch.equal(got, ref)
-    assert sw_cuda.FORWARD_LAUNCHES == sw_cuda.REVERSE_LAUNCHES == 0
+    assert sw_cuda.LAUNCHES == before
     for bad in ((1, 0, 0), (0, -1, -1), (2, 0, len(t)), (3, 0, 0)):
         row, col, val = bad
         b = jobs.copy()
@@ -743,10 +743,23 @@ def test_struct_packed_tokens_at_alphabet_ends(reverse):
 
 @pytest.mark.parametrize("cell", [8, 16])
 def test_warp_plan_covers_and_bounds(cell):
-    """The kernels' launches: the caller's order, a class per pair,
-    scratch only for multi-strip pairs, disjoint within a launch and
-    within the budget except for a lone pair that alone exceeds it."""
-    from spacedust_tpu_torch.ops.sw_cuda import lane_rows, warp_plan
+    """The warp kernels' launches, as shard_plan cuts a structure stage
+    (no block path) of `cell` scratch bytes a column (8 forward, 16
+    reverse): the caller's order, a class per pair, scratch only for
+    multi-strip pairs, disjoint within a launch and within the budget
+    except for a lone pair that alone exceeds it."""
+    from spacedust_tpu_torch.ops.sw_cuda import (WARP_SCRATCH, lane_rows,
+                                                 shard_plan)
+    reverse = cell == WARP_SCRATCH[True]
+    assert WARP_SCRATCH[reverse] == cell
+
+    def warp_plan(jobs, budget=None, rows=None):
+        kw = {} if budget is None else {"budget": budget}
+        plan = shard_plan(jobs, "struct", reverse, rows=rows,
+                          card_warps=132 * 16, **kw)
+        assert plan.perm is None and plan.n_long == plan.long_cols == 0
+        assert (plan.table[7] == 0).all()
+        return plan.table, plan.launches
     rng = np.random.default_rng(cell)
     n = 4000
     jobs = np.stack([rng.integers(0, 10**6, n), rng.integers(1, 3000, n),
@@ -755,7 +768,7 @@ def test_warp_plan_covers_and_bounds(cell):
     jobs[3, 17] = 90_000
     jobs[1, 17] = 5000
     budget = 1 << 19
-    table, launches = warp_plan(jobs, cell, budget)
+    table, launches = warp_plan(jobs, budget)
     np.testing.assert_array_equal(table[:5], jobs)
     np.testing.assert_array_equal(table[5], lane_rows(jobs[1]))
     assert launches[0][0] == 0 and launches[-1][1] == n
@@ -771,7 +784,7 @@ def test_warp_plan_covers_and_bounds(cell):
         assert cols * cell <= budget or e - s == 1
     assert len(launches) > 8 and (17, 18, 90_000) in launches
     # one launch within the default bound, and one class when asked
-    table, launches = warp_plan(jobs, cell, rows=8)
+    table, launches = warp_plan(jobs, rows=8)
     assert launches == [(0, n, int(np.where(jobs[1] > 256, jobs[3],
                                             0).sum()))]
     assert (table[5] == 8).all()

@@ -359,9 +359,10 @@ def test_shard_plan_long_pair_rule(reverse):
     stage's total over the card's warps (an H100's 132 SMs x 16 here);
     the table holds the long pairs first,
     then the short ones, each group in the caller's order, every job
-    once, with its shard; the short part is warp_plan's."""
+    once, with its shard; the short part is cut as _scratch_launches cuts
+    the short pairs alone."""
     jobs = _stage()
-    plan = sw_cuda.shard_plan(jobs, reverse, card_warps=H100_WARPS)
+    plan = sw_cuda.shard_plan(jobs, "shards", reverse, card_warps=H100_WARPS)
     one = sw_cuda.lane_rows(jobs[1])
     steps = -(-jobs[1] // (32 * one)) * (jobs[3] + 31)
     long = steps > steps.sum() / H100_WARPS
@@ -375,25 +376,27 @@ def test_shard_plan_long_pair_rule(reverse):
     np.testing.assert_array_equal(plan.table[7], jobs[5, plan.order])
     # sorted longest first, the long pairs lead: the caller's order
     order = np.argsort(-(jobs[1] * jobs[3]), kind="stable")
-    lead = sw_cuda.shard_plan(np.ascontiguousarray(jobs[:, order]), reverse,
-                              card_warps=H100_WARPS)
+    lead = sw_cuda.shard_plan(np.ascontiguousarray(jobs[:, order]),
+                              "shards", reverse, card_warps=H100_WARPS)
     assert lead.perm is None and lead.n_long == nl
-    short, launches = sw_cuda.warp_plan(
-        np.ascontiguousarray(jobs[:5, ~long]),
-        sw_cuda.WARP_SCRATCH[reverse])
+    short = np.empty((7, len(jobs[0]) - nl), dtype=np.int64)
+    short[:5] = jobs[:5, ~long]
+    short[5] = sw_cuda.lane_rows(short[1])
+    launches = sw_cuda._scratch_launches(short, sw_cuda.WARP_SCRATCH[reverse],
+                                         sw_cuda.SCRATCH_BYTES)
     np.testing.assert_array_equal(plan.table[:7, nl:], short)
     assert plan.launches == [(s + nl, e + nl, c) for s, e, c in launches]
 
 
-@pytest.mark.parametrize("warps", sw_cuda.BLOCK_WARP_CHOICES)
+@pytest.mark.parametrize("warps", [sw_cuda.BLOCK_WARPS])
 def test_shard_plan_block_class_and_ring(warps):
     """The block path's class minimises ceil(strips / W) * (R +
-    STEP_OVERHEAD_CELLS), ties to the larger class (at W = 8 the giant
-    pair takes R = 12: 16 strips, 2 a warp, against 12 strips at R = 16
-    and 24 at R = 8); each long pair longer than one strip gets a ring of
-    two slots of tlen columns, disjoint, from 0."""
+    STEP_OVERHEAD_CELLS), ties to the larger class (at W = 16 the giant
+    pair takes R = 12: 16 strips, 1 a warp, against 12 strips at R = 16
+    and 24 at R = 8, 2 a warp); each long pair longer than one strip gets
+    a ring of two slots of tlen columns, disjoint, from 0."""
     jobs = _stage()
-    plan = sw_cuda.shard_plan(jobs, False, warps, card_warps=H100_WARPS)
+    plan = sw_cuda.shard_plan(jobs, "shards", False, card_warps=H100_WARPS)
     nl = plan.n_long
     L = plan.table[:, :nl]
     for p in range(nl):
@@ -401,27 +404,36 @@ def test_shard_plan_block_class_and_ring(warps):
                  * (R + sw_cuda.STEP_OVERHEAD_CELLS) for R in ROWS}
         best = min(costs.values())
         assert L[5, p] == max(R for R, c in costs.items() if c == best)
-    if warps == 8:
-        giant = np.nonzero((L[1] == 5917) & (L[3] == 5496))[0][0]
-        assert L[5, giant] == 12
+    giant = np.nonzero((L[1] == 5917) & (L[3] == 5496))[0][0]
+    assert L[5, giant] == 12
     ring = np.where(L[1] > 32 * L[5], 2 * L[3], 0)
     np.testing.assert_array_equal(L[6], np.cumsum(ring) - ring)
     assert plan.long_cols == ring.sum()
 
 
 def test_shard_plan_force_rows_and_refusals():
-    """force sends every pair to the block path, rows fixes the class of
-    every pair on both paths; an uncompiled width is refused."""
+    """force sends every pair to the block path (or, False, none), rows
+    fixes the class of every pair on both paths; forcing a stage without
+    a block path (the structure stages, the profile forward stage) is
+    refused."""
     jobs = _stage(n=200)
-    plan = sw_cuda.shard_plan(jobs, True, 4, force=True, rows=8,
+    plan = sw_cuda.shard_plan(jobs, "shards", True, force=True, rows=8,
                               card_warps=H100_WARPS)
     assert plan.n_long == 200 and plan.launches == []
     assert plan.perm is None
     assert (plan.table[5] == 8).all()
-    plan = sw_cuda.shard_plan(jobs, True, rows=16, card_warps=H100_WARPS)
+    plan = sw_cuda.shard_plan(jobs, "shards", True, rows=16,
+                              card_warps=H100_WARPS)
     assert (plan.table[5] == 16).all() and plan.n_long >= 1
-    with pytest.raises(ValueError, match="compiled for"):
-        sw_cuda.shard_plan(jobs, False, warps=5, card_warps=H100_WARPS)
+    plan = sw_cuda.shard_plan(jobs, "shards", True, force=False,
+                              card_warps=H100_WARPS)
+    assert plan.n_long == 0 and plan.perm is None
+    assert plan.launches == [(0, 200, plan.launches[0][2])]
+    for cell, reverse in (("struct", False), ("struct", True),
+                          ("prof", False)):
+        with pytest.raises(ValueError, match="no block path"):
+            sw_cuda.shard_plan(jobs[:5], cell, reverse, force=True,
+                               card_warps=H100_WARPS)
 
 
 def test_sharded_wrapper_cpu_plain_version_and_checks():

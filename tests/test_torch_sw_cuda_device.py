@@ -13,9 +13,10 @@ long pairs on sw_forward_shards_block / sw_reverse_shards_block over the
 engine's one-tensor pointer table, or on sw_reverse_prof_block, the rest
 on the warp kernel), that the results come back in the caller's job
 order, that an engine's `with_targets` view hands the block path its own
-targets in both directions, and that a forward profile stage is never
-split."""
+targets in both directions, that a forward profile stage and the
+structure stages are never split, and that the launch counts agree."""
 
+import collections
 import contextlib
 import types
 
@@ -160,17 +161,28 @@ class FakeTorch:
                           np.asarray(data))
 
 
-# the sequence entry points that write their results: name -> the
-# argument index of their output (jobs, job stride and count at 5, 6, 7)
-WRITES = {"sw_forward": 11, "sw_reverse": 11, "sw_forward_shards_block": 12,
-          "sw_reverse_shards_block": 12}
+# every C entry point -> its count of arguments (csrc/sw.cu)
+ARITY = {"sw_load": 0, "sw_forward": 14, "sw_reverse": 14,
+         "sw_forward_struct": 18, "sw_reverse_struct": 18,
+         "sw_forward_prof": 11, "sw_reverse_prof": 11,
+         "sw_forward_shards": 14, "sw_reverse_shards": 14,
+         "sw_forward_shards_block": 14, "sw_reverse_shards_block": 14,
+         "sw_reverse_prof_block": 11}
+# the sequence and structure entry points that write their results: name
+# -> the argument index of their jobs (job stride and count follow) and
+# of their output
+WRITES = {"sw_forward": (5, 11), "sw_reverse": (5, 11),
+          "sw_forward_shards_block": (5, 11),
+          "sw_reverse_shards_block": (5, 11),
+          "sw_forward_struct": (9, 15), "sw_reverse_struct": (9, 15)}
 
 
 class FakeLib:
-    """The kernel library: each entry point records its name, the
-    current card and its arguments, and returns 0.  Those of WRITES put
-    into their output columns the jobs' qoff (row 0) and 1 for the block
-    path (row 1), as a kernel writes pair p's result in column p."""
+    """The kernel library: each entry point checks its count of
+    arguments, records its name, the current card and its arguments, and
+    returns 0.  Those of WRITES put into their output columns the jobs'
+    qoff (row 0) and 1 for the block path (row 1), as a kernel writes pair
+    p's result in column p."""
 
     def __init__(self, cuda, mem):
         self.cuda, self.mem = cuda, mem
@@ -181,13 +193,16 @@ class FakeLib:
             raise AttributeError(name)
 
         def entry(*args):
+            assert len(args) == ARITY[name], name
             self.calls.append((name, self.cuda.current, args))
             if name in WRITES:
-                table, off = self.mem.find(args[5])
-                qoff = table.data.reshape(-1, args[6])[0, off // 8:]
-                out, at = self.mem.find(args[WRITES[name]])
-                cols = slice(at // 4, at // 4 + args[7])
-                out.data[0, cols] = qoff[:args[7]]
+                at_jobs, at_out = WRITES[name]
+                stride, n = args[at_jobs + 1], args[at_jobs + 2]
+                table, off = self.mem.find(args[at_jobs])
+                qoff = table.data.reshape(-1, stride)[0, off // 8:]
+                out, at = self.mem.find(args[at_out])
+                cols = slice(at // 4, at // 4 + n)
+                out.data[0, cols] = qoff[:n]
                 out.data[1, cols] = name.endswith("_block")
             return 0
 
@@ -207,7 +222,7 @@ def card(monkeypatch):
     # tests, not here
     monkeypatch.setattr(sw_cuda, "_LOADED", set(), raising=False)
     monkeypatch.setattr(sw_cuda, "_SIDE", {})
-    sw_cuda.reset_counts()
+    monkeypatch.setattr(sw_cuda, "LAUNCHES", collections.Counter())
     dev = torch.device("cuda", CARD)
 
     def tensor(n, dtype, shape=None):
@@ -215,7 +230,6 @@ def card(monkeypatch):
 
     yield types.SimpleNamespace(mem=mem, cuda=cuda, lib=lib, dev=dev,
                                 tensor=tensor)
-    sw_cuda.reset_counts()
 
 
 def _stage(n=3000, giant=(5917, 5496), seed=0):
@@ -352,12 +366,11 @@ def test_profile_reverse_stage_plan(card):
     assert set(long.tolist()) == {0, 1, 2, 3, 4}
     block = calls["sw_reverse_prof_block"]
     n_long = block[2][4]
-    assert n_long == len(long) and block[2][5] == sw_cuda.BLOCK_WARPS
+    assert n_long == len(long)
     table = _table(card, block, 8)
     np.testing.assert_array_equal(table[:5, :n_long], jobs[:, long])
-    np.testing.assert_array_equal(
-        table[5, :n_long], sw_cuda.block_rows(jobs[1, long],
-                                              sw_cuda.BLOCK_WARPS))
+    np.testing.assert_array_equal(table[5, :n_long],
+                                  sw_cuda.block_rows(jobs[1, long]))
     ring = np.where(table[1, :n_long] > 32 * table[5, :n_long],
                     2 * table[3, :n_long], 0)
     np.testing.assert_array_equal(table[6, :n_long], np.cumsum(ring) - ring)
@@ -367,8 +380,8 @@ def test_profile_reverse_stage_plan(card):
     rest = _table(card, short, 8)
     np.testing.assert_array_equal(
         rest[:5], np.delete(jobs, long, axis=1))
-    assert sw_cuda.REVERSE_PROF_BLOCK_LAUNCHES == 1
-    assert sw_cuda.REVERSE_PROF_LAUNCHES == 1
+    assert sw_cuda.LAUNCHES == {"sw_reverse_prof_block": 1,
+                                "sw_reverse_prof": 1}
 
 
 def test_forward_profile_stage_is_never_split(card):
@@ -382,8 +395,10 @@ def test_forward_profile_stage_is_never_split(card):
     names = [c[0] for c in card.lib.calls if c[0] != "sw_load"]
     assert names == ["sw_forward_prof"]
     assert card.lib.calls[-1][2][4] == jobs.shape[1]
-    assert set(ev) == {"card"}
-    assert sw_cuda.REVERSE_PROF_BLOCK_LAUNCHES == 0
+    assert "card" in ev and "long" not in ev
+    assert ev["n_long"] == ev["block_launches"] == 0
+    assert ev["warp_launches"] == 1
+    assert sw_cuda.LAUNCHES == {"sw_forward_prof": 1}
 
 
 def _engine(nq: int, nt: int, seed: int = 1) -> sw_engine.DeviceAlignDB:
@@ -425,14 +440,9 @@ def _engine_stage(eng, jobs, reverse=True):
 
 
 # direction -> (warp entry point, block entry point, the engine's metrics
-# prefix, the block path's counter, the warp kernel's counter, B8's
-# block counter)
-SEQ = {True: ("sw_reverse", "sw_reverse_shards_block", "rev",
-              "REVERSE_SEQ_BLOCK_LAUNCHES", "REVERSE_LAUNCHES",
-              "REVERSE_BLOCK_LAUNCHES"),
-       False: ("sw_forward", "sw_forward_shards_block", "fwd",
-               "FORWARD_SEQ_BLOCK_LAUNCHES", "FORWARD_LAUNCHES",
-               "FORWARD_BLOCK_LAUNCHES")}
+# prefix)
+SEQ = {True: ("sw_reverse", "sw_reverse_shards_block", "rev"),
+       False: ("sw_forward", "sw_forward_shards_block", "fwd")}
 
 
 def _stage_plan(card, reverse: bool) -> None:
@@ -445,9 +455,9 @@ def _stage_plan(card, reverse: bool) -> None:
     go to one launch of the warp kernel over the rest of the table in
     cells order, which reads the target array itself; every C call is
     under cuda:1 on a stream of cuda:1, every event on cuda:1; the
-    metrics count the block pairs and both launches, and the block
-    path's counter is not B8's."""
-    warp, block_name, d, block_counter, warp_counter, b8 = SEQ[reverse]
+    metrics count the block pairs and both launches, and no launch of
+    B8's short kernel is counted."""
+    warp, block_name, d = SEQ[reverse]
     jobs, _nq, _nt = _stage()
     jobs = _giants(jobs)
     nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
@@ -476,15 +486,15 @@ def _stage_plan(card, reverse: bool) -> None:
     assert base.data_ptr() <= before
     assert short[2][2] == eng.tdata.data_ptr()
     n_long = block[2][7]
-    assert n_long == 3 and block[2][8] == sw_cuda.BLOCK_WARPS
+    assert n_long == 3
     table = _seq_table(card, block)
     np.testing.assert_array_equal(table[:5, :3], jobs[:, :3])
-    np.testing.assert_array_equal(
-        table[5, :3], sw_cuda.block_rows(jobs[1, :3], sw_cuda.BLOCK_WARPS))
+    np.testing.assert_array_equal(table[5, :3],
+                                  sw_cuda.block_rows(jobs[1, :3]))
     assert (table[1, :3] > 32 * table[5, :3]).all()
     ring = 2 * table[3, :3]
     np.testing.assert_array_equal(table[6, :3], np.cumsum(ring) - ring)
-    ring_buf, _at = card.mem.find(block[2][11])
+    ring_buf, _at = card.mem.find(block[2][10])
     assert ring_buf.shape == (int(ring.sum())
                               * sw_cuda.WARP_SCRATCH[reverse],)
     assert (table[7] == 0).all()
@@ -495,9 +505,7 @@ def _stage_plan(card, reverse: bool) -> None:
     m = eng.metrics
     assert m[f"{d}_block_pairs"] == 3 and m[f"{d}_block_launches"] == 1
     assert m[f"{d}_launches"] == 2 and m[f"{d}_pairs"] == jobs.shape[1]
-    assert getattr(sw_cuda, block_counter) == 1
-    assert getattr(sw_cuda, warp_counter) == 1
-    assert getattr(sw_cuda, b8) == 0                 # B8's count
+    assert sw_cuda.LAUNCHES == {block_name: 1, warp: 1}   # none of B8's
     other = "rev" if d == "fwd" else "fwd"
     assert m[f"{other}_block_pairs"] == m[f"{other}_block_launches"] == 0
 
@@ -521,8 +529,9 @@ def test_sequence_forward_stage_plan(card):
     ev: dict = {}
     sw_cuda.sw_forward(*seq, jobs, 11, 1, events=ev)
     assert {"card", "long", "short"} <= set(ev) and ev["n_long"] == 3
-    assert sw_cuda.FORWARD_SEQ_BLOCK_LAUNCHES == 2
-    assert sw_cuda.FORWARD_BLOCK_LAUNCHES == 0
+    assert ev["block_launches"] == ev["warp_launches"] == 1
+    assert sw_cuda.LAUNCHES["sw_forward_shards_block"] == 2
+    assert sw_cuda.LAUNCHES["sw_forward_shards"] == 0
 
 
 def _results_in_job_order(card, reverse: bool) -> None:
@@ -607,3 +616,76 @@ def test_with_targets_view_forward_reads_its_own_targets(card):
     """The forward stage (K1's block path), as the --alt-ali rounds'
     forward stages run it: _view_reads_its_own_targets."""
     _view_reads_its_own_targets(card, reverse=False)
+
+
+def _struct_stage_unsplit(card, reverse: bool) -> None:
+    """A structure stage of the direction goes through the one launcher on
+    its tensors' card, unsplit: one launch of the structure warp kernel
+    under cuda:1 on cuda:1's current stream over the 8-row table of every
+    pair in the caller's order (giant pairs at 7, 100 and 2,000 stay
+    there; shard row 0), every event on cuda:1, the results in the
+    caller's order, and the call's counts in `events` and LAUNCHES."""
+    name = "sw_reverse_struct" if reverse else "sw_forward_struct"
+    fn = getattr(sw_cuda, name)
+    jobs, _nq, _nt = _stage(giant=(100, 100))
+    jobs = _giants(jobs, at=(7, 100, 2000))
+    nq, nt = int(jobs[0, -1] + jobs[1, -1]), int(jobs[2, -1] + jobs[3, -1])
+    u8, i8 = torch.uint8, torch.int8
+    table = card.tensor(21, i8, (21, 21))
+    struct = (card.tensor(nq, u8), card.tensor(nq, u8), card.tensor(nq, i8),
+              card.tensor(nt, u8), card.tensor(nt, u8), table, table)
+    ev: dict = {}
+    out = fn(*struct, jobs, 11, 1, events=ev)
+    calls = [c for c in card.lib.calls if c[0] != "sw_load"]
+    assert [c[0] for c in calls] == [name]
+    _name, current, args = calls[0]
+    assert current == CARD and args[-1] == 0x1000 * (CARD + 1)
+    assert args[11] == jobs.shape[1]
+    t, off = card.mem.find(args[9])
+    got = t.data.reshape(8, args[10])[:, off // 8:]
+    np.testing.assert_array_equal(got[:5], jobs)
+    np.testing.assert_array_equal(got[5], sw_cuda.lane_rows(jobs[1]))
+    assert (got[7] == 0).all()
+    np.testing.assert_array_equal(out.data[0], jobs[0])
+    assert (out.data[1] == 0).all()
+    assert {"card", "short"} <= set(ev) and "long" not in ev
+    assert ev["n_long"] == ev["block_launches"] == 0
+    assert ev["warp_launches"] == 1
+    assert set(card.cuda.events) == {CARD} and card.cuda.current == 0
+    assert sw_cuda.LAUNCHES == {name: 1}
+
+
+def test_struct_forward_stage_unsplit(card):
+    """sw_forward_struct: _struct_stage_unsplit."""
+    _struct_stage_unsplit(card, reverse=False)
+
+
+def test_struct_reverse_stage_unsplit(card):
+    """sw_reverse_struct: _struct_stage_unsplit."""
+    _struct_stage_unsplit(card, reverse=True)
+
+
+def test_engine_launch_counts_agree(card):
+    """A sequence engine's forward stages on cuda:1, one with three pairs
+    of many strips and one of shorter pairs: its `fwd_launches` and
+    `fwd_block_launches` are the launches LAUNCHES counts by entry point,
+    one warp launch a stage and a block launch where a stage has long
+    pairs."""
+    jobs, _nq, _nt = _stage()
+    big = _giants(jobs)
+    short, _nq, _nt = _stage(giant=(100, 100))
+    nq = int(max(big[0, -1] + big[1, -1], short[0, -1] + short[1, -1]))
+    nt = int(max(big[2, -1] + big[3, -1], short[2, -1] + short[3, -1]))
+    eng = _engine(nq, nt)
+    _engine_stage(eng, big, reverse=False)
+    _engine_stage(eng, short, reverse=False)
+    m = eng.metrics
+    assert m["n_batches"] == 2
+    assert sw_cuda.LAUNCHES["sw_forward"] == 2
+    assert m["fwd_block_launches"] == sw_cuda.LAUNCHES[
+        "sw_forward_shards_block"] >= 1
+    assert m["fwd_launches"] == sum(sw_cuda.LAUNCHES.values())
+    assert m["fwd_launches"] - m["fwd_block_launches"] == sw_cuda.LAUNCHES[
+        "sw_forward"]
+    assert m["fwd_block_pairs"] >= 3
+    assert m["rev_launches"] == m["rev_block_launches"] == 0
